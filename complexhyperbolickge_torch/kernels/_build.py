@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc into
+`build/kernels/lib<name>.so` at the root of the checkout, then loaded with
+ctypes.  Nothing is compiled or loaded at import: the first caller builds
+(`load_library`), and `build_all` starts one nvcc per source at once.  A
+library is rebuilt when the sha256 of its source and flags differs from
+the stamp written beside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("chyp_rank",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every exported launcher; pointers and the stream are c_void_p
+SIGNATURES = {
+    "chyp_rank": {
+        "chyp_rank_sweep_masked": [_P] * 8 + [_I, _I, _I, _F, _P],
+        "chyp_rank_sweep_nomask": [_P] * 8 + [_I, _I, _I, _F, _P],
+        "chyp_rank_filtered_sub": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_logs: dict = {}  # name -> nvcc's output (ptxas register/spill report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME  # CUDA_HOME, or nvcc's usual home
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _paths(name: str):
+    so = BUILD_DIR / f"lib{name}.so"
+    return so, so.with_name(so.name + ".sha256")
+
+
+def _is_current(name: str) -> bool:
+    so, stamp = _paths(name)
+    return so.exists() and stamp.exists() and stamp.read_text() == _digest(name)
+
+
+def _start(name: str) -> subprocess.Popen:
+    so, _ = _paths(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(name: str, proc: subprocess.Popen):
+    out, _ = proc.communicate()
+    build_logs[name] = out
+    so, stamp = _paths(name)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, so)
+    stamp.write_text(_digest(name))
+
+
+def build_all(names=SOURCES):
+    """Compile every stale library, one nvcc per source, all in parallel."""
+    with _lock:
+        procs = {n: _start(n) for n in names if not _is_current(n)}
+        errors = []
+        for n, proc in procs.items():
+            try:
+                _finish(n, proc)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if stale; argtypes set."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_paths(name)[0]))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]

@@ -1,0 +1,334 @@
+"""Fused filtered ranking for the complex-hyperbolic (FFT) family.
+
+Port of complexhyperbolickge_tpu/kernels/chyp_rank.py.  Filtered ranking
+scores every query against ALL entities; materialized, that is a (B, N)
+score matrix written and re-read per batch (82 MB at WN18RR, B = 500).  The
+CUDA kernels in csrc/chyp_rank.cu fuse, per entity tile,
+
+    Hermitian form -> cross-ratio x -> acosh -> score = bt - dist^2
+    -> count of {score >= t2} over the kept entities
+
+so the only outputs are (B,) int32 counts.  Three kernels, one wrapper each:
+
+  * chyp_rank_counts        (K1, TPU chyp_rank_counts): masked sweep; an
+    int8 (B, Np) mask marks filtered entities and pad rows.
+  * chyp_rank_sweep_nomask  (K2, TPU chyp_rank_counts_nomask's kernel):
+    counts every row except the gold, with no mask.
+  * chyp_rank_filtered_sub  (K2's subtraction): re-scores each query's
+    filtered ids with the same arithmetic, for subtraction.
+
+Inputs, all float32 and contiguous: lhs2 (2B, D) = [lhs; swap_neg(lhs)],
+zn (B,) the clamped Hermitian norm of lhs, t2 (B,) the gold-target score
+minus the lhs bias, rhs (Np, D) the entity table with >= 1 zero pad row,
+wn (Np,) = clamp(|w|^2 - 1, -1, -eps), bt (Np,) tail biases with -1e30 on
+pad rows.  The features need no padding (D = 66 at rank 33).
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+`launches`; for CPU tensors it runs the plain PyTorch version beside it,
+which repeats the arithmetic with a matmul (a different summation order, so
+counts may differ on scores within float rounding of t2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from complexhyperbolickge_torch.ops.chyperbolic import chyp_distance, swap_neg
+from complexhyperbolickge_torch.ops.math import ball_eps, round_up
+
+# launches of each CUDA kernel since the last reset_launches()
+launches = {
+    "chyp_rank_sweep_masked": 0,
+    "chyp_rank_sweep_nomask": 0,
+    "chyp_rank_filtered_sub": 0,
+}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+_EPS = ball_eps(torch.float32)
+# entity rows per tile of the sweep kernel; ChypRanker pads its table to a
+# multiple of it (the kernel also takes a ragged last tile)
+_ROW_TILE = 128
+# lower clamp of the cross-ratio, passed to the kernels as one f32 value so
+# kernel and plain versions round it identically
+X_MIN = 1.0 + _EPS
+
+
+# ------------------------------ plain versions --------------------------------
+
+
+def _score_epilogue(acc_re, acc_im, zn, wn, bt):
+    sr = acc_re - 1.0
+    x = 2.0 * (sr * sr + acc_im * acc_im) / (zn * wn) - 1.0
+    x = torch.clamp_min(x, X_MIN)
+    d = torch.log(x + torch.sqrt(x * x - 1.0))
+    return bt - d * d
+
+
+def chyp_scores_plain(lhs2, zn, rhs, wn, bt):
+    """All-entity scores (B, Np) in plain PyTorch: bt - dist^2."""
+    b = lhs2.shape[0] // 2
+    acc = lhs2 @ rhs.T
+    return _score_epilogue(acc[:b], acc[b:], zn[:, None], wn[None, :], bt[None, :])
+
+
+def chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask):
+    scores = chyp_scores_plain(lhs2, zn, rhs, wn, bt)
+    return ((scores >= t2[:, None]) & (mask == 0)).sum(1, dtype=torch.int32)
+
+
+def chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold):
+    scores = chyp_scores_plain(lhs2, zn, rhs, wn, bt)
+    cols = torch.arange(rhs.shape[0], device=rhs.device)
+    keep = cols[None, :] != gold[:, None]
+    return ((scores >= t2[:, None]) & keep).sum(1, dtype=torch.int32)
+
+
+def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
+    b = lhs2.shape[0] // 2
+    np_ = rhs.shape[0]
+    ok = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
+    f = fidx.long().clamp(0, np_ - 1)
+    rows = rhs[f]  # (B, L, D)
+    acc_re = torch.einsum("bd,bld->bl", lhs2[:b], rows)
+    acc_im = torch.einsum("bd,bld->bl", lhs2[b:], rows)
+    scores = _score_epilogue(acc_re, acc_im, zn[:, None], wn[f], bt[f])
+    return (ok & (scores >= t2[:, None])).sum(1, dtype=torch.int32)
+
+
+# --------------------------------- wrappers -----------------------------------
+
+
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_common(lhs2, zn, t2, rhs, wn, bt):
+    """Validate the shared inputs of a CUDA launch; returns (B, Np, D)."""
+    dev = lhs2.device
+    if dev.type != "cuda":
+        raise ValueError(f"chyp_rank kernels take CPU or CUDA tensors, got {dev}")
+    if lhs2.dim() != 2 or lhs2.shape[0] % 2 or rhs.dim() != 2:
+        raise ValueError("lhs2 must be (2B, D) and rhs (Np, D)")
+    b, d = lhs2.shape[0] // 2, lhs2.shape[1]
+    np_ = rhs.shape[0]
+    f32 = torch.float32
+    _check("lhs2", lhs2, f32, (2 * b, d), dev)
+    _check("zn", zn, f32, (b,), dev)
+    _check("t2", t2, f32, (b,), dev)
+    _check("rhs", rhs, f32, (np_, d), dev)
+    _check("wn", wn, f32, (np_,), dev)
+    _check("bt", bt, f32, (np_,), dev)
+    return b, np_, d
+
+
+def _launch(name, *args):
+    from complexhyperbolickge_torch.kernels._build import load_library
+
+    lib = load_library("chyp_rank")
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError {rc}")
+    launches[name] += 1
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def chyp_rank_counts(lhs2, zn, t2, rhs, wn, bt, mask):
+    """K1: #{j : mask[b, j] == 0 and score(b, j) >= t2[b]} per query, int32
+    (B,).  mask is int8 (B, Np), 1 = filtered out (and on pad rows)."""
+    if lhs2.device.type == "cpu":
+        return chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask)
+    b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
+    _check("mask", mask, torch.int8, (b, np_), lhs2.device)
+    counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
+    with torch.cuda.device(lhs2.device):
+        _launch("chyp_rank_sweep_masked", _ptr(lhs2), _ptr(zn), _ptr(t2),
+                _ptr(rhs), _ptr(wn), _ptr(bt), _ptr(mask), _ptr(counts),
+                b, np_, d, X_MIN, _stream(lhs2.device))
+    return counts
+
+
+def chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold):
+    """K2 sweep: #{j != gold[b] : score(b, j) >= t2[b]} per query, int32
+    (B,).  gold is int32 (B,), a row of this table or -1."""
+    if lhs2.device.type == "cpu":
+        return chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold)
+    b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
+    _check("gold", gold, torch.int32, (b,), lhs2.device)
+    counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
+    with torch.cuda.device(lhs2.device):
+        _launch("chyp_rank_sweep_nomask", _ptr(lhs2), _ptr(zn), _ptr(t2),
+                _ptr(rhs), _ptr(wn), _ptr(bt), _ptr(gold), _ptr(counts),
+                b, np_, d, X_MIN, _stream(lhs2.device))
+    return counts
+
+
+def chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
+    """K2 subtraction: #{l : fidx[b, l] in [0, Np), != gold[b], score >=
+    t2[b]} per query, int32 (B,).  fidx is int32 (B, L), rows deduplicated
+    (data/dataset.py::eval_pack)."""
+    if lhs2.device.type == "cpu":
+        return chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold)
+    b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
+    if fidx.dim() != 2:
+        raise ValueError("fidx must be (B, L)")
+    _check("fidx", fidx, torch.int32, (b, fidx.shape[1]), lhs2.device)
+    _check("gold", gold, torch.int32, (b,), lhs2.device)
+    sub = torch.empty(b, dtype=torch.int32, device=lhs2.device)
+    with torch.cuda.device(lhs2.device):
+        _launch("chyp_rank_filtered_sub", _ptr(lhs2), _ptr(zn), _ptr(t2),
+                _ptr(rhs), _ptr(wn), _ptr(bt), _ptr(fidx), _ptr(gold),
+                _ptr(sub), b, np_, d, fidx.shape[1], X_MIN,
+                _stream(lhs2.device))
+    return sub
+
+
+def chyp_rank_counts_nomask(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
+    """K2: #{non-filtered, non-gold j : score >= t2} without a (B, Np) mask:
+    the sweep counts every non-gold row and the filtered ids it counted are
+    subtracted.  Both kernels share one score routine, so a filtered id is
+    subtracted exactly when the sweep counted it."""
+    return (chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold)
+            - chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold))
+
+
+# ---------------------------------- ranker ------------------------------------
+
+
+class ChypRanker:
+    """Filtered ranker for FFTUnitBall-family models; the counterpart of the
+    JAX PallasChypRanker.  Call it as ranker(q (B, 3), fidx (B, L)) -> ranks
+    (B,) float32, with q and fidx int64 tensors on the model's device.
+
+    The padded tables are built once per params version: the cache keys on
+    the entity and bt parameter objects and their `_version` counters, so
+    an in-place update (load_state_dict, an optimizer step) is never served
+    stale.  masked=True streams an int8 (B, Np) mask through K1; masked=False
+    runs K2 (sweep + filtered subtraction) with no mask.
+    """
+
+    def __init__(self, model, masked: bool = True):
+        from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
+
+        if not isinstance(model, FFTUnitBall):
+            raise TypeError("ChypRanker ranks FFTUnitBall-family models only, "
+                            f"got {type(model).__name__}")
+        if model.cfg.bias not in ("learn", "none", "constant"):
+            raise ValueError(f"unknown bias mode {model.cfg.bias!r}")
+        self.model = model
+        self.masked = masked
+        self._tables_key = None
+        self._tables = None
+
+    # --------------------------- per-params prep ----------------------------
+
+    def _prepare_tables(self):
+        m = self.model
+        ent = m.entity.detach().to(torch.float32)
+        n, d = ent.shape
+        # n + 1: at least one pad row, where pad filter ids (== n_entities)
+        # land: masked in K1, unreachable (bt = -1e30) in K2
+        np_ = round_up(n + 1, _ROW_TILE)
+        rhs = torch.zeros((np_, d), dtype=torch.float32, device=ent.device)
+        rhs[:n] = ent
+        bt = torch.full((np_,), -1e30, dtype=torch.float32, device=ent.device)
+        if m.cfg.bias == "learn":
+            bt[:n] = m.bt.detach()[:, 0].to(torch.float32)
+        else:
+            bt[:n] = 0.0
+        wn = (torch.sum(rhs * rhs, dim=-1) - 1.0).clamp(-1.0, -_EPS)
+        return rhs, bt, wn
+
+    def _get_tables(self):
+        m = self.model
+        key = (m.entity, m.entity._version, m.bt, m.bt._version)
+        old = self._tables_key
+        if (old is None or old[0] is not key[0] or old[1] != key[1]
+                or old[2] is not key[2] or old[3] != key[3]):
+            self._tables = self._prepare_tables()
+            self._tables_key = key
+        return self._tables
+
+    # ----------------------------- per-batch work ----------------------------
+
+    def _queries_core(self, q):
+        """(lhs2, zn, t2) of a batch: query embeddings, their clamped norm,
+        and the gold-target threshold with the lhs bias folded out."""
+        m = self.model
+        (lhs,), _ = m.get_queries(q[:, :2])
+        lhs = lhs.to(torch.float32)
+        lhs2 = torch.cat([lhs, swap_neg(lhs)], dim=0).contiguous()
+        zn = (torch.sum(lhs * lhs, dim=-1) - 1.0).clamp(-1.0, -_EPS)
+        gold = q[:, 2]
+        d_gold = chyp_distance(lhs, m.entity[gold].to(torch.float32))
+        t2 = -(d_gold**2)
+        if m.cfg.bias == "learn":
+            # score = lhs_b + bt + sim: lhs_b cancels; bt stays on the table
+            t2 = t2 + m.bt[gold, 0].to(torch.float32)
+        # 'constant' adds gamma on both sides; 'none' adds nothing
+        return lhs2, zn, t2.contiguous()
+
+    @torch.no_grad()
+    def kernel_inputs(self, q, fidx, masked: bool | None = None) -> dict:
+        """The kernels' inputs for one batch: lhs2, zn, t2, rhs, wn, bt, and
+        mask (int8 (B, Np), masked form) or fidx and gold (int32, maskless
+        form).  Filter ids outside [0, Np) are sent to pad row n_entities,
+        where torch's scatter has no "drop" mode."""
+        masked = self.masked if masked is None else masked
+        rhs, bt, wn = self._get_tables()
+        lhs2, zn, t2 = self._queries_core(q)
+        n = self.model.cfg.n_entities
+        np_ = rhs.shape[0]
+        fidx = torch.where((fidx >= 0) & (fidx < np_), fidx,
+                           torch.full_like(fidx, n))
+        out = dict(lhs2=lhs2, zn=zn, t2=t2, rhs=rhs, wn=wn, bt=bt)
+        if masked:
+            mask = torch.zeros((q.shape[0], np_), dtype=torch.int8,
+                               device=rhs.device)
+            mask[:, n:] = 1
+            mask.scatter_(1, fidx.long(), 1)
+            out["mask"] = mask
+        else:
+            out["fidx"] = fidx.to(torch.int32).contiguous()
+            out["gold"] = q[:, 2].to(torch.int32).contiguous()
+        return out
+
+    @torch.no_grad()
+    def __call__(self, q, fidx):
+        x = self.kernel_inputs(q, fidx)
+        base = (x["lhs2"], x["zn"], x["t2"], x["rhs"], x["wn"], x["bt"])
+        if self.masked:
+            counts = chyp_rank_counts(*base, x["mask"])
+        else:
+            counts = chyp_rank_counts_nomask(*base, x["fidx"], x["gold"])
+            # the gold was excluded from both the sweep and the subtraction;
+            # the dense path's contribution is 0 when it is filtered (always,
+            # under the reference protocol) and +1 otherwise
+            gold_filtered = (x["fidx"] == x["gold"][:, None]).any(dim=1)
+            counts = counts + (~gold_filtered).to(torch.int32)
+        # NaN discipline: counts are finite by construction, so NaN params
+        # would silently rank everything 1; t2 * 0 is NaN exactly when the
+        # gold-target score is, and get_ranking's host check then fires
+        return 1.0 + counts.to(torch.float32) + x["t2"] * 0.0
