@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (complexhyperbolickge_torch) on one
 NVIDIA GPU, at the width of the paper's model: FFTRotH, rank 33 (a 40,943 x
-66 f32 entity table), bias=learn, multi_c, eval batch 500, on a synthetic KG
+66 f32 entity table), bias=learn, multi_c, batch 500, on a synthetic KG
 with WN18RR's shapes (40,943 entities, 11 relations, 86,835 / 3,034 / 3,134
 train / valid / test triples).  Weights and data are drawn from --seed.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one JSON line each; any failure exits non-zero without the final
-line:
-  1 device   the card (torch.cuda), then nvidia-smi's name and power limit
-  2 build    nvcc builds every kernel from csrc/ (one nvcc per source)
-  3 kernels  each CUDA kernel against its plain PyTorch version at the main
-             path's batch shapes; the maskless count must equal the masked
-  4 kge-test cli.test.test() with the auto (masked kernel), pallas_maskless
-             and dense rankers: MRR equal within 1e-4, fused ranks identical;
-             plus whole-split ranking throughput per ranker
-  5 serve    PredictService top-k (filtered and unfiltered) against the argmax
-             of the dense score_all, and one POST /predict over HTTP
-  6 launches  each kernel's launches on the main path (phases 4-5, counted
-             from 0); a kernel that never launched fails the run
-  7 profile   torch.profiler over one whole-split ranking per ranker: wall
-             time, device busy time and idle share, top kernels and host ops
-  8 the kernels line: launches, and the times of kernel, plain version and
-             dense ranker beside the kernel's bound
-  9 {"ok": true, "device": {...}}
+Two paths of the port are driven, each with the kernels' launch counts set
+to 0 just before it and read just after: serving and evaluation (kge-test,
+predict, HTTP) and training (cli.run.train at the published WN18RR config:
+Adam lr 3e-4, N3 reg 0, 100 per-query negatives, 2 epochs).  Phases, one
+JSON line each; any failure exits non-zero without the final line:
+  1 device    the card (torch.cuda), then nvidia-smi's name and power limit
+  2 build     nvcc builds every kernel from csrc/ (one nvcc per source)
+  3 kernels   each CUDA kernel against its plain PyTorch version at the main
+              paths' shapes: the rankers K1/K2 on an eval batch (the maskless
+              count must equal the masked), the train distance K3/K4 at
+              (500, 100, 66) in the clamped-at-init and 0.4 regimes
+  4 train-step parity  3 Adam steps through K3/K4 and through the plain
+              version from the same params and negatives: params agree
+  5 kge-test  cli.test.test() with the auto (masked kernel), pallas_maskless
+              and dense rankers: MRR equal within 1e-4, fused ranks identical;
+              plus whole-split ranking throughput per ranker
+  6 serve     PredictService top-k (filtered and unfiltered) against the
+              argmax of the dense score_all, and one POST /predict over HTTP
+  7 train     cli.run.train(): the loss finite and falling from epoch 1 to 2,
+              final test metrics through K1; triples/s and ms/step per epoch
+  8 launches  each path's kernel launches; a kernel of a path that never
+              launched there fails the run, and K3/K4 must launch at least
+              once per training step
+  9 profile   torch.profiler over one whole-split ranking per ranker and over
+              20 training steps: wall time, device busy time and idle share,
+              top kernels and host ops
+ 10 the kernels line: launches, and the times of kernel and plain version
+              beside the kernel's bound (and the rankers' and the training
+              step's device time)
+ 11 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
 
@@ -42,23 +54,42 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+DEVICE = "cuda"  # of the phases that build their own tensors
 
 WN18RR = dict(synthetic_entities=40943, synthetic_relations=11,
               synthetic_train=86835, synthetic_valid=3034, synthetic_test=3134)
-RANK, BATCH = 33, 500
+RANK, BATCH, NEG = 33, 500, 100
 REPS = 5  # timed repetitions of a whole-split ranking
+EPOCHS = 2  # training epochs of the train phase
+PROFILE_STEPS = 20  # training steps in the profiled window
+# the paper's published WN18RR training config (README.md)
+TRAIN_FLAGS = ["--model", "FFTRotH", "--regularizer", "N3", "--reg", "0.0",
+               "--optimizer", "Adam", "--rank", str(RANK), "--batch_size", str(BATCH),
+               "--neg_sample_size", str(NEG), "--learning_rate", "3e-4", "--multi_c",
+               "--bias", "learn", "--dtype", "float32"]
+# K3/K4 against their plain version: the JAX kernel test's tolerances
+TRAIN_FWD_TOL = dict(rtol=1e-5, atol=0.0)
+TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+PARITY_TOL = dict(rtol=1e-5, atol=1e-7)
 
 # peak rates by card, from NVIDIA's data sheets (dense, no sparsity): fp32
-# outside the tensor cores (the kernels are exact fp32) and memory bandwidth
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
-         "H100": (67.0e12, 3.35e12), "H200": (67.0e12, 4.8e12)}
+# outside the tensor cores (the kernels are exact fp32), memory bandwidth,
+# and fp64 outside the tensor cores (K3/K4 accumulate their dots in fp64)
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 25.6e12), "H100 NVL": (60.0e12, 3.9e12, 30.0e12),
+         "H100": (67.0e12, 3.35e12, 34.0e12), "H200": (67.0e12, 4.8e12, 34.0e12)}
 
 KERNEL_META = {
     "chyp_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/chyp_rank.py:147",
     "chyp_rank_sweep_nomask": "complexhyperbolickge_tpu/kernels/chyp_rank.py:213",
     "chyp_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/chyp_rank.py:230",
+    "chyp_train_fwd": "complexhyperbolickge_tpu/kernels/chyp_train.py:89",
+    "chyp_train_bwd": "complexhyperbolickge_tpu/kernels/chyp_train.py:117",
 }
-SOURCE = "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu"
+SOURCES = {"chyp_rank": "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu",
+           "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu"}
+RANK_KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask",
+                "chyp_rank_filtered_sub")
+TRAIN_KERNELS = ("chyp_train_fwd", "chyp_train_bwd")
 
 
 def emit(obj):
@@ -220,6 +251,121 @@ def phase_kernels(model, dataset):
     return (q, f, xm, xn), errors
 
 
+def train_pair(scale: float, seed: int):
+    """A train-distance input at the main path's shape, lhs (B, D) and rhs
+    (B, K, D) ~ N(0, scale), with a cotangent g (B, K), on the card."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    d = 2 * RANK
+    return [torch.tensor(r.normal(0.0, s, shape), dtype=torch.float32, device=DEVICE)
+            for s, shape in ((scale, (BATCH, d)), (scale, (BATCH, NEG, d)), (1.0, (BATCH, NEG)))]
+
+
+def phase_train_kernels(seed: int):
+    """K3/K4 through chyp_train_distance against chyp_train_distance_plain
+    (forward and both gradients) at (500, 100, 66), in the clamped-at-init
+    (1e-3) and the 0.4 regime."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import chyp_train as CT
+
+    def value_and_grads(fn, lhs, rhs, g):
+        l, r = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        d = fn(l, r)
+        (d * g).sum().backward()
+        return d.detach(), l.grad, r.grad
+
+    out = {"phase": "train-kernels", "B": BATCH, "K": NEG, "D": 2 * RANK, "regimes": {}}
+    errors = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    for scale in (1e-3, 0.4):
+        lhs, rhs, g = train_pair(scale, seed)
+        got = value_and_grads(CT.chyp_train_distance, lhs, rhs, g)
+        want = value_and_grads(CT.chyp_train_distance_plain, lhs, rhs, g)
+        torch.cuda.synchronize()
+        tols = (TRAIN_FWD_TOL, TRAIN_GRAD_TOL, TRAIN_GRAD_TOL)
+        ok = [bool(torch.allclose(a, b, **t)) for a, b, t in zip(got, want, tols)]
+        diff = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        out["regimes"][str(scale)] = {
+            "d_max_abs_err": diff[0], "d_lhs_max_abs_err": diff[1],
+            "d_rhs_max_abs_err": diff[2], "within_tolerance": ok,
+            "finite": all(bool(torch.isfinite(t).all()) for t in got)}
+        errors["chyp_train_fwd"] = max(errors["chyp_train_fwd"], diff[0])
+        errors["chyp_train_bwd"] = max(errors["chyp_train_bwd"], diff[1], diff[2])
+    emit(out)
+    if not all(all(v["within_tolerance"]) and v["finite"] for v in out["regimes"].values()):
+        raise AssertionError(f"K3/K4 disagree with their plain version: {out}")
+    return errors
+
+
+def wn18rr_model(seed: int):
+    """A fresh FFTRotH at the smoke's width on the card, drawn from `seed`."""
+    import torch
+
+    from complexhyperbolickge_torch.models import ModelConfig, get_model
+
+    cfg = ModelConfig(n_entities=WN18RR["synthetic_entities"],
+                      n_relations=2 * WN18RR["synthetic_relations"], rank=RANK,
+                      bias="learn", multi_c=True, dtype="float32")
+    return get_model("FFTRotH")(cfg, device=DEVICE,
+                                generator=torch.Generator().manual_seed(seed))
+
+
+def phase_train_step_parity(seed: int):
+    """3 Adam steps (lr 3e-4) from the same params with the same negatives,
+    once through K3/K4 and once with the plain version in their place."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.kernels import chyp_train as CT
+    from complexhyperbolickge_torch.train.losses import sample_negatives
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    init = wn18rr_model(seed).state_dict()
+    n_ent, n_rel = init["entity"].shape[0], init["rel"].shape[0]
+    rng = np.random.default_rng(seed)
+    batches = np.stack([rng.integers(0, n_ent, (3, BATCH)), rng.integers(0, n_rel, (3, BATCH)),
+                        rng.integers(0, n_ent, (3, BATCH))], axis=-1).astype(np.int32)
+    weights = np.ones((3, BATCH), np.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    negs = [sample_negatives(gen, torch.as_tensor(b, dtype=torch.int64, device=DEVICE),
+                             n_ent, NEG) for b in batches]
+
+    def three_steps():
+        model = wn18rr_model(seed)
+        model.load_state_dict(init)
+        it = iter(negs)
+        trainer = Trainer(model, TrainConfig(optimizer="Adam", learning_rate=3e-4,
+                                             neg_sample_size=NEG),
+                          n_ent, n_rel, sampler=lambda *a: next(it))
+        KS.reset_launches()
+        trainer.run_epoch(batches, weights, None)
+        torch.cuda.synchronize()
+        counts = {k: KS.launches()[k] for k in TRAIN_KERNELS}
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}, counts
+
+    kernel, kernel_launches = three_steps()
+    real, CT.chyp_train_distance = CT.chyp_train_distance, CT.chyp_train_distance_plain
+    try:
+        plain, plain_launches = three_steps()
+    finally:
+        CT.chyp_train_distance = real
+    out = {"phase": "train-step parity", "steps": 3, "tolerance": PARITY_TOL,
+           "kernel_launches": kernel_launches, "plain_launches": plain_launches,
+           "max_moved": {k: float((kernel[k] - init[k]).abs().max()) for k in init},
+           "max_abs_diff": {k: float((kernel[k] - plain[k]).abs().max()) for k in init},
+           "within_tolerance": {k: bool(torch.allclose(kernel[k], plain[k], **PARITY_TOL))
+                                for k in init}}
+    emit(out)
+    # a step scores the positive (K = 1) and the negatives (K = NEG): two
+    # launches of each kernel
+    if (not all(out["within_tolerance"].values()) or set(plain_launches.values()) != {0}
+            or set(kernel_launches.values()) != {2 * 3}):
+        raise AssertionError(f"kernel and plain training steps disagree: {out}")
+
+
 def phase_kge_test(model_dir, model, dataset):
     """kge-test end to end with each ranker, then whole-split throughput."""
     import numpy as np
@@ -330,14 +476,94 @@ def phase_serve(model_dir):
         raise AssertionError(f"serving checks failed: {checks}")
 
 
-def phase_profile(model, dataset):
-    """Where a whole-split ranking's time goes: torch.profiler over the test
-    split (both directions) per ranker; device busy time is the union of the
-    CUDA kernels' intervals, idle share = 1 - busy / wall."""
+def phase_train(seed: int):
+    """cli.run.train() on the card at the published config for EPOCHS epochs,
+    validating every epoch; returns the per-epoch history."""
+    import numpy as np
+
+    from complexhyperbolickge_torch.cli.run import build_parser, train
+
+    argv = ["--dataset", "synthetic",
+            *[str(x) for k, v in WN18RR.items() for x in (f"--{k}", v)], *TRAIN_FLAGS,
+            "--max_epochs", str(EPOCHS), "--valid", "1", "--eval_batch_size", str(BATCH),
+            "--device", DEVICE, "--seed", str(seed), "--save_dir", str(WORK / "train")]
+    t0 = time.perf_counter()
+    res = train(build_parser().parse_args(argv))
+    secs = time.perf_counter() - t0
+    epochs = [dict(h, ms_per_step=1e3 * h["seconds"] / h["steps"]) for h in res["history"]]
+    later = epochs[1:]
+    out = {"phase": "train", "argv": argv, "epochs": epochs, "cli_seconds": secs,
+           "median_after_first": {
+               k: float(np.median([e[k] for e in later])) for k in ("triples_per_s", "ms_per_step")},
+           "valid": res["valid"], "test": res["test"]}
+    emit(out)
+    losses = [e["train_loss"] for e in epochs]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the training loss is not finite and falling: {losses}")
+    metrics = [res["test"]["MRR"], res["test"]["MR"], *res["test"]["hits@[1,3,10]"]]
+    if not (np.isfinite(metrics).all() and 0.0 < res["test"]["MRR"] <= 1.0):
+        raise AssertionError(f"bad final test metrics: {res['test']}")
+    return res["history"]
+
+
+def train_window(dataset, seed: int):
+    """A trainer at the published config on a fresh WN18RR-width model, with
+    the batches of one epoch uploaded: what the training profile and the
+    step time run."""
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.data.dataset import epoch_batches
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    model = wn18rr_model(seed)
+    trainer = Trainer(model, TrainConfig(optimizer="Adam", learning_rate=3e-4,
+                                         neg_sample_size=NEG),
+                      model.cfg.n_entities, model.cfg.n_relations)
+    b, w = epoch_batches(dataset.get_examples("train"), BATCH, np.random.default_rng(seed))
+    return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed)
+
+
+def profile_window(fn) -> dict:
+    """torch.profiler over fn(): wall time, device busy time (the union of
+    the CUDA kernels' intervals; annotation spans such as Optimizer.step's
+    cover gaps and are left out) and idle share, top kernels and host ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in kern:
+        s, f = e.time_range.start, e.time_range.end
+        busy += max(0.0, f - max(s, end))
+        end = max(end, f)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (f - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3 if kern else "not measured",
+        "device_idle_share": 1.0 - busy / wall_us if kern else "not measured",
+        "device_kernels": len(kern),
+        "top_kernels_ms": {n[:80]: t / 1e3 for n, t in top},
+        "top_host_ops_self_ms": {
+            e.key[:60]: e.self_cpu_time_total / 1e3
+            for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]},
+    }
+
+
+def phase_profile(model, dataset, window):
+    """Where the time goes: one whole-split ranking of the test split (both
+    directions) per ranker, and PROFILE_STEPS training steps.  Returns the
+    training step's device time (busy ms per step)."""
     from complexhyperbolickge_torch.train.evaluate import get_ranking, make_best_ranker
 
     packs = [dataset.eval_pack("test", d) for d in ("rhs", "lhs")]
@@ -346,44 +572,32 @@ def phase_profile(model, dataset):
         rank_fn = make_best_ranker(model, BATCH, backend)
         for p in packs:  # warm-up
             get_ranking(model, p, BATCH, rank_fn=rank_fn)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for p in packs:
-                get_ranking(model, p, BATCH, rank_fn=rank_fn)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
-        busy, end, by_name = 0.0, float("-inf"), {}
-        for e in kern:
-            s, f = e.time_range.start, e.time_range.end
-            busy += max(0.0, f - max(s, end))
-            end = max(end, f)
-            by_name[e.name] = by_name.get(e.name, 0.0) + (f - s)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        out["rankers"][backend] = {
-            "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3 if kern else "not measured",
-            "device_idle_share": 1.0 - busy / wall_us if kern else "not measured",
-            "device_kernels": len(kern),
-            "top_kernels_ms": {n[:80]: t / 1e3 for n, t in top},
-            "top_host_ops_self_ms": {
-                e.key[:60]: e.self_cpu_time_total / 1e3
-                for e in sorted(prof.key_averages(),
-                                key=lambda e: -e.self_cpu_time_total)[:8]},
-        }
+        out["rankers"][backend] = profile_window(
+            lambda: [get_ranking(model, p, BATCH, rank_fn=rank_fn) for p in packs])
+    trainer, b, w, gen = window
+    trainer.run_epoch(b[:3], w[:3], gen)  # warm-up
+    steps = slice(3, 3 + PROFILE_STEPS)
+    prof = profile_window(lambda: trainer.run_epoch(b[steps], w[steps], gen))
+    busy = prof["device_busy_ms"]
+    prof["device_busy_ms_per_step"] = (busy / PROFILE_STEPS if isinstance(busy, float)
+                                       else "not measured")
+    prof["wall_ms_per_step"] = prof["wall_ms"] / PROFILE_STEPS
+    prof["device_kernels_per_step"] = prof["device_kernels"] / PROFILE_STEPS
+    out["train"] = {"steps": PROFILE_STEPS, **prof}
     emit(out)
+    return prof["device_busy_ms_per_step"]
 
 
-def phase_kernel_line(model, batch, launches, errors, smi, name):
-    """Times of each kernel and its plain version on the main path's batch,
-    beside the kernel's bound; dense_ms is the dense ranker's device time
-    per batch and ranker_ms that of the fused ranker that launches the
-    kernel, both with the query prep."""
+def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
+    """Times of each kernel and its plain version on the main paths'
+    shapes, beside the kernel's bound.  Rankers: dense_ms is the dense
+    ranker's device time per batch and ranker_ms that of the fused ranker
+    that launches the kernel, both with the query prep.  Train distance:
+    step_ms is one whole training step's device time (phase_profile)."""
     import numpy as np
 
     from complexhyperbolickge_torch.kernels import chyp_rank as K
+    from complexhyperbolickge_torch.kernels import chyp_train as CT
     from complexhyperbolickge_torch.train.evaluate import make_ranker
 
     q, f, xm, xn = batch
@@ -391,7 +605,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name):
     b, d = base[0].shape[0] // 2, base[0].shape[1]
     np_ = base[3].shape[0]
     l = xn["fidx"].shape[1]
-    flops_peak, bw_peak = peak_rates(name)
+    f32_peak, bw_peak, f64_peak = peak_rates(name)
     # whole rankers per batch, query prep included (~200 launches a call, so
     # few reps: the stream's queue of pending launches is bounded)
     dense = make_ranker(model)
@@ -402,34 +616,56 @@ def phase_kernel_line(model, batch, launches, errors, smi, name):
         ranker_ms[masked] = cuda_ms(lambda: ranker(q, f), reps=4)
     n_rows = int(np.unique(xn["fidx"].cpu().numpy()).size)
     vec = 4 * (2 * b * d + 2 * b + 2 * np_ + np_ * d)  # lhs2, zn, t2, wn, bt, rhs
+    # name -> (kernel, plain, args, fp32 ops, fp64 ops, bytes)
     work = {
         "chyp_rank_sweep_masked": (K.chyp_rank_counts, K.chyp_rank_counts_plain,
-                                   [xm["mask"]], 4 * b * np_ * d,
+                                   [*base, xm["mask"]], 4 * b * np_ * d, 0,
                                    vec + b * np_ + 4 * b),
         "chyp_rank_sweep_nomask": (K.chyp_rank_sweep_nomask,
-                                   K.chyp_rank_sweep_nomask_plain, [xn["gold"]],
-                                   4 * b * np_ * d, vec + 4 * b + 4 * b),
+                                   K.chyp_rank_sweep_nomask_plain, [*base, xn["gold"]],
+                                   4 * b * np_ * d, 0, vec + 4 * b + 4 * b),
         "chyp_rank_filtered_sub": (K.chyp_rank_filtered_sub,
                                    K.chyp_rank_filtered_sub_plain,
-                                   [xn["fidx"], xn["gold"]], 4 * b * l * d,
+                                   [*base, xn["fidx"], xn["gold"]], 4 * b * l * d, 0,
                                    4 * (2 * b * d + 2 * b + n_rows * (d + 2))
                                    + 4 * b * l + 8 * b),
     }
+    # the train distance at the published init scale.  K3: per pair three
+    # fp64 dots of D FMAs and ~16 fp32 epilogue operations; reads lhs, rhs,
+    # writes d, sr, si, wn, x, zn.  K4: per pair ~20 fp32 operations for the
+    # coefficients, 5 per element of d_rhs, two fp64 FMAs per element for
+    # m_a, m_b; reads g, the residuals, lhs, rhs, writes d_rhs, d_lhs.
+    lhs, rhs, g = train_pair(1e-3, seed)
+    _, res = CT.chyp_train_forward(lhs, rhs)
+    tb, tk, td = BATCH, NEG, 2 * RANK
+    work["chyp_train_fwd"] = (CT.chyp_train_forward, CT.chyp_train_forward_plain,
+                              [lhs, rhs], 16 * tb * tk, 6 * tb * tk * td,
+                              4 * (tb * td + tb * tk * td + 5 * tb * tk + tb))
+    work["chyp_train_bwd"] = (CT.chyp_train_backward, CT.chyp_train_backward_plain,
+                              [g, lhs, rhs, *res], 20 * tb * tk + 5 * tb * tk * td,
+                              4 * tb * tk * td,
+                              4 * (5 * tb * tk + tb + 2 * tb * td + 2 * tb * tk * td))
     rows = []
-    for kname, (kernel, plain, extra, flops, nbytes) in work.items():
-        t_flops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-        rows.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
+    for kname, (kernel, plain, args, f32_ops, f64_ops, nbytes) in work.items():
+        t_ops = (f32_ops / f32_peak + f64_ops / f64_peak) * 1e3
+        t_bytes = nbytes / bw_peak * 1e3
+        row = {
+            "name": kname, "route": "cuda",
+            "source": SOURCES["chyp_train" if kname in TRAIN_KERNELS else "chyp_rank"],
             "replaces": KERNEL_META[kname], "launches": launches[kname],
             "max_abs_err": errors[kname],
-            "ms": cuda_ms(lambda: kernel(*base, *extra), reps=50),
-            "plain_ms": cuda_ms(lambda: plain(*base, *extra)),
-            "bound_ms": max(t_flops, t_bytes),
-            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-            "library_ms": None, "dense_ms": dense_ms,
-            "ranker_ms": ranker_ms[kname == "chyp_rank_sweep_masked"],
-            "shape": {"B": b, "Np": np_, "D": d, "L": l}, "card": smi,
-        })
+            "ms": cuda_ms(lambda: kernel(*args), reps=50),
+            "plain_ms": cuda_ms(lambda: plain(*args)),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "card": smi,
+        }
+        if kname in TRAIN_KERNELS:
+            row.update(step_ms=step_ms, shape={"B": tb, "K": tk, "D": td})
+        else:
+            row.update(dense_ms=dense_ms, ranker_ms=ranker_ms[kname == "chyp_rank_sweep_masked"],
+                       shape={"B": b, "Np": np_, "D": d, "L": l})
+        rows.append(row)
     emit({"kernels": rows})
 
 
@@ -445,23 +681,35 @@ def main(argv=None) -> int:
 
         import torch
 
+        import complexhyperbolickge_torch.kernels as KS
         from complexhyperbolickge_torch.cli.predict import load_serving_state
-        from complexhyperbolickge_torch.kernels import chyp_rank as K
 
         model_dir = write_run(a.seed)
         model, dataset = load_serving_state(model_dir, "cuda")
         batch, errors = phase_kernels(model, dataset)
+        errors.update(phase_train_kernels(a.seed))
+        phase_train_step_parity(a.seed)
 
-        K.reset_launches()  # the main path starts here
+        KS.reset_launches()  # the serving and evaluation path starts here
         phase_kge_test(model_dir, model, dataset)
         phase_serve(model_dir)
-        launches = dict(K.launches)  # ... and ends here
-        emit({"phase": "launches", **launches})
-        if not all(launches.values()):
-            raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        serve_launches = KS.launches()  # ... and ends here
+        KS.reset_launches()  # the training path starts here
+        history = phase_train(a.seed)
+        train_launches = KS.launches()  # ... and ends here
+        emit({"phase": "launches", "serve_eval": serve_launches, "train": train_launches})
+        if not all(serve_launches[k] for k in RANK_KERNELS):
+            raise AssertionError(f"a ranking kernel never launched: {serve_launches}")
+        steps = sum(h["steps"] for h in history)
+        if (min(train_launches[k] for k in TRAIN_KERNELS) < steps
+                or not train_launches["chyp_rank_sweep_masked"]):
+            raise AssertionError(f"K3/K4 launched fewer times than the {steps} "
+                                 f"training steps, or K1 never: {train_launches}")
+        launches = {**{k: serve_launches[k] for k in RANK_KERNELS},
+                    **{k: train_launches[k] for k in TRAIN_KERNELS}}
 
-        phase_profile(model, dataset)
-        phase_kernel_line(model, batch, launches, errors, smi, name)
+        step_ms = phase_profile(model, dataset, train_window(dataset, a.seed))
+        phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
         torch.cuda.synchronize()
     except (Exception, SystemExit):  # report, then fail without the ok line
         traceback.print_exc()

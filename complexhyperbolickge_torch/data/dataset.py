@@ -6,7 +6,9 @@ port never imports the JAX package:
     with inverse triples (swap head/tail, rel += n_relations/2).
   * eval packs: per direction, queries [n, 3] plus a padded filter index
     array [n, Lmax] (pad value = n_entities), deduplicated per row.
-The BCE label packs and epoch batching come with the training slice.
+  * epoch batches: a shuffled epoch packed into static-shape batches with
+    a weight mask (`epoch_batches`).
+The BCE label packs wait for the BCE loss (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -150,3 +152,25 @@ def synthetic_kg(n_entities: int = 200, n_relations: int = 11,
     train[: n_relations, 1] = np.arange(n_relations)
     splits = {"train": train, "valid": draw(n_valid), "test": draw(n_test)}
     return KGData(splits=splits, filters=None)
+
+
+def epoch_batches(examples: np.ndarray, batch_size: int,
+                  rng: np.random.Generator | None):
+    """Shuffle and pack one epoch into static-shape batches + weight mask.
+
+    Returns (batches [nb, B, 3] int32, weights [nb, B] float32).  The final
+    partial batch is padded with copies of row 0 at weight 0.  rng=None
+    skips the shuffle (validation-loss passes); the trainer's rng is
+    np.random.default_rng([seed, epoch]), as in the JAX package, so both
+    packages see the same batches in the same order.
+    """
+    n = examples.shape[0]
+    ex = examples if rng is None else examples[rng.permutation(n)]
+    nb = -(-n // batch_size)
+    pad = nb * batch_size - n
+    weights = np.ones(nb * batch_size, dtype=np.float32)
+    if pad:
+        ex = np.concatenate([ex, np.broadcast_to(ex[:1], (pad, 3))], axis=0)
+        weights[n:] = 0.0
+    return (ex.reshape(nb, batch_size, 3).astype(np.int32),
+            weights.reshape(nb, batch_size))

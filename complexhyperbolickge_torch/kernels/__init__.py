@@ -1,7 +1,23 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-chyp_rank.py ports complexhyperbolickge_tpu/kernels/chyp_rank.py (K1, K2).
-The other Pallas kernels of the JAX package (chyp_train, hyp_rank, segsum,
+chyp_rank.py ports complexhyperbolickge_tpu/kernels/chyp_rank.py (K1, K2);
+chyp_train.py ports complexhyperbolickge_tpu/kernels/chyp_train.py (K3,
+K4).  The other Pallas kernels of the JAX package (hyp_rank, segsum,
 gather) are queued in ROADMAP.md Queue 2.  Sources live in csrc/ and are
 compiled at first use (_build.py); importing this package builds nothing.
 """
+
+from complexhyperbolickge_torch.kernels import chyp_rank, chyp_train
+
+_MODULES = (chyp_rank, chyp_train)
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for m in _MODULES:
+        m.reset_launches()
+
+
+def launches() -> dict:
+    """kernel name -> launches since the last reset_launches()."""
+    return {k: v for m in _MODULES for k, v in m.launches.items()}

@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc into
 ctypes.  Nothing is compiled or loaded at import: the first caller builds
 (`load_library`), and `build_all` starts one nvcc per source at once.  A
 library is rebuilt when the sha256 of its source and flags differs from
-the stamp written beside it.
+the stamp written beside it.  `check_tensor` and `launch` are the wrappers'
+shared input checks and launch call.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chyp_rank",)
+SOURCES = ("chyp_rank", "chyp_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -31,6 +34,10 @@ SIGNATURES = {
         "chyp_rank_sweep_masked": [_P] * 8 + [_I, _I, _I, _F, _P],
         "chyp_rank_sweep_nomask": [_P] * 8 + [_I, _I, _I, _F, _P],
         "chyp_rank_filtered_sub": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    },
+    "chyp_train": {
+        "chyp_train_fwd": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
+        "chyp_train_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
     },
 }
 
@@ -116,3 +123,36 @@ def load_library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
+
+
+# ------------------------------ launch helpers --------------------------------
+
+
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device`: what a kernel takes, checked before a pointer is passed."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(lib_name: str, fn: str, device, *args):
+    """Call launcher `fn` of library `lib_name` with `args` (tensors become
+    their data pointers) and the stream current on `device` at call time,
+    which on the autograd engine's thread is the backward's stream; raise
+    if it did not launch."""
+    lib = load_library(lib_name)
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+             for a in args]
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        rc = getattr(lib, fn)(*cargs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")

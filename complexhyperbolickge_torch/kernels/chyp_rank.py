@@ -31,10 +31,10 @@ counts may differ on scores within float rounding of t2).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from complexhyperbolickge_torch.kernels._build import check_tensor as _check
+from complexhyperbolickge_torch.kernels._build import launch
 from complexhyperbolickge_torch.ops.chyperbolic import chyp_distance, swap_neg
 from complexhyperbolickge_torch.ops.math import ball_eps, round_up
 
@@ -105,19 +105,6 @@ def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
 # --------------------------------- wrappers -----------------------------------
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_common(lhs2, zn, t2, rhs, wn, bt):
     """Validate the shared inputs of a CUDA launch; returns (B, Np, D)."""
     dev = lhs2.device
@@ -137,22 +124,9 @@ def _check_common(lhs2, zn, t2, rhs, wn, bt):
     return b, np_, d
 
 
-def _launch(name, *args):
-    from complexhyperbolickge_torch.kernels._build import load_library
-
-    lib = load_library("chyp_rank")
-    rc = getattr(lib, name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed to launch: cudaError {rc}")
+def _launch(name, device, *args):
+    launch("chyp_rank", name, device, *args)
     launches[name] += 1
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def chyp_rank_counts(lhs2, zn, t2, rhs, wn, bt, mask):
@@ -163,10 +137,8 @@ def chyp_rank_counts(lhs2, zn, t2, rhs, wn, bt, mask):
     b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
     _check("mask", mask, torch.int8, (b, np_), lhs2.device)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
-    with torch.cuda.device(lhs2.device):
-        _launch("chyp_rank_sweep_masked", _ptr(lhs2), _ptr(zn), _ptr(t2),
-                _ptr(rhs), _ptr(wn), _ptr(bt), _ptr(mask), _ptr(counts),
-                b, np_, d, X_MIN, _stream(lhs2.device))
+    _launch("chyp_rank_sweep_masked", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
+            mask, counts, b, np_, d, X_MIN)
     return counts
 
 
@@ -178,10 +150,8 @@ def chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold):
     b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
     _check("gold", gold, torch.int32, (b,), lhs2.device)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
-    with torch.cuda.device(lhs2.device):
-        _launch("chyp_rank_sweep_nomask", _ptr(lhs2), _ptr(zn), _ptr(t2),
-                _ptr(rhs), _ptr(wn), _ptr(bt), _ptr(gold), _ptr(counts),
-                b, np_, d, X_MIN, _stream(lhs2.device))
+    _launch("chyp_rank_sweep_nomask", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
+            gold, counts, b, np_, d, X_MIN)
     return counts
 
 
@@ -197,11 +167,8 @@ def chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
     _check("fidx", fidx, torch.int32, (b, fidx.shape[1]), lhs2.device)
     _check("gold", gold, torch.int32, (b,), lhs2.device)
     sub = torch.empty(b, dtype=torch.int32, device=lhs2.device)
-    with torch.cuda.device(lhs2.device):
-        _launch("chyp_rank_filtered_sub", _ptr(lhs2), _ptr(zn), _ptr(t2),
-                _ptr(rhs), _ptr(wn), _ptr(bt), _ptr(fidx), _ptr(gold),
-                _ptr(sub), b, np_, d, fidx.shape[1], X_MIN,
-                _stream(lhs2.device))
+    _launch("chyp_rank_filtered_sub", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
+            fidx, gold, sub, b, np_, d, fidx.shape[1], X_MIN)
     return sub
 
 

@@ -9,7 +9,7 @@ Two scoring modes with distinct shapes:
   * score(queries (B, 2), tails (B, K)) -> (B, K)   [training shape]
   * score_all(queries (B, 2))           -> (B, N)   [ranking]
 Bias handling: 'learn' adds bh[head] + bt[tail]; 'constant' adds gamma;
-'none' adds nothing.
+'none' adds nothing.  get_factors gives the regularizers their factors.
 """
 
 from __future__ import annotations
@@ -28,6 +28,25 @@ _DTYPES = {
     "double": torch.float64,
     "bfloat16": torch.bfloat16,
 }
+
+
+class NoMask:
+    """A regularization factor that padded-batch weights must never zero.
+
+    regularizers._masked_sum masks by shape alone (leading dim == batch
+    size); the full entity table (the factor when tails is None) can have
+    n_entities == batch size on a toy graph trained full-batch, and would
+    then lose its rows at padded batch positions.  Wrapping it makes "do not
+    mask" explicit."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+    @property
+    def shape(self):
+        return self.value.shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +180,18 @@ class KGModel(nn.Module):
         rhs_e, rhs_b = self.get_rhs(None)
         s = self.sim(lhs, rhs_e, all_pairs=True)
         return self._apply_bias(s, lhs_b, rhs_b, all_pairs=True)
+
+    # ----------------------------- regularization ---------------------------
+
+    def get_factors(self, queries, tails=None):
+        """Embedding factors for the N3/F2/L2 regularizers: the raw head,
+        rel and tail rows; when tails is None the whole entity table, as a
+        NoMask, is the third factor."""
+        head_e = self.entity[queries[..., 0]]
+        rel_e = self.rel[queries[..., 1]]
+        if tails is None:
+            return head_e, rel_e, NoMask(self.entity)
+        return head_e, rel_e, self.entity[tails]
 
     def forward(self, queries, tails=None):
         return self.score_all(queries) if tails is None else self.score(queries, tails)

@@ -1,4 +1,4 @@
-"""Complex-hyperbolic unit-ball ops, forward only.
+"""Complex-hyperbolic unit-ball ops.
 
 Port of complexhyperbolickge_tpu/ops/chyperbolic.py.  A complex vector z of
 dimension R is stored as 2R reals [Re(z) | Im(z)], so the Hermitian form of
@@ -9,8 +9,18 @@ the implicit PU(n,1) lift is plain real arithmetic:
     dist    = acosh(x)
 
 with <z,z>, <w,w> clamped into [-1, -eps] and x clamped to >= 1 + eps.
-The clamps here are plain clamps: their straight-through gradients and the
-analytic distance backward come with the training slice.
+
+Gradients follow the reference's Distance.backward: the analytic unclamped
+gradient at the clamped values, with each side's denominator clamped to at
+most -eps.  `chyp_distance` dispatches on shape:
+  * train shape (B, 1, D) x (B, K, D): a float32 CUDA pair goes to the CUDA
+    kernels K3/K4 (kernels/chyp_train.py), any other pair to
+    ChypDistanceCore; both carry the analytic backward.  The JAX package
+    takes its fused Pallas scorer only on a TPU with
+    TrainConfig.fused_scorer set; here the kernel is the CUDA path whatever
+    that field says (it stays in the config for parity).
+  * any other broadcast shape: autograd with straight-through clamps.
+`chyp_distance_all` (B, D) x (N, D) carries the same backward in matmul form.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from complexhyperbolickge_torch.ops.math import (
     artanh,
     ball_eps,
     safe_norm,
+    st_clip,
     tanh,
 )
 
@@ -84,20 +95,19 @@ def hermitian_sqnorm_lifted(v):
 
 
 def _chyp_x(sr, si, znorm, wnorm, eps: float):
-    """Cross-ratio argument x from the Hermitian pieces, clamped."""
-    znorm = znorm.clamp(-1.0, -eps)
-    wnorm = wnorm.clamp(-1.0, -eps)
+    """Cross-ratio argument x from the Hermitian pieces, with
+    straight-through clamps (see ops.math.st_clip)."""
+    znorm = st_clip(znorm, -1.0, -eps)
+    wnorm = st_clip(wnorm, -1.0, -eps)
     x = 2 * (sr * sr + si * si) / (znorm * wnorm) - 1.0
-    return x.clamp_min(1 + eps)
+    return st_clip(x, 1 + eps, None)
 
 
-def chyp_distance(lhs, rhs):
-    """Broadcast complex-hyperbolic distance on packed-real inputs.
-
-    lhs, rhs: (..., 2R) with broadcasting across leading dims, e.g.
-    (B, 1, 2R) vs (B, K, 2R) in training or (B, 2R) vs (B, 2R) for the
-    gold-tail distance of the rankers.
-    """
+def _chyp_distance_ad(lhs, rhs):
+    """Autograd form of the broadcast distance (straight-through clamps),
+    for the shapes that are neither the train shape nor all-pairs.  Its
+    gradients match the reference only away from the unit-ball boundary:
+    it lacks the denominator clamp of the analytic backward."""
     eps = ball_eps(lhs.dtype)
     zr, zi = split_re_im(lhs)
     wr, wi = split_re_im(rhs)
@@ -108,6 +118,116 @@ def chyp_distance(lhs, rhs):
     return torch.acosh(x)
 
 
+def chyp_core_residuals(lhs, rhs):
+    """Train-shape pieces, lhs (B, D) vs rhs (B, K, D): sr, si, wn, x (B, K)
+    and zn (B, 1), clamps applied (JAX `_chyp_core_fwd`).  The dot products
+    accumulate in float64 and round once to the input dtype, as the CUDA
+    kernels do, so the two agree whatever their summation order."""
+    dtype, eps = lhs.dtype, ball_eps(lhs.dtype)
+    l64, r64 = lhs.to(torch.float64), rhs.to(torch.float64)
+    sr = (torch.sum(l64[:, None, :] * r64, dim=-1) - 1.0).to(dtype)
+    si = torch.sum(swap_neg(l64)[:, None, :] * r64, dim=-1).to(dtype)
+    zn = (torch.sum(l64 * l64, dim=-1) - 1.0).to(dtype).clamp(-1.0, -eps)[:, None]
+    wn = (torch.sum(r64 * r64, dim=-1) - 1.0).to(dtype).clamp(-1.0, -eps)
+    x = (2 * (sr * sr + si * si) / (zn * wn) - 1.0).clamp_min(1 + eps)
+    return sr, si, wn, x, zn
+
+
+def _clamped_coefficients(g, sr, si, zn, wn, x):
+    """The six coefficients of the analytic backward (JAX `_chyp_core_bwd`):
+    the reference divides each side's gradient by p = sqrt(x^2 - 1) *
+    norm_self^2 * norm_other clamped to at most -eps, which bounds |1/p| by
+    1/eps near the unit-ball boundary."""
+    eps = ball_eps(sr.dtype)
+    a2 = sr * sr + si * si
+    sq = torch.sqrt(x * x - 1.0)
+    p_z = (sq * zn * zn * wn).clamp_max(-eps)
+    p_w = (sq * wn * wn * zn).clamp_max(-eps)
+    return (g * 4.0 * sr * zn / p_z, g * 4.0 * si * zn / p_z,
+            g * (-4.0) * a2 / p_z, g * 4.0 * sr * wn / p_w,
+            g * 4.0 * si * wn / p_w, g * (-4.0) * a2 / p_w)
+
+
+def chyp_core_grads(g, lhs, rhs, sr, si, wn, x, zn):
+    """(d_lhs (B, D), d_rhs (B, K, D)) of the train-shape distance for the
+    cotangent g (B, K), from the residuals of chyp_core_residuals."""
+    ca_z, cb_z, cz, ca_w, cb_w, cw = _clamped_coefficients(g, sr, si, zn, wn, x)
+    d_rhs = (ca_w[..., None] * lhs[:, None, :]
+             + cb_w[..., None] * swap_neg(lhs)[:, None, :]
+             + cw[..., None] * rhs)
+    # the sums over k accumulate in float64 and round once (see
+    # chyp_core_residuals); d si / d lhs = -swap(rhs): swap is linear, so
+    # sum first and swap once
+    dtype, r64 = lhs.dtype, rhs.to(torch.float64)
+    m_a = torch.einsum("bk,bkd->bd", ca_z.to(torch.float64), r64).to(dtype)
+    m_b = torch.einsum("bk,bkd->bd", cb_z.to(torch.float64), r64).to(dtype)
+    cz_sum = torch.sum(cz.to(torch.float64), dim=1, keepdim=True).to(dtype)
+    d_lhs = m_a - swap_neg(m_b) + cz_sum * lhs
+    return d_lhs, d_rhs
+
+
+class ChypDistanceCore(torch.autograd.Function):
+    """Train-mode distance lhs (B, D) vs rhs (B, K, D) -> (B, K) with the
+    analytic backward.  Saves only (B, K) residuals besides its inputs."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs):
+        sr, si, wn, x, zn = chyp_core_residuals(lhs, rhs)
+        ctx.save_for_backward(lhs, rhs, sr, si, wn, x, zn)
+        return torch.acosh(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return chyp_core_grads(g, *ctx.saved_tensors)
+
+
+def chyp_distance(lhs, rhs):
+    """Broadcast complex-hyperbolic distance on packed-real inputs.
+
+    lhs, rhs: (..., 2R) with broadcasting across leading dims, e.g.
+    (B, 1, 2R) vs (B, K, 2R) in training or (B, 2R) vs (B, 2R) for the
+    gold-tail distance of the rankers.  See the module docstring for the
+    dispatch (the float32 CUDA test mirrors JAX's `lhs.dtype == float32`).
+    """
+    if (lhs.dim() == 3 and rhs.dim() == 3 and lhs.shape[1] == 1
+            and lhs.shape[0] == rhs.shape[0]):
+        if (lhs.device.type == "cuda" and lhs.dtype == torch.float32
+                and rhs.dtype == torch.float32):
+            from complexhyperbolickge_torch.kernels import chyp_train
+
+            return chyp_train.chyp_train_distance(lhs[:, 0, :], rhs)
+        return ChypDistanceCore.apply(lhs[:, 0, :], rhs)
+    return _chyp_distance_ad(lhs, rhs)
+
+
+class _ChypDistanceAll(torch.autograd.Function):
+    """All-pairs distance with the analytic backward in matmul form (JAX
+    `_chyp_all_fwd` / `_chyp_all_bwd`): rhs rows are shared across the
+    queries, so their contributions sum over the batch in transposed
+    matmuls."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs):
+        eps = ball_eps(lhs.dtype)
+        sr = torch.matmul(lhs, rhs.T) - 1.0
+        si = torch.matmul(swap_neg(lhs), rhs.T)
+        zn = hermitian_sqnorm_lifted(lhs).clamp(-1.0, -eps)[:, None]
+        wn = hermitian_sqnorm_lifted(rhs).clamp(-1.0, -eps)[None, :]
+        x = (2 * (sr * sr + si * si) / (zn * wn) - 1.0).clamp_min(1 + eps)
+        ctx.save_for_backward(lhs, rhs, sr, si, zn, wn, x)
+        return torch.acosh(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs, sr, si, zn, wn, x = ctx.saved_tensors
+        ca_z, cb_z, cz, ca_w, cb_w, cw = _clamped_coefficients(g, sr, si, zn, wn, x)
+        d_lhs = (ca_z @ rhs - swap_neg(cb_z @ rhs)
+                 + torch.sum(cz, dim=1, keepdim=True) * lhs)
+        d_rhs = (ca_w.T @ lhs + cb_w.T @ swap_neg(lhs)
+                 + torch.sum(cw, dim=0)[:, None] * rhs)
+        return d_lhs, d_rhs
+
+
 def chyp_distance_all(lhs, rhs):
     """All-pairs distance: lhs (B, 2R) vs rhs (N, 2R) -> (B, N).
 
@@ -116,12 +236,7 @@ def chyp_distance_all(lhs, rhs):
         Im<z,w>     = swap_neg(lhs) @ rhs^T
     followed by the elementwise epilogue.
     """
-    eps = ball_eps(lhs.dtype)
-    sr = torch.matmul(lhs, rhs.T) - 1.0
-    si = torch.matmul(swap_neg(lhs), rhs.T)
-    znorm = hermitian_sqnorm_lifted(lhs)[:, None]
-    wnorm = hermitian_sqnorm_lifted(rhs)[None, :]
-    return torch.acosh(_chyp_x(sr, si, znorm, wnorm, eps))
+    return _ChypDistanceAll.apply(lhs, rhs)
 
 
 # ----------------------------- explicit lift ---------------------------------

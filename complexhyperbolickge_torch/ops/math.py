@@ -1,4 +1,4 @@
-"""Scalar math primitives with the reference numerics, forward only.
+"""Scalar math primitives with the reference numerics.
 
 Port of complexhyperbolickge_tpu/ops/math.py.  Constants are the same:
   * MIN_NORM = 1e-15
@@ -7,10 +7,11 @@ Port of complexhyperbolickge_tpu/ops/math.py.  Constants are the same:
   * arcosh input clamp_min 1 + 1e-6
   * per-dtype ball eps {bf16: 4e-2, f32: 4e-3, f64: 1e-5}
 
-The straight-through clamp (st_clip) and the custom backward of artanh
-belong to the training slice.  The JAX `mm_precision` / `pinned_mm` pair
-has no counterpart: with TF32 off (package __init__) every fp32 matmul is
-exact fp32.
+The reference's Artanh is a custom autograd Function whose backward is
+g / (1 - x_clamped^2): gradient still flows where the input was clamped.
+`artanh` reproduces it; `st_clip` is a clamp with an identity gradient.  The
+JAX `mm_precision` / `pinned_mm` pair has no counterpart: with TF32 off
+(package __init__) every fp32 matmul is exact fp32.
 """
 
 from __future__ import annotations
@@ -36,9 +37,24 @@ def ball_eps(dtype: torch.dtype) -> float:
     return _BALL_EPS[dtype]
 
 
+class _Artanh(torch.autograd.Function):
+    """artanh with the input clamp ±(1 - 1e-5); backward g / (1 - xc^2) at
+    the clamped input xc (JAX ops/math.py `_artanh_fwd` / `_artanh_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xc = x.clamp(-1 + 1e-5, 1 - 1e-5)
+        ctx.save_for_backward(xc)
+        return 0.5 * (torch.log1p(xc) - torch.log1p(-xc))
+
+    @staticmethod
+    def backward(ctx, g):
+        (xc,) = ctx.saved_tensors
+        return g / (1 - xc**2)
+
+
 def artanh(x):
-    x = x.clamp(-1 + 1e-5, 1 - 1e-5)
-    return 0.5 * (torch.log1p(x) - torch.log1p(-x))
+    return _Artanh.apply(x)
 
 
 def tanh(x):
@@ -56,6 +72,17 @@ def clamp_min(x, lo):
     if isinstance(lo, torch.Tensor):
         return torch.maximum(x, lo)
     return x.clamp_min(lo)
+
+
+def st_clip(x, lo=None, hi=None):
+    """Clamp with a straight-through (identity) gradient.
+
+    The reference's Distance.backward evaluates the analytic unclamped
+    gradient at the clamped values, so its clamps are straight-through.  At
+    the init scale (1e-3), or in f32 where the ball eps is 4e-3, the
+    distance clamps saturate for every pair and autograd through a plain
+    clamp returns exactly zero: training would freeze."""
+    return x + (x.clamp(lo, hi) - x).detach()
 
 
 def safe_sqrt(sq):

@@ -9,8 +9,14 @@ cross between the packages both ways.
 A checkpoint written by the JAX trainer pickles its optax optimizer state
 (NamedTuples such as ScaleByAdamState), and a plain pickle.load would import
 optax and jax to rebuild them.  The loader here stubs every class from
-those packages instead: this slice needs `params` only, and the stubs keep
-the opt_state's values as plain tuples.
+those packages instead: the stubs keep the opt_state's values as plain
+tuples, and `opt_state_from_jax` turns them into the port's form.
+
+The port's trainer writes its own optimizer state in the opt_state slot as
+{"lr": float, "state": {param name: {torch state key: numpy array}}}
+(train/trainer.py::Trainer.opt_state): numbers and arrays only, so the JAX
+package still loads and evaluates a port-written checkpoint.  JAX cannot
+resume training from it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,6 +60,40 @@ class _JaxFreeUnpickler(pickle.Unpickler):
                                         {"__module__": module})
             return self._stubs[key]
         return super().find_class(module, name)
+
+
+def _stub_nodes(tree):
+    """Every node of a stubbed optax state, depth first."""
+    yield tree
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _stub_nodes(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _stub_nodes(v)
+
+
+def opt_state_from_jax(opt_state) -> dict:
+    """The optax state of a JAX checkpoint (inject_hyperparams around Adam,
+    the torch-rule Adagrad or SGD, as load_checkpoint's stubs give it) ->
+    the port's opt_state: mu -> exp_avg, nu -> exp_avg_sq, count -> step,
+    sum_of_squares -> sum, and the injected learning rate."""
+    nodes = list(_stub_nodes(opt_state))
+    lr = next(n["learning_rate"] for n in nodes
+              if isinstance(n, dict) and "learning_rate" in n)
+    by_name = {type(n).__name__: n for n in nodes if isinstance(n, PickledStub)}
+    if "ScaleByAdamState" in by_name:
+        count, mu, nu = by_name["ScaleByAdamState"]
+        state = {k: {"step": np.asarray(count, dtype=np.float32),
+                     "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}
+    elif "_RssState" in by_name:
+        (sums,) = by_name["_RssState"]
+        count = opt_state[0]  # inject_hyperparams' own step count
+        state = {k: {"step": np.asarray(count, dtype=np.float32), "sum": v}
+                 for k, v in sums.items()}
+    else:  # SGD keeps no state
+        state = {}
+    return {"lr": float(lr), "state": state}
 
 
 def _dtype_name(v) -> str:

@@ -1,0 +1,191 @@
+"""Training engine: optimizer wiring and the epoch loop.
+
+Port of complexhyperbolickge_tpu/train/trainer.py.  The JAX package runs an
+epoch as one jitted lax.scan; here it is a Python loop over the epoch's
+static-shape batches, uploaded once, with one host sync per epoch (the mean
+loss).  Parameters live in the model, optimizer state in a torch.optim
+optimizer.
+
+Optimizers (torch.optim, the reference's own): Adam (betas 0.9/0.999, eps
+1e-8), Adagrad (initial accumulator 0, eps 1e-10; the rule the JAX package
+re-implemented to match torch) and SGD.  SparseAdam is ROADMAP Queue 1
+item 10.
+
+Gradient accumulation (`update_steps`): gradients are summed over k batches
+(.backward() accumulates by sum) and applied on every k-th batch and on the
+last batch of the epoch.
+
+Randomness comes from the torch.Generator the caller passes per epoch (the
+CLI derives it from (seed, epoch), so --resume reproduces a continuous
+run).  Per-query negative sampling is the only loss so far; the shared and
+pooled negative modes and the all-entity losses are item 10, GNN models
+item 13.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from complexhyperbolickge_torch.train import losses as L
+from complexhyperbolickge_torch.train.regularizers import get_regularizer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training-relevant run config (the JAX TrainConfig, field for
+    field).  fused_scorer is kept for config parity: the train-shape
+    distance takes the CUDA kernels on a CUDA float32 model whatever it says
+    (ops/chyperbolic.py)."""
+
+    regularizer: str = "N3"
+    reg: float = 0.0
+    optimizer: str = "Adam"
+    learning_rate: float = 1e-3
+    batch_size: int = 500
+    update_steps: int = 1
+    neg_sample_size: int = 100  # <= 0 to disable negative sampling
+    loss: str = "crossentropy"  # crossentropy | binarycrossentropy
+    smoothing: Optional[float] = None
+    double_neg: bool = False
+    neg_mode: str = "per_query"  # per_query (reference) | shared | pool
+    neg_pool_size: int = 512
+    fused_scorer: bool = False
+    scan_unroll: int = 1  # the JAX epoch scan's unroll; no meaning here
+
+
+def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
+    params = list(params)
+    if name == "Adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "Adagrad":
+        return torch.optim.Adagrad(params, lr=lr, initial_accumulator_value=0.0,
+                                   eps=1e-10)
+    if name == "SGD":  # not in the reference's choices; used by parity tests
+        return torch.optim.SGD(params, lr=lr)
+    if name == "SparseAdam":
+        raise NotImplementedError("SparseAdam has no PyTorch port yet "
+                                  "(ROADMAP.md Queue 1 item 10); use Adam")
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def reduce_lr(optimizer: torch.optim.Optimizer, factor: float = 0.8):
+    """Scale the learning rate of every param group (the reference
+    KGOptimizer.reduce_lr)."""
+    for group in optimizer.param_groups:
+        group["lr"] *= factor
+
+
+class Trainer:
+    """Train and validation-loss loops over a fixed model and config.
+
+    sampler: the negative sampler, losses.sample_negatives unless a test
+    injects another with its signature."""
+
+    def __init__(self, model, cfg: TrainConfig, n_entities: int,
+                 n_relations: int, sampler=L.sample_negatives):
+        if getattr(model, "is_gnn", False):
+            raise NotImplementedError("GNN training has no PyTorch port yet "
+                                      "(ROADMAP.md Queue 1 item 13)")
+        if cfg.neg_sample_size <= 0:
+            raise NotImplementedError(
+                f"the {cfg.loss} loss (neg_sample_size <= 0) has no PyTorch "
+                "port yet (ROADMAP.md Queue 1 item 10)")
+        if cfg.neg_mode != "per_query":
+            raise NotImplementedError(
+                f"neg_mode={cfg.neg_mode!r} has no PyTorch port yet "
+                "(ROADMAP.md Queue 1 item 10); use per_query")
+        self.model = model
+        self.cfg = cfg
+        self.n_entities = n_entities
+        self.n_relations = n_relations
+        self.sampler = sampler
+        self.reg_fn = get_regularizer(cfg.regularizer)
+        self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate,
+                                        model.parameters())
+
+    # ------------------------------- loss core -------------------------------
+
+    def _loss(self, batch, weights, generator):
+        cfg = self.cfg
+        loss, factors = L.neg_sampling_loss(
+            self.model, batch, weights, generator, self.n_entities,
+            cfg.neg_sample_size, cfg.double_neg, self.n_relations,
+            sampler=self.sampler)
+        if not cfg.reg:
+            # reg weight 0 (every published config): no factor gathers
+            return loss
+        return loss + self.reg_fn(factors, cfg.reg, torch.sum(weights), weights)
+
+    def _upload(self, batches, weights):
+        p = next(self.model.parameters())
+        return (torch.as_tensor(np.asarray(batches), dtype=torch.int64, device=p.device),
+                torch.as_tensor(np.asarray(weights), dtype=p.dtype, device=p.device))
+
+    # -------------------------------- public ---------------------------------
+
+    def init(self, generator: torch.Generator | None = None):
+        """Fresh params drawn from `generator` and a fresh optimizer."""
+        self.model.reset_parameters(generator)
+        self.optimizer = make_optimizer(self.cfg.optimizer, self.cfg.learning_rate,
+                                        self.model.parameters())
+
+    def train_step(self, batch, weights, generator, apply: bool = True):
+        """Loss and backward of one batch (gradients add to those already
+        accumulated); with apply, one optimizer step and cleared gradients.
+        Returns the loss as a device scalar."""
+        loss = self._loss(batch, weights, generator)
+        loss.backward()
+        if apply:
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    def run_epoch(self, batches, weights, generator) -> float:
+        """One epoch over batches (nb, B, 3) with weights (nb, B) (numpy, as
+        data/dataset.py::epoch_batches gives them); returns the mean loss."""
+        b, w = self._upload(batches, weights)
+        k_acc = max(1, self.cfg.update_steps)
+        nb = b.shape[0]
+        self.optimizer.zero_grad(set_to_none=True)
+        losses = [self.train_step(b[i], w[i], generator,
+                                  apply=(i + 1) % k_acc == 0 or i == nb - 1)
+                  for i in range(nb)]
+        return float(torch.stack(losses).mean())
+
+    @torch.no_grad()
+    def valid_loss(self, batches, weights, generator) -> float:
+        """Mean loss over validation batches, without autograd."""
+        b, w = self._upload(batches, weights)
+        return float(torch.stack([self._loss(b[i], w[i], generator)
+                                  for i in range(b.shape[0])]).mean())
+
+    # ---------------------------- optimizer state ----------------------------
+
+    def opt_state(self) -> dict:
+        """The optimizer state as the checkpoint's opt_state: {"lr": float,
+        "state": {param name: {torch state key: numpy array}}}.  Numbers and
+        arrays only, so the JAX package's loader reads the checkpoint too."""
+        names = [n for n, _ in self.model.named_parameters()]
+        sd = self.optimizer.state_dict()
+        return {
+            "lr": float(sd["param_groups"][0]["lr"]),
+            "state": {names[i]: {k: v.detach().cpu().numpy()
+                                 for k, v in st.items() if v is not None}
+                      for i, st in sd["state"].items()},
+        }
+
+    def load_opt_state(self, opt_state: dict):
+        """Restore what opt_state() returned (or checkpoint.opt_state_from_jax
+        made of a JAX checkpoint's state)."""
+        names = [n for n, _ in self.model.named_parameters()]
+        sd = self.optimizer.state_dict()
+        sd["state"] = {i: {k: torch.as_tensor(np.asarray(v))
+                           for k, v in opt_state["state"][n].items()}
+                       for i, n in enumerate(names) if n in opt_state["state"]}
+        for group in sd["param_groups"]:
+            group["lr"] = float(opt_state["lr"])
+        self.optimizer.load_state_dict(sd)
