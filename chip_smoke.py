@@ -7,36 +7,58 @@ train / valid / test triples).  Weights and data are drawn from --seed.
 
     python3 chip_smoke.py [--seed 0]
 
-Two paths of the port are driven, each with the kernels' launch counts set
-to 0 just before it and read just after: serving and evaluation (kge-test,
-predict, HTTP) and training (cli.run.train at the published WN18RR config:
-Adam lr 3e-4, N3 reg 0, 100 per-query negatives, 2 epochs).  Phases, one
-JSON line each; any failure exits non-zero without the final line:
+The real-hyperbolic family runs at the width of KGEmb's (HazyResearch, the
+upstream of the reference) RotH WN18RR example, examples/
+train_RotH_WN18RR_32.sh: rank 32 (a 40,943 x 32 f32 table), multi_c,
+bias=learn, float32, eval batch 500; training with Adam lr 5e-4, N3 reg 0,
+batch 500, 50 negatives, double_neg.  These values are recalled from that
+script and were not checked against a copy of the file (this repo has
+none).  RotLH (the Lorentz epilogue) and AttRH (the two-half ranker) run at
+the same width in the kernel and kge-test phases.
+
+Three paths of the port are driven, each with the kernels' launch counts
+set to 0 just before it and read just after: FFT serving and evaluation
+(kge-test, predict, HTTP), FFT training (cli.run.train at the published
+WN18RR config: Adam lr 3e-4, N3 reg 0, 100 per-query negatives, 2 epochs),
+and the real-hyperbolic path (kge-test of RotH, RotLH and AttRH, RotH
+serving, 2 epochs of RotH training).  Phases, one JSON line each; any
+failure exits non-zero without the final line:
   1 device    the card (torch.cuda), then nvidia-smi's name and power limit
-  2 build     nvcc builds every kernel from csrc/ (one nvcc per source)
+  2 build     nvcc builds every kernel from csrc/ (one nvcc per source, all
+              started together)
   3 kernels   each CUDA kernel against its plain PyTorch version at the main
               paths' shapes: the rankers K1/K2 on an eval batch (the maskless
               count must equal the masked), the train distance K3/K4 at
               (500, 100, 66) in the clamped-at-init and 0.4 regimes
   4 train-step parity  3 Adam steps through K3/K4 and through the plain
               version from the same params and negatives: params agree
-  5 kge-test  cli.test.test() with the auto (masked kernel), pallas_maskless
+  5 hyp-run   run dirs of RotH, RotLH and AttRH with planted test answers
+              (write_run, plant): how many folds could be inverted
+  6 hyp-kernels  K5 (Poincare on RotH, Lorentz on RotLH), K6, K7 and K8
+              (AttRH) against their plain versions on an eval batch
+              (B 500, Np 40,960, D 32); maskless == masked exactly
+  7 kge-test  cli.test.test() with the auto (masked kernel), pallas_maskless
               and dense rankers: MRR equal within 1e-4, fused ranks identical;
               plus whole-split ranking throughput per ranker
-  6 serve     PredictService top-k (filtered and unfiltered) against the
+  8 serve     PredictService top-k (filtered and unfiltered) against the
               argmax of the dense score_all, and one POST /predict over HTTP
-  7 train     cli.run.train(): the loss finite and falling from epoch 1 to 2,
+  9 train     cli.run.train(): the loss finite and falling from epoch 1 to 2,
               final test metrics through K1; triples/s and ms/step per epoch
-  8 launches  each path's kernel launches; a kernel of a path that never
-              launched there fails the run, and K3/K4 must launch at least
-              once per training step
-  9 profile   torch.profiler over one whole-split ranking per ranker and over
-              20 training steps: wall time, device busy time and idle share,
-              top kernels and host ops
- 10 the kernels line: launches, and the times of kernel and plain version
+ 10 hyp-kge-test, hyp-serve, hyp-train  phases 7-9 on the real-hyperbolic
+              path: kge-test per model, RotH serving, RotH training (eager
+              autograd, no kernel in the step; validation and the final test
+              through K5)
+ 11 launches  each path's kernel launches; a kernel of a path that never
+              launched there fails the run, K3/K4 must launch at least once
+              per training step, and each of RotH, RotLH and AttRH must
+              launch its family's three kernels
+ 12 profile   torch.profiler over one whole-split ranking per ranker (FFTRotH
+              and RotH) and over 20 training steps of each: wall time, device
+              busy time and idle share, top kernels and host ops
+ 13 the kernels line: launches, and the times of kernel and plain version
               beside the kernel's bound (and the rankers' and the training
               step's device time)
- 11 {"ok": true, "device": {...}}
+ 14 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
 
@@ -84,12 +106,42 @@ KERNEL_META = {
     "chyp_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/chyp_rank.py:230",
     "chyp_train_fwd": "complexhyperbolickge_tpu/kernels/chyp_train.py:89",
     "chyp_train_bwd": "complexhyperbolickge_tpu/kernels/chyp_train.py:117",
+    "hyp_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/hyp_rank.py:502",
+    "hyp_rank_sweep_nomask": "complexhyperbolickge_tpu/kernels/hyp_rank.py:545",
+    "hyp_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/hyp_rank.py:563",
+    "attrh_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/hyp_rank.py:253",
+    "attrh_rank_sweep_nomask": "complexhyperbolickge_tpu/kernels/hyp_rank.py:294",
+    "attrh_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/hyp_rank.py:312",
 }
 SOURCES = {"chyp_rank": "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu",
-           "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu"}
+           "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu",
+           "hyp_rank": "complexhyperbolickge_torch/kernels/csrc/hyp_rank.cu"}
 RANK_KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask",
                 "chyp_rank_filtered_sub")
 TRAIN_KERNELS = ("chyp_train_fwd", "chyp_train_bwd")
+
+# the real-hyperbolic path (KGEmb's RotH WN18RR 32-dim example, see above)
+HYP_RANK, HYP_NEG = 32, 50
+HYP_MODELS = {"RotH": "poincare", "RotLH": "lorentz", "AttRH": "attrh"}
+HYP_TRAIN_FLAGS = ["--model", "RotH", "--regularizer", "N3", "--reg", "0.0",
+                   "--optimizer", "Adam", "--rank", str(HYP_RANK), "--batch_size", str(BATCH),
+                   "--neg_sample_size", str(HYP_NEG), "--double_neg", "--learning_rate", "5e-4",
+                   "--multi_c", "--bias", "learn", "--dtype", "float32"]
+TRAIN_CONFIGS = {"FFTRotH": dict(optimizer="Adam", learning_rate=3e-4, neg_sample_size=NEG),
+                 "RotH": dict(optimizer="Adam", learning_rate=5e-4, neg_sample_size=HYP_NEG,
+                              double_neg=True)}
+HYP_RANK_KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_sub")
+ATTRH_KERNELS = ("attrh_rank_sweep_masked", "attrh_rank_sweep_nomask",
+                 "attrh_rank_filtered_sub")
+# the kernels' inputs in wrapper order (kernels/hyp_rank.py)
+HYP_ARGS = {"hyp": ("lhs", "x2", "c", "t2", "rhs", "un", "bt"),
+            "attrh": ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref",
+                      "bt")}
+# fp32 operations of one pair's epilogue after the contraction, counted in
+# csrc/hyp_rank.cu (pair_score) with every +, -, *, /, sqrt, clamp and
+# transcendental call as one: a floor, since a tanhf or log1pf is ~20
+# instructions
+EPILOGUE_OPS = {"poincare": 54, "lorentz": 23, "attrh": 93}
 
 
 def emit(obj):
@@ -150,22 +202,64 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def write_run(seed: int) -> str:
+def plant(name: str, pack):
+    """Entity rows that put each query's gold tail at distance ~0 from its
+    query point, and which rows could be made so.  FFTRotH scores the raw
+    row: the query point itself.  The real-hyperbolic models map a tail row
+    v through folds of its radius |v|, keeping its direction; inverting the
+    folds in float64, with x the query point (per half for AttRH):
+      RotH:  the point has radius tanh(sqrt_c m) / sqrt_c with m = tanh(
+             sqrt_c |v|) / sqrt_c, so m = artanh(sqrt_c |x|) / sqrt_c and
+             |v| = artanh(sqrt_c m) / sqrt_c; no row exists once sqrt_c m
+             reaches project()'s clip 1 - 4e-3 (the row is then left drawn);
+      RotLH: radius sinh(sqrt_c |v|) / sqrt_c, so |v| = asinh(sqrt_c |x|) /
+             sqrt_c, always;
+      AttRH: one tanh a half, |v_h| = artanh(sqrt_c |x_h|) / sqrt_c, below
+             the distance's artanh clamp 1 - 1e-5."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels.hyp_rank import ONE_MINUS_EPS
+
+    x = pack[0].double()
+    ok = torch.ones(len(x), dtype=torch.bool)
+    if name not in HYP_MODELS:
+        return pack[0], ok
+    sc = pack[1].double().expand(len(x), 1).sqrt()
+    rows = []
+    for h in (x.chunk(2, dim=-1) if name == "AttRH" else (x,)):
+        g = h.norm(dim=-1, keepdim=True)
+        if name == "RotLH":
+            r = torch.asinh(sc * g) / sc
+        else:
+            m = torch.atanh(sc * g) / sc if name == "RotH" else g
+            lim = ONE_MINUS_EPS if name == "RotH" else 1.0 - 1e-5
+            ok &= (sc * m < lim)[:, 0]  # False on NaN too
+            r = torch.atanh(sc * m) / sc
+        rows.append(h / g * r)
+    return torch.cat(rows, dim=-1).float(), ok
+
+
+def write_run(seed: int, name: str = "FFTRotH"):
     """A run dir as the trainer writes it: config.json and state.pkl with
-    FFTRotH weights drawn from `seed` (entity ~ N(0, 0.1) keeps the points
-    well inside the ball and the scores distinct).  Random weights rank the
-    gold near N/2, so the test answers are planted: each test tail's row is
-    set to its (head, rel) query point, which puts the gold at distance ~0
-    wherever the head's own row was not overwritten after.  Tail prediction
-    then finds most golds at rank 1, and MRR says whether ranking works."""
+    `name`'s weights drawn from `seed` (entity ~ N(0, 0.1) keeps the points
+    well inside the ball and the scores distinct; the real-hyperbolic
+    models take N(0, 0.05), so that their query folds stay invertible, and
+    bt ~ N(0, 0.01), below their smaller distances).  Random
+    weights rank the gold near N/2, so the test answers are planted: each
+    test tail's row is set so that the gold lies at distance ~0 from its
+    (head, rel) query point (plant), wherever the head's own row was not
+    overwritten after.  Tail prediction then finds most golds at rank 1,
+    and MRR says whether ranking works.  Returns the dir and the number of
+    test tails whose folds could not be inverted."""
     import numpy as np
     import torch
 
     from complexhyperbolickge_torch.cli.run import build_model, load_dataset
     from complexhyperbolickge_torch.train.checkpoint import save_checkpoint
 
+    hyp = name in HYP_MODELS
     args = dict(dataset="synthetic", synthetic_seed=seed, data_path="data",
-                debug=False, model="FFTRotH", rank=RANK, init_size=1e-3,
+                debug=False, model=name, rank=HYP_RANK if hyp else RANK, init_size=1e-3,
                 bias="learn", gamma=0.0, multi_c=True, dtype="float32",
                 dropout=0.0, eval_batch_size=BATCH, eval_backend="auto",
                 eval_precision="highest", **WN18RR)
@@ -173,7 +267,9 @@ def write_run(seed: int) -> str:
     dataset = load_dataset(ns)
     model = build_model(ns, dataset, "cpu")
     rng = np.random.default_rng(seed)
-    spread = {"entity": 0.1, "rel": 0.1, "bh": 0.1, "bt": 0.1, "c": 0.05}
+    spread = {"entity": 0.1, "rel": 0.1, "bh": 0.1, "bt": 0.1, "c": 0.05, "weights": 0.1}
+    if hyp:
+        spread.update(entity=0.05, rel=0.05, bt=0.01)
     params = {}
     for k, v in model.state_dict().items():
         if k == "rel_diag":
@@ -188,11 +284,12 @@ def write_run(seed: int) -> str:
     first_from_end = np.unique(test[::-1, 2], return_index=True)[1]
     test = torch.as_tensor(test[len(test) - 1 - first_from_end])
     with torch.no_grad():
-        (lhs,), _ = model.get_queries(test[:, :2])
-    params["entity"][test[:, 2]] = lhs
-    WORK.mkdir(parents=True, exist_ok=True)
-    save_checkpoint(str(WORK), params, config={"args": args})
-    return str(WORK)
+        rows, ok = plant(name, model.get_queries(test[:, :2])[0])
+    params["entity"][test[ok, 2]] = rows[ok]
+    work = WORK / name if hyp else WORK
+    work.mkdir(parents=True, exist_ok=True)
+    save_checkpoint(str(work), params, config={"args": args})
+    return str(work), int((~ok).sum())
 
 
 def near_threshold(scores, t2):
@@ -251,6 +348,86 @@ def phase_kernels(model, dataset):
     return (q, f, xm, xn), errors
 
 
+def hyp_family(family: str):
+    """A real-hyperbolic family's kernels: (input names in wrapper order,
+    plain all-entity scores of an input dict, kernel name -> (wrapper,
+    plain version, extra input names), the maskless count)."""
+    from functools import partial
+
+    from complexhyperbolickge_torch.kernels import hyp_rank as H
+
+    if family == "attrh":
+        names = HYP_ARGS["attrh"]
+        return names, lambda x: H.attrh_scores_plain(*(x[k] for k in names if k != "t2")), {
+            "attrh_rank_sweep_masked": (H.attrh_rank_counts, H.attrh_rank_counts_plain,
+                                        ("mask",)),
+            "attrh_rank_sweep_nomask": (H.attrh_rank_sweep_nomask,
+                                        H.attrh_rank_sweep_nomask_plain, ("gold",)),
+            "attrh_rank_filtered_sub": (H.attrh_rank_filtered_sub,
+                                        H.attrh_rank_filtered_sub_plain, ("fidx", "gold")),
+        }, H.attrh_rank_counts_nomask
+    names, fam = HYP_ARGS["hyp"], dict(family=family)
+    return names, lambda x: H.hyp_scores_plain(*(x[k] for k in names if k != "t2"), **fam), {
+        "hyp_rank_sweep_masked": (partial(H.hyp_rank_counts, **fam),
+                                  partial(H.hyp_rank_counts_plain, **fam), ("mask",)),
+        "hyp_rank_sweep_nomask": (partial(H.hyp_rank_sweep_nomask, **fam),
+                                  partial(H.hyp_rank_sweep_nomask_plain, **fam), ("gold",)),
+        "hyp_rank_filtered_sub": (partial(H.hyp_rank_filtered_sub, **fam),
+                                  partial(H.hyp_rank_filtered_sub_plain, **fam),
+                                  ("fidx", "gold")),
+    }, partial(H.hyp_rank_counts_nomask, **fam)
+
+
+def phase_hyp_kernels(hyp: dict):
+    """K5-K8 against their plain versions on one test batch of each model
+    (hyp: name -> (model, dataset)), and maskless == masked exactly.
+    Returns each model's batch (q, f, kernel inputs) and the errors keyed
+    by (kernel, family)."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+
+    out = {"phase": "hyp-kernels", "models": {}}
+    batches, errors, failed = {}, {}, []
+    for name, (model, dataset) in hyp.items():
+        family = HYP_MODELS[name]
+        names, scores, fns, maskless = hyp_family(family)
+        dev = next(model.parameters()).device
+        pack = dataset.eval_pack("test", "rhs")
+        q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=dev)
+        f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=dev)
+        ranker = (AttRHRanker if family == "attrh" else HypRanker)(model)
+        x = {**ranker.kernel_inputs(q, f, masked=False), **ranker.kernel_inputs(q, f)}
+        base = [x[k] for k in names]
+        near = near_threshold(scores(x), x["t2"])
+        res = {"family": family, "batch": BATCH, "Np": int(x["rhs"].shape[0]),
+               "D": int(x["rhs"].shape[1]), "L": int(x["fidx"].shape[1]),
+               "max_near_threshold": int(near.max()), "kernels": {}}
+        for kname, (kernel, plain, extra) in fns.items():
+            got = kernel(*base, *[x[k] for k in extra])
+            want = plain(*base, *[x[k] for k in extra])
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            errors[(kname, family)] = int(diff.max())
+            ok = bool((diff <= near).all())
+            res["kernels"][kname] = {"max_abs_err": int(diff.max()),
+                                     "queries_differing": int((diff > 0).sum()),
+                                     "within_tolerance": ok}
+            if not ok:
+                failed.append(f"{name} {kname} disagrees with its plain version")
+        masked = fns[next(iter(fns))][0](*base, x["mask"])
+        res["maskless_equals_masked"] = bool(torch.equal(
+            masked, maskless(*base, x["fidx"], x["gold"])))
+        if not res["maskless_equals_masked"]:
+            failed.append(f"{name}: maskless != masked on a batch whose golds are filtered")
+        out["models"][name] = res
+        batches[name] = (q, f, x)
+    emit(out)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return batches, errors
+
+
 def train_pair(scale: float, seed: int):
     """A train-distance input at the main path's shape, lhs (B, D) and rhs
     (B, K, D) ~ N(0, scale), with a cotangent g (B, K), on the card."""
@@ -299,17 +476,17 @@ def phase_train_kernels(seed: int):
     return errors
 
 
-def wn18rr_model(seed: int):
-    """A fresh FFTRotH at the smoke's width on the card, drawn from `seed`."""
+def wn18rr_model(seed: int, name: str = "FFTRotH"):
+    """A fresh `name` at the smoke's width on the card, drawn from `seed`."""
     import torch
 
     from complexhyperbolickge_torch.models import ModelConfig, get_model
 
     cfg = ModelConfig(n_entities=WN18RR["synthetic_entities"],
-                      n_relations=2 * WN18RR["synthetic_relations"], rank=RANK,
+                      n_relations=2 * WN18RR["synthetic_relations"],
+                      rank=HYP_RANK if name in HYP_MODELS else RANK,
                       bias="learn", multi_c=True, dtype="float32")
-    return get_model("FFTRotH")(cfg, device=DEVICE,
-                                generator=torch.Generator().manual_seed(seed))
+    return get_model(name)(cfg, device=DEVICE, generator=torch.Generator().manual_seed(seed))
 
 
 def phase_train_step_parity(seed: int):
@@ -337,9 +514,8 @@ def phase_train_step_parity(seed: int):
         model = wn18rr_model(seed)
         model.load_state_dict(init)
         it = iter(negs)
-        trainer = Trainer(model, TrainConfig(optimizer="Adam", learning_rate=3e-4,
-                                             neg_sample_size=NEG),
-                          n_ent, n_rel, sampler=lambda *a: next(it))
+        trainer = Trainer(model, TrainConfig(**TRAIN_CONFIGS["FFTRotH"]), n_ent, n_rel,
+                          sampler=lambda *a: next(it))
         KS.reset_launches()
         trainer.run_epoch(batches, weights, None)
         torch.cuda.synchronize()
@@ -366,7 +542,7 @@ def phase_train_step_parity(seed: int):
         raise AssertionError(f"kernel and plain training steps disagree: {out}")
 
 
-def phase_kge_test(model_dir, model, dataset):
+def phase_kge_test(model_dir, model, dataset, label="kge-test"):
     """kge-test end to end with each ranker, then whole-split throughput."""
     import numpy as np
     import torch
@@ -374,7 +550,8 @@ def phase_kge_test(model_dir, model, dataset):
     from complexhyperbolickge_torch.cli.test import test
     from complexhyperbolickge_torch.train.evaluate import get_ranking, make_best_ranker
 
-    out = {"phase": "kge-test", "split": "test", "batch": BATCH, "backends": {}}
+    out = {"phase": label, "model": type(model).__name__, "split": "test", "batch": BATCH,
+           "backends": {}}
     for backend in ("auto", "pallas_maskless", "dense"):
         t0 = time.perf_counter()
         m = test(model_dir, device="cuda", eval_backend=backend)
@@ -422,7 +599,7 @@ def phase_kge_test(model_dir, model, dataset):
         raise AssertionError("masked and maskless fused rankers gave different ranks")
 
 
-def phase_serve(model_dir):
+def phase_serve(model_dir, label="serve"):
     import numpy as np
     import torch
 
@@ -469,30 +646,31 @@ def phase_serve(model_dir):
     checks["http_matches_service"] = (
         http_status == 200 and http_out == svc.predict(q[:4], k=5, filter_known=True))
     lat.sort()
-    emit({"phase": "serve", "requests": len(q) * 2 + 20 + 1, **checks,
+    emit({"phase": label, "model": type(svc.model).__name__,
+          "requests": len(q) * 2 + 20 + 1, **checks,
           "single_query_latency_ms_p50": lat[len(lat) // 2],
           "single_query_latency_ms_max": lat[-1]})
     if not all(checks.values()):
         raise AssertionError(f"serving checks failed: {checks}")
 
 
-def phase_train(seed: int):
-    """cli.run.train() on the card at the published config for EPOCHS epochs,
+def phase_train(seed: int, flags=TRAIN_FLAGS, label="train"):
+    """cli.run.train() on the card with `flags` for EPOCHS epochs,
     validating every epoch; returns the per-epoch history."""
     import numpy as np
 
     from complexhyperbolickge_torch.cli.run import build_parser, train
 
     argv = ["--dataset", "synthetic",
-            *[str(x) for k, v in WN18RR.items() for x in (f"--{k}", v)], *TRAIN_FLAGS,
+            *[str(x) for k, v in WN18RR.items() for x in (f"--{k}", v)], *flags,
             "--max_epochs", str(EPOCHS), "--valid", "1", "--eval_batch_size", str(BATCH),
-            "--device", DEVICE, "--seed", str(seed), "--save_dir", str(WORK / "train")]
+            "--device", DEVICE, "--seed", str(seed), "--save_dir", str(WORK / label)]
     t0 = time.perf_counter()
     res = train(build_parser().parse_args(argv))
     secs = time.perf_counter() - t0
     epochs = [dict(h, ms_per_step=1e3 * h["seconds"] / h["steps"]) for h in res["history"]]
     later = epochs[1:]
-    out = {"phase": "train", "argv": argv, "epochs": epochs, "cli_seconds": secs,
+    out = {"phase": label, "argv": argv, "epochs": epochs, "cli_seconds": secs,
            "median_after_first": {
                k: float(np.median([e[k] for e in later])) for k in ("triples_per_s", "ms_per_step")},
            "valid": res["valid"], "test": res["test"]}
@@ -506,19 +684,18 @@ def phase_train(seed: int):
     return res["history"]
 
 
-def train_window(dataset, seed: int):
-    """A trainer at the published config on a fresh WN18RR-width model, with
-    the batches of one epoch uploaded: what the training profile and the
-    step time run."""
+def train_window(dataset, seed: int, name: str = "FFTRotH"):
+    """A trainer at `name`'s training config on a fresh WN18RR-width model,
+    with the batches of one epoch uploaded: what the training profile and
+    the step time run."""
     import numpy as np
     import torch
 
     from complexhyperbolickge_torch.data.dataset import epoch_batches
     from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
 
-    model = wn18rr_model(seed)
-    trainer = Trainer(model, TrainConfig(optimizer="Adam", learning_rate=3e-4,
-                                         neg_sample_size=NEG),
+    model = wn18rr_model(seed, name)
+    trainer = Trainer(model, TrainConfig(**TRAIN_CONFIGS[name]),
                       model.cfg.n_entities, model.cfg.n_relations)
     b, w = epoch_batches(dataset.get_examples("train"), BATCH, np.random.default_rng(seed))
     return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed)
@@ -560,20 +737,24 @@ def profile_window(fn) -> dict:
     }
 
 
-def phase_profile(model, dataset, window):
-    """Where the time goes: one whole-split ranking of the test split (both
-    directions) per ranker, and PROFILE_STEPS training steps.  Returns the
-    training step's device time (busy ms per step)."""
+def profile_rankers(model, dataset) -> dict:
+    """One whole-split ranking of the test split (both directions) per
+    ranker, profiled."""
     from complexhyperbolickge_torch.train.evaluate import get_ranking, make_best_ranker
 
     packs = [dataset.eval_pack("test", d) for d in ("rhs", "lhs")]
-    out = {"phase": "profile", "split": "test", "batch": BATCH, "rankers": {}}
+    out = {}
     for backend in ("auto", "pallas_maskless", "dense"):
         rank_fn = make_best_ranker(model, BATCH, backend)
         for p in packs:  # warm-up
             get_ranking(model, p, BATCH, rank_fn=rank_fn)
-        out["rankers"][backend] = profile_window(
+        out[backend] = profile_window(
             lambda: [get_ranking(model, p, BATCH, rank_fn=rank_fn) for p in packs])
+    return out
+
+
+def profile_steps(window) -> dict:
+    """PROFILE_STEPS training steps of a train_window, profiled."""
     trainer, b, w, gen = window
     trainer.run_epoch(b[:3], w[:3], gen)  # warm-up
     steps = slice(3, 3 + PROFILE_STEPS)
@@ -583,9 +764,19 @@ def phase_profile(model, dataset, window):
                                        else "not measured")
     prof["wall_ms_per_step"] = prof["wall_ms"] / PROFILE_STEPS
     prof["device_kernels_per_step"] = prof["device_kernels"] / PROFILE_STEPS
-    out["train"] = {"steps": PROFILE_STEPS, **prof}
+    return {"steps": PROFILE_STEPS, **prof}
+
+
+def phase_profile(fft, roth):
+    """Where the time goes: one whole-split ranking per ranker and
+    PROFILE_STEPS training steps, of FFTRotH and of RotH (each a (model,
+    dataset, train_window) triple).  Returns the FFT training step's device
+    time (busy ms per step)."""
+    out = {"phase": "profile", "split": "test", "batch": BATCH,
+           "rankers": profile_rankers(*fft[:2]), "train": profile_steps(fft[2]),
+           "hyp_rankers": profile_rankers(*roth[:2]), "hyp_train": profile_steps(roth[2])}
     emit(out)
-    return prof["device_busy_ms_per_step"]
+    return out["train"]["device_busy_ms_per_step"]
 
 
 def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
@@ -666,7 +857,71 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
             row.update(dense_ms=dense_ms, ranker_ms=ranker_ms[kname == "chyp_rank_sweep_masked"],
                        shape={"B": b, "Np": np_, "D": d, "L": l})
         rows.append(row)
-    emit({"kernels": rows})
+    return rows
+
+
+def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
+    """The kernels line's K5-K8 rows, timed on each model's test batch
+    (phase_hyp_kernels): the hyp_rank rows on RotH (Poincare) with the
+    RotLH (Lorentz) instantiation beside them, the attrh rows on AttRH.
+    Bound: per pair the 2 D operations of the contraction plus the family's
+    EPILOGUE_OPS; bytes each input once (the int8 mask, masked form) and the
+    counts once; a filtered subtraction scores only this batch's kept
+    filter ids (in range, not the gold) and reads their distinct rows."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+    from complexhyperbolickge_torch.train.evaluate import make_ranker
+
+    f32_peak, bw_peak, _ = peak_rates(name)
+    timed = {}
+    for mname, (model, _) in hyp.items():
+        family = HYP_MODELS[mname]
+        names, _, fns, _ = hyp_family(family)
+        q, f, x = batches[mname]
+        base = [x[k] for k in names]
+        (b, d), np_, l = x["lhs"].shape, x["rhs"].shape[0], x["fidx"].shape[1]
+        n_pq = names.index("rhs") - 1  # per-query vectors
+        n_pr = len(names) - names.index("rhs") - 1  # per-row vectors
+        vec = 4 * (b * d + np_ * d + b * n_pq + np_ * n_pr)
+        pair_ops = 2 * d + EPILOGUE_OPS[family]
+        fidx, gold = x["fidx"].long(), x["gold"].long()
+        kept = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
+        n_rows = int(torch.unique(fidx[kept]).numel())
+        work = {  # kernel name -> (fp32 operations, bytes)
+            fns_name: w for fns_name, w in zip(fns, (
+                (b * np_ * pair_ops, vec + b * np_ + 4 * b),
+                (b * np_ * pair_ops, vec + 4 * b + 4 * b),
+                (int(kept.sum()) * pair_ops,
+                 4 * (b * d + b * n_pq + n_rows * (d + n_pr)) + 4 * b * l + 8 * b)))}
+        dense = make_ranker(model)
+        dense_ms = cuda_ms(lambda: dense(q, f), reps=4)
+        ranker_ms = {}
+        for masked in (True, False):
+            ranker = (AttRHRanker if family == "attrh" else HypRanker)(model, masked=masked)
+            ranker_ms[masked] = cuda_ms(lambda: ranker(q, f), reps=4)
+        for kname, (kernel, plain, extra) in fns.items():
+            args = [*base, *[x[k] for k in extra]]
+            ops, nbytes = work[kname]
+            t_ops, t_bytes = ops / f32_peak * 1e3, nbytes / bw_peak * 1e3
+            timed[(kname, family)] = {
+                "model": mname, "family": family, "max_abs_err": errors[(kname, family)],
+                "ms": cuda_ms(lambda: kernel(*args), reps=50),
+                "plain_ms": cuda_ms(lambda: plain(*args)),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "dense_ms": dense_ms, "ranker_ms": ranker_ms[kname.endswith("_masked")],
+                "shape": {"B": b, "Np": np_, "D": d, "L": l}}
+    rows = []
+    for kname in HYP_RANK_KERNELS + ATTRH_KERNELS:
+        family = "attrh" if kname in ATTRH_KERNELS else "poincare"
+        row = {"name": kname, "route": "cuda", "source": SOURCES["hyp_rank"],
+               "replaces": KERNEL_META[kname], "launches": launches[kname],
+               "library_ms": None, "card": smi, **timed[(kname, family)]}
+        if family == "poincare":
+            row["lorentz"] = timed[(kname, "lorentz")]
+        rows.append(row)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -684,20 +939,41 @@ def main(argv=None) -> int:
         import complexhyperbolickge_torch.kernels as KS
         from complexhyperbolickge_torch.cli.predict import load_serving_state
 
-        model_dir = write_run(a.seed)
+        model_dir, _ = write_run(a.seed)
         model, dataset = load_serving_state(model_dir, "cuda")
         batch, errors = phase_kernels(model, dataset)
         errors.update(phase_train_kernels(a.seed))
         phase_train_step_parity(a.seed)
 
-        KS.reset_launches()  # the serving and evaluation path starts here
+        hyp_dirs, not_inverted = {}, {}
+        for m in HYP_MODELS:
+            hyp_dirs[m], not_inverted[m] = write_run(a.seed, m)
+        emit({"phase": "hyp-run", "dirs": hyp_dirs, "rank": HYP_RANK,
+              "test_tails_not_invertible": not_inverted})
+        hyp = {m: load_serving_state(d, "cuda") for m, d in hyp_dirs.items()}
+        hyp_batches, hyp_errors = phase_hyp_kernels(hyp)
+
+        KS.reset_launches()  # the FFT serving and evaluation path starts here
         phase_kge_test(model_dir, model, dataset)
         phase_serve(model_dir)
         serve_launches = KS.launches()  # ... and ends here
-        KS.reset_launches()  # the training path starts here
+        KS.reset_launches()  # the FFT training path starts here
         history = phase_train(a.seed)
         train_launches = KS.launches()  # ... and ends here
-        emit({"phase": "launches", "serve_eval": serve_launches, "train": train_launches})
+        KS.reset_launches()  # the real-hyperbolic path starts here
+        by_model = {}
+        for m, d in hyp_dirs.items():
+            before = KS.launches()
+            phase_kge_test(d, *hyp[m], label="hyp-kge-test")
+            by_model[m] = {k: v - before[k] for k, v in KS.launches().items() if v > before[k]}
+        phase_serve(hyp_dirs["RotH"], label="hyp-serve")
+        before = KS.launches()
+        phase_train(a.seed, HYP_TRAIN_FLAGS, label="hyp-train")
+        by_model["RotH training"] = {k: v - before[k] for k, v in KS.launches().items()
+                                     if v > before[k]}
+        hyp_launches = KS.launches()  # ... and ends here
+        emit({"phase": "launches", "serve_eval": serve_launches, "train": train_launches,
+              "hyp": hyp_launches, "hyp_by_model": by_model})
         if not all(serve_launches[k] for k in RANK_KERNELS):
             raise AssertionError(f"a ranking kernel never launched: {serve_launches}")
         steps = sum(h["steps"] for h in history)
@@ -705,11 +981,20 @@ def main(argv=None) -> int:
                 or not train_launches["chyp_rank_sweep_masked"]):
             raise AssertionError(f"K3/K4 launched fewer times than the {steps} "
                                  f"training steps, or K1 never: {train_launches}")
+        want = {"RotH": HYP_RANK_KERNELS, "RotLH": HYP_RANK_KERNELS, "AttRH": ATTRH_KERNELS,
+                "RotH training": ("hyp_rank_sweep_masked",)}
+        missing = {m: [k for k in ks if k not in by_model[m]] for m, ks in want.items()}
+        if any(missing.values()):
+            raise AssertionError(f"real-hyperbolic kernels that never launched: {missing}")
         launches = {**{k: serve_launches[k] for k in RANK_KERNELS},
                     **{k: train_launches[k] for k in TRAIN_KERNELS}}
 
-        step_ms = phase_profile(model, dataset, train_window(dataset, a.seed))
-        phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
+        step_ms = phase_profile(
+            (model, dataset, train_window(dataset, a.seed)),
+            (*hyp["RotH"], train_window(hyp["RotH"][1], a.seed, "RotH")))
+        rows = phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
+        rows += hyp_kernel_rows(hyp, hyp_batches, hyp_launches, hyp_errors, smi, name)
+        emit({"kernels": rows})
         torch.cuda.synchronize()
     except (Exception, SystemExit):  # report, then fail without the ok line
         traceback.print_exc()

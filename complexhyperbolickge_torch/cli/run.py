@@ -8,7 +8,8 @@ and the helpers the evaluation and serving CLIs share with it.
 
 Protocol (the JAX package's): build dataset -> model -> trainer; an epoch
 loop with per-epoch train and valid loss, filtered-metric validation every
-`--valid` epochs (through make_best_ranker, so the fused CUDA ranker K1),
+`--valid` epochs (through make_best_ranker, so the family's fused CUDA
+ranker: K1 for the FFT family, K5 or K7 for the real-hyperbolic ones),
 best-MRR checkpointing and patience early stopping; then the best model is
 reloaded and the valid, test and per-relation test metrics reported.
 Checkpoints: state.pkl is the best model, latest.pkl the rolling resume
@@ -187,9 +188,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from save_dir's checkpoint")
     p.add_argument("--eval_backend", default="auto",
                    choices=["auto", "dense", "pallas", "pallas_maskless"],
-                   help="auto/pallas = masked fused CUDA ranker (K1), "
-                        "pallas_maskless = maskless fused rankers (K2), "
-                        "dense = materialized (B, N) scores")
+                   help="auto/pallas = masked fused CUDA ranker (K1 FFT, K5 "
+                        "Poincare and Lorentz, K7 AttRH), pallas_maskless = "
+                        "maskless fused rankers (K2, K6, K8), dense = "
+                        "materialized (B, N) scores")
     p.add_argument("--eval_precision", default="highest",
                    choices=["highest", "default"])
     p.add_argument("--device", default="cuda",

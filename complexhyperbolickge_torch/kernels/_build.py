@@ -23,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chyp_rank", "chyp_train")
+SOURCES = ("chyp_rank", "chyp_train", "hyp_rank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -38,6 +38,14 @@ SIGNATURES = {
     "chyp_train": {
         "chyp_train_fwd": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
         "chyp_train_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
+    },
+    "hyp_rank": {
+        "hyp_rank_sweep_masked": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "hyp_rank_sweep_nomask": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "hyp_rank_filtered_sub": [_P] * 10 + [_I] * 5 + [_F, _P],
+        "attrh_rank_sweep_masked": [_P] * 13 + [_I] * 3 + [_P],
+        "attrh_rank_sweep_nomask": [_P] * 13 + [_I] * 3 + [_P],
+        "attrh_rank_filtered_sub": [_P] * 14 + [_I] * 4 + [_P],
     },
 }
 

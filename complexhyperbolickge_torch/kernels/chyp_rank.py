@@ -35,6 +35,7 @@ import torch
 
 from complexhyperbolickge_torch.kernels._build import check_tensor as _check
 from complexhyperbolickge_torch.kernels._build import launch
+from complexhyperbolickge_torch.kernels._ranker import ROW_TILE, FusedRanker
 from complexhyperbolickge_torch.ops.chyperbolic import chyp_distance, swap_neg
 from complexhyperbolickge_torch.ops.math import ball_eps, round_up
 
@@ -52,9 +53,6 @@ def reset_launches():
 
 
 _EPS = ball_eps(torch.float32)
-# entity rows per tile of the sweep kernel; ChypRanker pads its table to a
-# multiple of it (the kernel also takes a ragged last tile)
-_ROW_TILE = 128
 # lower clamp of the cross-ratio, passed to the kernels as one f32 value so
 # kernel and plain versions round it identically
 X_MIN = 1.0 + _EPS
@@ -184,17 +182,14 @@ def chyp_rank_counts_nomask(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
 # ---------------------------------- ranker ------------------------------------
 
 
-class ChypRanker:
+class ChypRanker(FusedRanker):
     """Filtered ranker for FFTUnitBall-family models; the counterpart of the
-    JAX PallasChypRanker.  Call it as ranker(q (B, 3), fidx (B, L)) -> ranks
-    (B,) float32, with q and fidx int64 tensors on the model's device.
+    JAX PallasChypRanker (interface: kernels/_ranker.py).  masked=True
+    streams an int8 (B, Np) mask through K1; masked=False runs K2 (sweep +
+    filtered subtraction) with no mask."""
 
-    The padded tables are built once per params version: the cache keys on
-    the entity and bt parameter objects and their `_version` counters, so
-    an in-place update (load_state_dict, an optimizer step) is never served
-    stale.  masked=True streams an int8 (B, Np) mask through K1; masked=False
-    runs K2 (sweep + filtered subtraction) with no mask.
-    """
+    TABLES = ("rhs", "bt", "wn")
+    QUERIES = ("lhs2", "zn", "t2")
 
     def __init__(self, model, masked: bool = True):
         from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
@@ -202,43 +197,18 @@ class ChypRanker:
         if not isinstance(model, FFTUnitBall):
             raise TypeError("ChypRanker ranks FFTUnitBall-family models only, "
                             f"got {type(model).__name__}")
-        if model.cfg.bias not in ("learn", "none", "constant"):
-            raise ValueError(f"unknown bias mode {model.cfg.bias!r}")
-        self.model = model
-        self.masked = masked
-        self._tables_key = None
-        self._tables = None
-
-    # --------------------------- per-params prep ----------------------------
+        super().__init__(model, masked)
 
     def _prepare_tables(self):
-        m = self.model
-        ent = m.entity.detach().to(torch.float32)
+        ent = self.model.entity.detach().to(torch.float32)
         n, d = ent.shape
         # n + 1: at least one pad row, where pad filter ids (== n_entities)
         # land: masked in K1, unreachable (bt = -1e30) in K2
-        np_ = round_up(n + 1, _ROW_TILE)
+        np_ = round_up(n + 1, ROW_TILE)
         rhs = torch.zeros((np_, d), dtype=torch.float32, device=ent.device)
         rhs[:n] = ent
-        bt = torch.full((np_,), -1e30, dtype=torch.float32, device=ent.device)
-        if m.cfg.bias == "learn":
-            bt[:n] = m.bt.detach()[:, 0].to(torch.float32)
-        else:
-            bt[:n] = 0.0
         wn = (torch.sum(rhs * rhs, dim=-1) - 1.0).clamp(-1.0, -_EPS)
-        return rhs, bt, wn
-
-    def _get_tables(self):
-        m = self.model
-        key = (m.entity, m.entity._version, m.bt, m.bt._version)
-        old = self._tables_key
-        if (old is None or old[0] is not key[0] or old[1] != key[1]
-                or old[2] is not key[2] or old[3] != key[3]):
-            self._tables = self._prepare_tables()
-            self._tables_key = key
-        return self._tables
-
-    # ----------------------------- per-batch work ----------------------------
+        return rhs, self._padded_bias(np_, ent.device), wn
 
     def _queries_core(self, q):
         """(lhs2, zn, t2) of a batch: query embeddings, their clamped norm,
@@ -250,52 +220,10 @@ class ChypRanker:
         zn = (torch.sum(lhs * lhs, dim=-1) - 1.0).clamp(-1.0, -_EPS)
         gold = q[:, 2]
         d_gold = chyp_distance(lhs, m.entity[gold].to(torch.float32))
-        t2 = -(d_gold**2)
-        if m.cfg.bias == "learn":
-            # score = lhs_b + bt + sim: lhs_b cancels; bt stays on the table
-            t2 = t2 + m.bt[gold, 0].to(torch.float32)
-        # 'constant' adds gamma on both sides; 'none' adds nothing
-        return lhs2, zn, t2.contiguous()
+        return lhs2, zn, self._gold_threshold(-(d_gold**2), gold)
 
-    @torch.no_grad()
-    def kernel_inputs(self, q, fidx, masked: bool | None = None) -> dict:
-        """The kernels' inputs for one batch: lhs2, zn, t2, rhs, wn, bt, and
-        mask (int8 (B, Np), masked form) or fidx and gold (int32, maskless
-        form).  Filter ids outside [0, Np) are sent to pad row n_entities,
-        where torch's scatter has no "drop" mode."""
-        masked = self.masked if masked is None else masked
-        rhs, bt, wn = self._get_tables()
-        lhs2, zn, t2 = self._queries_core(q)
-        n = self.model.cfg.n_entities
-        np_ = rhs.shape[0]
-        fidx = torch.where((fidx >= 0) & (fidx < np_), fidx,
-                           torch.full_like(fidx, n))
-        out = dict(lhs2=lhs2, zn=zn, t2=t2, rhs=rhs, wn=wn, bt=bt)
-        if masked:
-            mask = torch.zeros((q.shape[0], np_), dtype=torch.int8,
-                               device=rhs.device)
-            mask[:, n:] = 1
-            mask.scatter_(1, fidx.long(), 1)
-            out["mask"] = mask
-        else:
-            out["fidx"] = fidx.to(torch.int32).contiguous()
-            out["gold"] = q[:, 2].to(torch.int32).contiguous()
-        return out
-
-    @torch.no_grad()
-    def __call__(self, q, fidx):
-        x = self.kernel_inputs(q, fidx)
+    def _counts(self, x, masked):
         base = (x["lhs2"], x["zn"], x["t2"], x["rhs"], x["wn"], x["bt"])
-        if self.masked:
-            counts = chyp_rank_counts(*base, x["mask"])
-        else:
-            counts = chyp_rank_counts_nomask(*base, x["fidx"], x["gold"])
-            # the gold was excluded from both the sweep and the subtraction;
-            # the dense path's contribution is 0 when it is filtered (always,
-            # under the reference protocol) and +1 otherwise
-            gold_filtered = (x["fidx"] == x["gold"][:, None]).any(dim=1)
-            counts = counts + (~gold_filtered).to(torch.int32)
-        # NaN discipline: counts are finite by construction, so NaN params
-        # would silently rank everything 1; t2 * 0 is NaN exactly when the
-        # gold-target score is, and get_ranking's host check then fires
-        return 1.0 + counts.to(torch.float32) + x["t2"] * 0.0
+        if masked:
+            return chyp_rank_counts(*base, x["mask"])
+        return chyp_rank_counts_nomask(*base, x["fidx"], x["gold"])

@@ -1,0 +1,461 @@
+"""Fused filtered ranking for the real-hyperbolic families.
+
+Port of complexhyperbolickge_tpu/kernels/hyp_rank.py.  Filtered ranking
+scores every query against ALL entities; materialized, that is a (B, N)
+score matrix written and re-read per batch (82 MB at WN18RR, B = 500).  The
+CUDA kernels in csrc/hyp_rank.cu fuse, per entity tile,
+
+    <x, v> -> family epilogue -> score = bt - dist^2
+    -> count of {score >= t2} over the kept entities
+
+so the only outputs are (B,) int32 counts.  Six kernels, one wrapper each:
+
+  * hyp_rank_counts          (K5, TPU hyp_rank_counts): masked sweep; an
+    int8 (B, Np) mask marks filtered entities and pad rows.  `family`
+    picks the epilogue: "poincare" (BaseH but AttRH: the double-folded
+    expmap0 Poincare distance) or "lorentz" (BaseLorentz: folded
+    expmap0_lorentz and the hyperboloid distance).
+  * hyp_rank_sweep_nomask    (K6, TPU hyp_rank_counts_nomask's kernel):
+    counts every row except the gold, with no mask.
+  * hyp_rank_filtered_sub    (K6's subtraction): re-scores each query's
+    filtered ids with the same arithmetic, for subtraction.
+  * attrh_rank_counts, attrh_rank_sweep_nomask, attrh_rank_filtered_sub
+    (K7, K8 and K8's subtraction): the same three for AttRH, whose score is
+    bt - w0 d(rot)^2 - w1 d(ref)^2 over the two halves of the features,
+    each a single-fold Poincare distance.
+
+Inputs, all float32 and contiguous.  Per query (B,): x2 = |lhs|^2 (x2r, x2f
+per half for AttRH), c the curvature, t2 the gold-target score minus the
+lhs bias, and w0, w1 AttRH's weights.  lhs (B, D).  The table rhs (Np, D)
+with >= 1 zero pad row; un (Np,) = sqrt(max(|v|^2, MIN_NORM^2)) (un_rot,
+un_ref per half for AttRH), built once per params version; bt (Np,) tail
+biases with -1e30 on pad rows.  The pad rows' un is the MIN_NORM floor, so
+<x, v> / un = 0 there and nothing is NaN.
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+`launches`; for CPU tensors it runs the plain PyTorch version beside it,
+which repeats the arithmetic with a matmul (a different summation order, so
+counts may differ on scores within float rounding of t2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from complexhyperbolickge_torch.kernels._build import check_tensor as _check
+from complexhyperbolickge_torch.kernels._build import launch
+from complexhyperbolickge_torch.kernels._ranker import ROW_TILE, FusedRanker
+from complexhyperbolickge_torch.ops.math import MIN_NORM, ball_eps, round_up
+
+# launches of each CUDA kernel since the last reset_launches()
+launches = {
+    "hyp_rank_sweep_masked": 0,
+    "hyp_rank_sweep_nomask": 0,
+    "hyp_rank_filtered_sub": 0,
+    "attrh_rank_sweep_masked": 0,
+    "attrh_rank_sweep_nomask": 0,
+    "attrh_rank_filtered_sub": 0,
+}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+# the epilogue instantiations of the K5/K6 kernels
+FAMILIES = {"poincare": 0, "lorentz": 1}
+# project()'s clip radius times sqrt(c): the fused rankers score in float32
+# whatever the model dtype, so the float32 ball eps; passed to the kernels
+# as one f32 value so kernel and plain versions round it identically
+ONE_MINUS_EPS = 1.0 - ball_eps(torch.float32)
+
+
+# ------------------------------ plain versions --------------------------------
+#
+# Every operation below is one rounding in the order the kernels take it
+# (csrc/hyp_rank.cu), so the plain versions differ from the kernels only in
+# the contraction's summation order and the transcendental functions' ulps.
+
+
+def _tanh15(x):
+    return torch.tanh(x.clamp(-15.0, 15.0))
+
+
+def _artanh(x):
+    x = x.clamp(-1 + 1e-5, 1 - 1e-5)
+    return 0.5 * (torch.log1p(x) - torch.log1p(-x))
+
+
+def _ball_dist(xv, gamma, c, sqrt_c, x2):
+    """Poincare distance from x to the point of direction v and radius
+    gamma (ops/hyperbolic.py::_hyp_dist_multi_c_from_parts after its tanh),
+    with the MIN_NORM floors under the sqrt and the denominator."""
+    c1 = 1.0 - 2.0 * c * gamma * xv + c * gamma * gamma
+    c2 = 1.0 - c * x2
+    num = torch.sqrt((c1 * c1 * x2 + c2 * c2 * gamma * gamma
+                      - 2.0 * c1 * c2 * gamma * xv).clamp_min(MIN_NORM))
+    denom = 1.0 - 2.0 * c * gamma * xv + c * c * gamma * gamma * x2
+    return 2.0 * _artanh(sqrt_c * (num / denom.clamp_min(MIN_NORM))) / sqrt_c
+
+
+def _poincare_dist(xv, un, c, x2):
+    """BaseH: distance to expmap0(v) (radius tanh(sqrt_c un) / sqrt_c,
+    clipped by project()), whose radius the distance folds once more."""
+    sqrt_c = torch.sqrt(c)
+    m = _tanh15(sqrt_c * un) / sqrt_c
+    m = torch.minimum(m, torch.full_like(sqrt_c, ONE_MINUS_EPS) / sqrt_c)
+    return _ball_dist(xv, _tanh15(sqrt_c * m) / sqrt_c, c, sqrt_c, x2)
+
+
+def _lorentz_dist(xv, un, c, x2):
+    """BaseLorentz: hyperboloid distance to expmap0_lorentz(v), of radius
+    s = sinh(sqrt_c un) / (sqrt_c un) * un; arcosh as log(z + sqrt(z^2 -
+    1)) with the clamp z >= 1 + 1e-6.  sinh is taken as it is: the TPU
+    kernel's exp-and-Taylor form works around a missing TPU lowering."""
+    sqrt_c = torch.sqrt(c)
+    alpha = sqrt_c * un
+    s = torch.sinh(alpha) / alpha * un
+    x0 = torch.sqrt(x2 + 1.0 / c)
+    v0 = torch.sqrt(s * s + 1.0 / c)
+    z = (-c * (xv * s - x0 * v0)).clamp_min(1 + 1e-6)
+    return torch.log(z + torch.sqrt(z * z - 1.0)) / sqrt_c
+
+
+_DISTS = {"poincare": _poincare_dist, "lorentz": _lorentz_dist}
+
+
+def _half_dist_sq(xv, un, c, x2):
+    """AttRH: single-fold Poincare distance^2 to the raw half v."""
+    sqrt_c = torch.sqrt(c)
+    d = _ball_dist(xv, _tanh15(sqrt_c * un) / sqrt_c, c, sqrt_c, x2)
+    return d * d
+
+
+def hyp_scores_plain(lhs, x2, c, rhs, un, bt, family: str = "poincare"):
+    """All-entity scores (B, Np) in plain PyTorch: bt - dist^2."""
+    xv = (lhs @ rhs.T) / un[None, :]
+    d = _DISTS[family](xv, un[None, :], c[:, None], x2[:, None])
+    return bt[None, :] - d * d
+
+
+def _count(scores, t2, keep):
+    return ((scores >= t2[:, None]) & keep).sum(1, dtype=torch.int32)
+
+
+def _not_gold(np_, gold):
+    return torch.arange(np_, device=gold.device)[None, :] != gold[:, None]
+
+
+def _filtered_rows(fidx, gold, np_):
+    """The kept filtered ids (in range, not the gold) and the clamped ids."""
+    ok = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
+    return ok, fidx.long().clamp(0, np_ - 1)
+
+
+def hyp_rank_counts_plain(lhs, x2, c, t2, rhs, un, bt, mask, family="poincare"):
+    scores = hyp_scores_plain(lhs, x2, c, rhs, un, bt, family)
+    return _count(scores, t2, mask == 0)
+
+
+def hyp_rank_sweep_nomask_plain(lhs, x2, c, t2, rhs, un, bt, gold, family="poincare"):
+    scores = hyp_scores_plain(lhs, x2, c, rhs, un, bt, family)
+    return _count(scores, t2, _not_gold(rhs.shape[0], gold))
+
+
+def hyp_rank_filtered_sub_plain(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
+                                family="poincare"):
+    ok, f = _filtered_rows(fidx, gold, rhs.shape[0])
+    xv = torch.einsum("bd,bld->bl", lhs, rhs[f]) / un[f]
+    d = _DISTS[family](xv, un[f], c[:, None], x2[:, None])
+    return _count(bt[f] - d * d, t2, ok)
+
+
+def attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt):
+    """All-entity AttRH scores (B, Np): bt - w0 d_rot^2 - w1 d_ref^2."""
+    h = lhs.shape[1] // 2
+    xr = (lhs[:, :h] @ rhs[:, :h].T) / un_rot[None, :]
+    xf = (lhs[:, h:] @ rhs[:, h:].T) / un_ref[None, :]
+    c = c[:, None]
+    d2r = _half_dist_sq(xr, un_rot[None, :], c, x2r[:, None])
+    d2f = _half_dist_sq(xf, un_ref[None, :], c, x2f[:, None])
+    return bt[None, :] - w0[:, None] * d2r - w1[:, None] * d2f
+
+
+def attrh_rank_counts_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt, mask):
+    scores = attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt)
+    return _count(scores, t2, mask == 0)
+
+
+def attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
+                                  bt, gold):
+    scores = attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt)
+    return _count(scores, t2, _not_gold(rhs.shape[0], gold))
+
+
+def attrh_rank_filtered_sub_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
+                                  bt, fidx, gold):
+    ok, f = _filtered_rows(fidx, gold, rhs.shape[0])
+    h = lhs.shape[1] // 2
+    rows = rhs[f]  # (B, L, D)
+    xr = torch.einsum("bd,bld->bl", lhs[:, :h], rows[..., :h]) / un_rot[f]
+    xf = torch.einsum("bd,bld->bl", lhs[:, h:], rows[..., h:]) / un_ref[f]
+    c = c[:, None]
+    d2r = _half_dist_sq(xr, un_rot[f], c, x2r[:, None])
+    d2f = _half_dist_sq(xf, un_ref[f], c, x2f[:, None])
+    return _count(bt[f] - w0[:, None] * d2r - w1[:, None] * d2f, t2, ok)
+
+
+# --------------------------------- wrappers -----------------------------------
+
+
+def _check_common(lhs, per_query, rhs, per_row):
+    """Validate the shared inputs of a CUDA launch: lhs (B, D), the (B,)
+    per-query and (Np,) per-row vectors, rhs (Np, D); returns (B, Np, D)."""
+    dev = lhs.device
+    if dev.type != "cuda":
+        raise ValueError(f"hyp_rank kernels take CPU or CUDA tensors, got {dev}")
+    if lhs.dim() != 2 or rhs.dim() != 2:
+        raise ValueError("lhs must be (B, D) and rhs (Np, D)")
+    (b, d), np_ = lhs.shape, rhs.shape[0]
+    f32 = torch.float32
+    _check("lhs", lhs, f32, (b, d), dev)
+    _check("rhs", rhs, f32, (np_, d), dev)
+    for i, v in enumerate(per_query):
+        _check(f"per-query input {i}", v, f32, (b,), dev)
+    for i, v in enumerate(per_row):
+        _check(f"per-row input {i}", v, f32, (np_,), dev)
+    return b, np_, d
+
+
+def _check_filters(fidx, gold, b):
+    if fidx.dim() != 2:
+        raise ValueError("fidx must be (B, L)")
+    _check("fidx", fidx, torch.int32, (b, fidx.shape[1]), gold.device)
+    _check("gold", gold, torch.int32, (b,), gold.device)
+
+
+def _launch(name, device, *args):
+    launch("hyp_rank", name, device, *args)
+    launches[name] += 1
+
+
+def _family(family: str) -> int:
+    try:
+        return FAMILIES[family]
+    except KeyError:
+        raise ValueError(f"unknown hyp_rank family {family!r}") from None
+
+
+def hyp_rank_counts(lhs, x2, c, t2, rhs, un, bt, mask, family: str = "poincare"):
+    """K5: #{j : mask[b, j] == 0 and score(b, j) >= t2[b]} per query, int32
+    (B,).  mask is int8 (B, Np), 1 = filtered out (and on pad rows)."""
+    if lhs.device.type == "cpu":
+        return hyp_rank_counts_plain(lhs, x2, c, t2, rhs, un, bt, mask, family)
+    fam = _family(family)
+    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt))
+    _check("mask", mask, torch.int8, (b, np_), lhs.device)
+    counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
+    _launch("hyp_rank_sweep_masked", lhs.device, lhs, x2, c, t2, rhs, un, bt, mask,
+            counts, b, np_, d, fam, ONE_MINUS_EPS)
+    return counts
+
+
+def hyp_rank_sweep_nomask(lhs, x2, c, t2, rhs, un, bt, gold, family: str = "poincare"):
+    """K6 sweep: #{j != gold[b] : score(b, j) >= t2[b]} per query, int32
+    (B,).  gold is int32 (B,), a row of this table or -1."""
+    if lhs.device.type == "cpu":
+        return hyp_rank_sweep_nomask_plain(lhs, x2, c, t2, rhs, un, bt, gold, family)
+    fam = _family(family)
+    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt))
+    _check("gold", gold, torch.int32, (b,), lhs.device)
+    counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
+    _launch("hyp_rank_sweep_nomask", lhs.device, lhs, x2, c, t2, rhs, un, bt, gold,
+            counts, b, np_, d, fam, ONE_MINUS_EPS)
+    return counts
+
+
+def hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
+                          family: str = "poincare"):
+    """K6 subtraction: #{l : fidx[b, l] in [0, Np), != gold[b], score >=
+    t2[b]} per query, int32 (B,).  fidx is int32 (B, L), rows deduplicated
+    (data/dataset.py::eval_pack)."""
+    if lhs.device.type == "cpu":
+        return hyp_rank_filtered_sub_plain(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
+                                           family)
+    fam = _family(family)
+    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt))
+    _check_filters(fidx, gold, b)
+    sub = torch.empty(b, dtype=torch.int32, device=lhs.device)
+    _launch("hyp_rank_filtered_sub", lhs.device, lhs, x2, c, t2, rhs, un, bt, fidx,
+            gold, sub, b, np_, d, fidx.shape[1], fam, ONE_MINUS_EPS)
+    return sub
+
+
+def hyp_rank_counts_nomask(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
+                           family: str = "poincare"):
+    """K6: #{non-filtered, non-gold j : score >= t2} without a (B, Np) mask:
+    the sweep counts every non-gold row and the filtered ids it counted are
+    subtracted.  Both kernels share one score routine, so a filtered id is
+    subtracted exactly when the sweep counted it."""
+    return (hyp_rank_sweep_nomask(lhs, x2, c, t2, rhs, un, bt, gold, family)
+            - hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold, family))
+
+
+def _check_attrh(lhs, per_query, rhs, per_row):
+    b, np_, d = _check_common(lhs, per_query, rhs, per_row)
+    if d % 2:
+        raise ValueError(f"AttRH's features split in two halves, got D = {d}")
+    return b, np_, d
+
+
+def attrh_rank_counts(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt, mask):
+    """K7: the masked AttRH count, as hyp_rank_counts."""
+    if lhs.device.type == "cpu":
+        return attrh_rank_counts_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
+                                       bt, mask)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+    _check("mask", mask, torch.int8, (b, np_), lhs.device)
+    counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
+    _launch("attrh_rank_sweep_masked", lhs.device, lhs, x2r, x2f, c, w0, w1, t2, rhs,
+            un_rot, un_ref, bt, mask, counts, b, np_, d)
+    return counts
+
+
+def attrh_rank_sweep_nomask(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt, gold):
+    """K8 sweep, as hyp_rank_sweep_nomask."""
+    if lhs.device.type == "cpu":
+        return attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot,
+                                             un_ref, bt, gold)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+    _check("gold", gold, torch.int32, (b,), lhs.device)
+    counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
+    _launch("attrh_rank_sweep_nomask", lhs.device, lhs, x2r, x2f, c, w0, w1, t2, rhs,
+            un_rot, un_ref, bt, gold, counts, b, np_, d)
+    return counts
+
+
+def attrh_rank_filtered_sub(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt,
+                            fidx, gold):
+    """K8 subtraction, as hyp_rank_filtered_sub."""
+    if lhs.device.type == "cpu":
+        return attrh_rank_filtered_sub_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot,
+                                             un_ref, bt, fidx, gold)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+    _check_filters(fidx, gold, b)
+    sub = torch.empty(b, dtype=torch.int32, device=lhs.device)
+    _launch("attrh_rank_filtered_sub", lhs.device, lhs, x2r, x2f, c, w0, w1, t2, rhs,
+            un_rot, un_ref, bt, fidx, gold, sub, b, np_, d, fidx.shape[1])
+    return sub
+
+
+def attrh_rank_counts_nomask(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt,
+                             fidx, gold):
+    """K8: the AttRH sweep minus its filtered subtraction."""
+    args = (lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt)
+    return attrh_rank_sweep_nomask(*args, gold) - attrh_rank_filtered_sub(*args, fidx, gold)
+
+
+# ---------------------------------- rankers -----------------------------------
+
+
+def _padded_table(ent):
+    """ent (n, D) -> float32 (Np, D) with Np = round_up(n + 1, ROW_TILE):
+    at least one zero pad row, where pad filter ids (== n_entities) land:
+    masked in K5/K7, unreachable (bt = -1e30) in K6/K8."""
+    n, d = ent.shape
+    rhs = torch.zeros((round_up(n + 1, ROW_TILE), d), dtype=torch.float32,
+                      device=ent.device)
+    rhs[:n] = ent
+    return rhs
+
+
+def _row_norm(rows):
+    return torch.sqrt(torch.sum(rows * rows, dim=-1).clamp_min(MIN_NORM * MIN_NORM))
+
+
+class HypRanker(FusedRanker):
+    """Filtered ranker for the BaseH family (not AttRH) and the BaseLorentz
+    family; the counterpart of the JAX PallasHypRanker (interface:
+    kernels/_ranker.py).  masked=True streams an int8 (B, Np) mask through
+    K5; masked=False runs K6 (sweep + filtered subtraction) with no mask."""
+
+    TABLES = ("rhs", "un", "bt")
+    QUERIES = ("lhs", "x2", "c", "t2")
+
+    def __init__(self, model, masked: bool = True):
+        from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
+
+        if isinstance(model, AttRH) or not isinstance(model, (BaseH, BaseLorentz)):
+            raise TypeError("HypRanker ranks BaseH (not AttRH) and BaseLorentz models, "
+                            f"got {type(model).__name__}")
+        super().__init__(model, masked)
+        self.family = "poincare" if isinstance(model, BaseH) else "lorentz"
+
+    def _prepare_tables(self):
+        rhs = _padded_table(self.model.entity.detach().to(torch.float32))
+        return rhs, _row_norm(rhs), self._padded_bias(rhs.shape[0], rhs.device)
+
+    def _queries_core(self, q):
+        """(lhs, x2, c, t2) of a batch; t2 as the JAX ranker takes it, the
+        model's own train-shape sim of the gold tail plus bt[gold]."""
+        m = self.model
+        b = q.shape[0]
+        (lhs, c), _ = m.get_queries(q[:, :2])
+        lhs = lhs.to(torch.float32).contiguous()
+        c = c.to(torch.float32).expand(b, 1)  # a shared (1, 1) curvature broadcasts
+        gold = q[:, 2]
+        sim = m.sim((lhs, c), m.entity[gold].to(torch.float32)[:, None, :],
+                    all_pairs=False)[:, 0]
+        return (lhs, torch.sum(lhs * lhs, dim=-1), c[:, 0].contiguous(),
+                self._gold_threshold(sim, gold))
+
+    def _counts(self, x, masked):
+        base = (x["lhs"], x["x2"], x["c"], x["t2"], x["rhs"], x["un"], x["bt"])
+        if masked:
+            return hyp_rank_counts(*base, x["mask"], family=self.family)
+        return hyp_rank_counts_nomask(*base, x["fidx"], x["gold"], family=self.family)
+
+
+class AttRHRanker(FusedRanker):
+    """Filtered ranker for AttRH, whose score splits the features in two
+    halves (the counterpart of the JAX PallasAttRHRanker): K7 masked, K8
+    maskless.  The halves are column ranges of one table, not two tables."""
+
+    TABLES = ("rhs", "un_rot", "un_ref", "bt")
+    QUERIES = ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2")
+
+    def __init__(self, model, masked: bool = True):
+        from complexhyperbolickge_torch.models.hyperbolic import AttRH
+
+        if not isinstance(model, AttRH):
+            raise TypeError(f"AttRHRanker ranks AttRH only, got {type(model).__name__}")
+        super().__init__(model, masked)
+
+    def _prepare_tables(self):
+        rhs = _padded_table(self.model.entity.detach().to(torch.float32))
+        h = rhs.shape[1] // 2
+        return (rhs, _row_norm(rhs[:, :h]), _row_norm(rhs[:, h:]),
+                self._padded_bias(rhs.shape[0], rhs.device))
+
+    def _queries_core(self, q):
+        m = self.model
+        b = q.shape[0]
+        (lhs, c, w), _ = m.get_queries(q[:, :2])
+        lhs = lhs.to(torch.float32).contiguous()
+        c = c.to(torch.float32).expand(b, 1)  # a shared (1, 1) curvature broadcasts
+        w = w.to(torch.float32)
+        gold = q[:, 2]
+        sim = m.sim((lhs, c, w), m.entity[gold].to(torch.float32)[:, None, :],
+                    all_pairs=False)[:, 0]
+        h = lhs.shape[1] // 2
+        return (lhs, torch.sum(lhs[:, :h] ** 2, dim=-1), torch.sum(lhs[:, h:] ** 2, dim=-1),
+                c[:, 0].contiguous(), w[:, 0].contiguous(), w[:, 1].contiguous(),
+                self._gold_threshold(sim, gold))
+
+    def _counts(self, x, masked):
+        base = tuple(x[k] for k in ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs",
+                                    "un_rot", "un_ref", "bt"))
+        if masked:
+            return attrh_rank_counts(*base, x["mask"])
+        return attrh_rank_counts_nomask(*base, x["fidx"], x["gold"])

@@ -1,8 +1,9 @@
 """Model registry (counterpart of complexhyperbolickge_tpu/models/__init__.py).
 
-This slice ports the four CHYP names.  The other 21 registered JAX models
-are queued in ROADMAP.md Queue 1 (item 11: Euclidean / hyperbolic / complex
-families; item 13: GNN encoders).
+Ported: the four CHYP (FFT) names and the eight real-hyperbolic ones
+(Poincare ball and Lorentz).  The other 13 registered JAX models are queued
+in ROADMAP.md Queue 1 (item 11b: Euclidean and complex families; item 13:
+GNN encoders).
 """
 
 from __future__ import annotations
@@ -16,14 +17,35 @@ from complexhyperbolickge_torch.models.chyperbolic import (  # noqa: F401
     FFTRotH,
     FFTUnitBall,
 )
+from complexhyperbolickge_torch.models.hyperbolic import (  # noqa: F401
+    HYP_MODELS,
+    AttH,
+    AttRH,
+    BaseH,
+    BaseLorentz,
+    HyboNet,
+    IFFTH,
+    IsoH,
+    RefH,
+    RotH,
+    RotLH,
+)
 
-all_models = list(CHYP_MODELS)
+all_models = CHYP_MODELS + HYP_MODELS
 
 _REGISTRY = {
     "FFTRotH": FFTRotH,
     "FFTRefH": FFTRefH,
     "FFTAttH": FFTAttH,
     "FFTIsoH": FFTIsoH,
+    "RotH": RotH,
+    "RefH": RefH,
+    "AttH": AttH,
+    "AttRH": AttRH,
+    "IFFTH": IFFTH,
+    "IsoH": IsoH,
+    "RotLH": RotLH,
+    "HyboNet": HyboNet,
 }
 
 
@@ -34,5 +56,5 @@ def get_model(name: str):
     except KeyError:
         raise NotImplementedError(
             f"model {name!r} is not ported to PyTorch yet (ROADMAP.md Queue 1, "
-            f"items 11 and 13); ported: {sorted(_REGISTRY)}"
+            f"items 11b and 13); ported: {sorted(_REGISTRY)}"
         ) from None

@@ -96,9 +96,10 @@ class KGModel(nn.Module):
     def rel_dim(self) -> int:
         return self.cfg.rank
 
-    def param_specs(self) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-        """name -> (shape, init) with init in {normal, uniform, zeros, ones}:
-        normal = N(0, init_size), uniform = U(-1, 1)."""
+    def param_specs(self) -> Dict[str, Tuple[Tuple[int, ...], object]]:
+        """name -> (shape, init) with init in {normal, uniform, zeros, ones}
+        or ("normal", mean, std): normal = N(0, init_size), uniform =
+        U(-1, 1)."""
         cfg = self.cfg
         specs = {
             "entity": ((cfg.n_entities, self.entity_dim), "normal"),
@@ -109,7 +110,7 @@ class KGModel(nn.Module):
         specs.update(self.extra_param_specs())
         return specs
 
-    def extra_param_specs(self) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    def extra_param_specs(self) -> Dict[str, Tuple[Tuple[int, ...], object]]:
         return {}
 
     @torch.no_grad()
@@ -117,9 +118,12 @@ class KGModel(nn.Module):
         """Draw every parameter from its init kind.  Values are drawn on the
         CPU (from `generator`, a CPU torch.Generator) and copied over, so one
         seed gives the same weights on every device.  JAX's random bits
-        differ: parity tests inject params instead."""
+        differ: parity tests inject params instead.  init_post() runs last."""
         for name, (shape, kind) in sorted(self.param_specs().items()):
-            if kind == "normal":
+            if isinstance(kind, tuple):  # ("normal", mean, std)
+                _, mean, std = kind
+                v = torch.randn(shape, generator=generator) * std + mean
+            elif kind == "normal":
                 v = torch.randn(shape, generator=generator) * self.cfg.init_size
             elif kind == "uniform":
                 v = torch.rand(shape, generator=generator) * 2.0 - 1.0
@@ -130,6 +134,11 @@ class KGModel(nn.Module):
             else:
                 raise ValueError(f"unknown init kind {kind}")
             getattr(self, name).copy_(v)
+        self.init_post()
+
+    def init_post(self):
+        """Hook for model-specific init adjustments (e.g. ones in a slice),
+        applied in place after the draws."""
 
     # ------------------------------ curvature -------------------------------
 

@@ -80,26 +80,36 @@ def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
                      precision: str = "highest"):
     """Ranking-backend selector.
 
-    backend='auto' takes the masked fused CUDA ranker (K1) for every
-    FFTUnitBall model, on any device (the CPU runs its plain version).  The
-    JAX rule (dense below 100k entities) rests on TPU measurements; on the
-    H100 the dense path writes and re-reads a (B, N) f32 score matrix per
-    batch (82 MB at WN18RR, B = 500) that the fused kernel never
-    materializes.  The names 'pallas' and 'pallas_maskless' are kept because
-    saved config.json files carry them; here they name the masked (K1) and
-    maskless (K2) CUDA rankers.  'dense' is the materializing ranker.
+    backend='auto' takes the masked fused CUDA ranker of the model's family
+    on any device (the CPU runs its plain version): K1 for the FFTUnitBall
+    family, K7 for AttRH, K5 for the rest of BaseH and for BaseLorentz.
+    AttRH is tested before BaseH: it subclasses BaseH but scores two
+    single-fold half distances.  The JAX rule (dense below 100k entities)
+    rests on TPU measurements; on the H100 the dense path writes and
+    re-reads a (B, N) f32 score matrix per batch (82 MB at WN18RR, B = 500)
+    that the fused kernels never materialize.  The names 'pallas' and
+    'pallas_maskless' are kept because saved config.json files carry them;
+    here they name the masked (K1, K5, K7) and maskless (K2, K6, K8) CUDA
+    rankers.  'dense' is the materializing ranker, and the only one of the
+    families without a fused ranker.
 
     precision: only 'highest' (exact fp32) exists in the port; 'default'
     raises with the flag that selects the exact path.
     """
     from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
     from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
+    from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
 
     if backend not in ("auto", "dense", "pallas", "pallas_maskless"):
         raise ValueError(f"unknown eval backend {backend!r}")
     _check_precision(precision)
-    if backend != "dense" and isinstance(model, FFTUnitBall):
-        return ChypRanker(model, masked=backend != "pallas_maskless")
+    if backend != "dense":
+        masked = backend != "pallas_maskless"
+        for family, ranker in ((FFTUnitBall, ChypRanker), (AttRH, AttRHRanker),
+                               ((BaseH, BaseLorentz), HypRanker)):
+            if isinstance(model, family):
+                return ranker(model, masked=masked)
     if backend in ("pallas", "pallas_maskless"):
         raise NotImplementedError(
             f"no fused CUDA ranker exists for {type(model).__name__} yet "

@@ -107,3 +107,60 @@ def test_module_entry_point_trains_on_cpu(tmp_path):
     assert out.returncode == 0, out.stdout + out.stderr
     assert "Epoch 1 | average train loss" in out.stdout
     assert load_checkpoint(str(tmp_path))["epoch"] == 1
+
+
+# ------------------------- RotH, the real-hyperbolic family ---------------------
+
+ROTH = [a for a in TINY if a not in ("FFTRotH", "5")]
+ROTH[ROTH.index("--model") + 1:ROTH.index("--model") + 1] = ["RotH"]
+ROTH[ROTH.index("--rank") + 1:ROTH.index("--rank") + 1] = ["8"]
+ROTH += ["--double_neg"]
+
+
+def test_roth_trains_and_evaluates_on_cpu(tmp_path):
+    """RotH (Poincare ball, double_neg) trains end to end through the
+    model-generic trainer; validation and kge-test rank through K5's plain
+    version."""
+    out = R.train(R.build_parser().parse_args(ROTH + ["--save_dir", str(tmp_path),
+                                                      "--max_epochs", "2"]))
+    losses = [h["train_loss"] for h in out["history"]]
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    assert 0.0 < out["test"]["MRR"] <= 1.0
+    assert torch_test(str(tmp_path), device="cpu") == out["test"]
+
+
+@pytest.fixture(scope="module")
+def jax_roth_dir(tmp_path_factory):
+    """A RotH run dir as the JAX trainer writes it (f64 params, optax Adam)."""
+    import jax
+    import optax
+
+    from complexhyperbolickge_tpu.cli.run import build_model, build_parser, load_dataset
+    from complexhyperbolickge_tpu.train import checkpoint as jax_ckpt
+
+    path = tmp_path_factory.mktemp("jax_roth")
+    args = build_parser().parse_args([
+        "--dataset", "synthetic", "--synthetic_entities", "120", "--model", "RotH",
+        "--rank", "8", "--bias", "learn", "--multi_c", "--dtype", "float64",
+        "--eval_batch_size", "64", "--eval_backend", "dense"])
+    model = build_model(args, load_dataset(args))
+    rng = np.random.default_rng(11)
+    params = {k: jax.numpy.asarray(rng.normal(0, 0.3, np.shape(v)) + (k == "c"))
+              for k, v in model.init(jax.random.PRNGKey(0)).items()}
+    jax_ckpt.save_checkpoint(str(path), params, optax.adam(1e-3).init(params), epoch=2,
+                             best_mrr=0.1, config={"args": vars(args)})
+    return str(path)
+
+
+def test_kge_test_of_jax_roth_checkpoint_equals_jax(jax_roth_dir):
+    """Both packages rank a JAX-written RotH checkpoint with the dense ranker
+    in f64: identical metrics; the fused rankers' plain versions (K5, K6)
+    agree within 1e-4 in MRR."""
+    want = jax_test(jax_roth_dir)
+    got = torch_test(jax_roth_dir, device="cpu")
+    assert abs(got["MRR"] - want["MRR"]) <= 1e-9
+    assert got["MR"] == pytest.approx(want["MR"], abs=1e-9)
+    np.testing.assert_allclose(got["hits@[1,3,10]"], want["hits@[1,3,10]"], atol=1e-9)
+    for backend in ("auto", "pallas_maskless"):
+        fused = torch_test(jax_roth_dir, device="cpu", eval_backend=backend)
+        assert abs(fused["MRR"] - got["MRR"]) < 1e-4

@@ -1,22 +1,27 @@
-"""The chyp_rank CUDA kernels against their plain PyTorch versions.
+"""The chyp_rank (K1, K2) and hyp_rank (K5-K8) CUDA kernels against their
+plain PyTorch versions.
 
 Needs a CUDA card, the CUDA toolkit and no JAX; on a machine without a card
 every test skips (they carry the `cuda` marker).  On one with a card:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerance: kernel and plain version sum the Hermitian form in different
-orders, so a query's count may differ by at most the number of entities
-whose plain score lies within 1e-5 * (1 + |t2|) of its threshold t2.
+Tolerance: kernel and plain version sum the contraction (the Hermitian
+form, <x, v>) in different orders, so a query's count may differ by at
+most the number of entities whose plain score lies within
+1e-5 * (1 + |t2|) of its threshold t2.
 Between the kernels the scores are bit-identical, so the maskless count
 (sweep - subtraction) equals the masked count exactly.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
 import torch
 
 from complexhyperbolickge_torch.kernels import chyp_rank as K
+from complexhyperbolickge_torch.kernels import hyp_rank as K5
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +116,126 @@ def test_wrappers_check_inputs_and_count_launches():
     with pytest.raises(ValueError, match="is on"):
         K.chyp_rank_counts(*[c[k] for k in BASE], t["mask"])
     assert K.launches["chyp_rank_sweep_masked"] == 1
+
+
+# ---------------------- hyp_rank: K5-K8 (csrc/hyp_rank.cu) ----------------------
+
+HYP_KINDS = ("poincare", "lorentz", "attrh")
+# (B, N, D, L): D = 8 below one 32-wide chunk, 32 the main path's, 40 across
+# two chunks (AttRH's halves then split inside the second); ragged B and N
+HYP_SHAPES = [(48, 300, 8, 6), (37, 1000, 32, 9), (5, 129, 40, 3), (500, 4000, 32, 12)]
+
+
+def hyp_inputs(kind, b, n, d, l, seed=0):
+    """K5-K8 inputs on the CPU: thresholds at each query's gold score,
+    filter rows holding the gold once, pad = n; returns (args, extras,
+    near) with args the wrappers' leading inputs in order."""
+    rng = np.random.default_rng(seed)
+    np_ = -(-(n + 1) // 128) * 128
+    f32 = torch.float32
+    lhs = torch.as_tensor(rng.normal(0, 0.2, (b, d)), dtype=f32)
+    rhs = torch.zeros((np_, d), dtype=f32)
+    rhs[:n] = torch.as_tensor(rng.normal(0, 0.4, (n, d)), dtype=f32)
+    bt = torch.full((np_,), -1e30, dtype=f32)
+    bt[:n] = torch.as_tensor(rng.normal(0, 0.3, n), dtype=f32)
+    c = torch.as_tensor(rng.uniform(0.5, 1.5, b), dtype=f32)
+
+    def norm(rows):
+        return torch.sqrt(torch.sum(rows * rows, -1).clamp_min(1e-30))
+
+    if kind == "attrh":
+        h = d // 2
+        w = torch.softmax(torch.as_tensor(rng.normal(0, 1, (b, 2)), dtype=f32), -1)
+        per_query = [torch.sum(lhs[:, :h] ** 2, -1), torch.sum(lhs[:, h:] ** 2, -1), c,
+                     w[:, 0].contiguous(), w[:, 1].contiguous()]
+        per_row = [norm(rhs[:, :h]), norm(rhs[:, h:]), bt]
+        scores = K5.attrh_scores_plain(lhs, *per_query, rhs, *per_row)
+    else:
+        per_query = [torch.sum(lhs * lhs, -1), c]
+        per_row = [norm(rhs), bt]
+        scores = K5.hyp_scores_plain(lhs, *per_query, rhs, *per_row, family=kind)
+    gold = rng.integers(0, n, b)
+    t2 = scores[torch.arange(b), torch.as_tensor(gold)].contiguous()
+    fidx = np.full((b, l), n, np.int32)
+    for i in range(b):
+        others = rng.choice(np.setdiff1d(np.arange(n), [gold[i]]), rng.integers(0, l), False)
+        fidx[i, :len(others)] = others
+        fidx[i, len(others)] = gold[i]
+    mask = torch.zeros((b, np_), dtype=torch.int8)
+    mask[:, n:] = 1
+    mask.scatter_(1, torch.as_tensor(fidx, dtype=torch.int64), 1)
+    near = ((scores - t2[:, None]).abs() <= (1e-5 * (1 + t2.abs()))[:, None]).sum(1)
+    args = [lhs, *per_query, t2, rhs, *per_row]
+    extras = dict(mask=mask, gold=torch.as_tensor(gold, dtype=torch.int32),
+                  fidx=torch.as_tensor(fidx))
+    return args, extras, near
+
+
+def hyp_fns(kind):
+    """name -> (kernel wrapper, plain version, extra input names)."""
+    if kind == "attrh":
+        return {"masked": (K5.attrh_rank_counts, K5.attrh_rank_counts_plain, ("mask",)),
+                "nomask": (K5.attrh_rank_sweep_nomask, K5.attrh_rank_sweep_nomask_plain,
+                           ("gold",)),
+                "filtered_sub": (K5.attrh_rank_filtered_sub,
+                                 K5.attrh_rank_filtered_sub_plain, ("fidx", "gold"))}
+    fam = {"family": kind}
+    return {"masked": (partial(K5.hyp_rank_counts, **fam),
+                       partial(K5.hyp_rank_counts_plain, **fam), ("mask",)),
+            "nomask": (partial(K5.hyp_rank_sweep_nomask, **fam),
+                       partial(K5.hyp_rank_sweep_nomask_plain, **fam), ("gold",)),
+            "filtered_sub": (partial(K5.hyp_rank_filtered_sub, **fam),
+                             partial(K5.hyp_rank_filtered_sub_plain, **fam),
+                             ("fidx", "gold"))}
+
+
+@pytest.mark.parametrize("shape", HYP_SHAPES)
+@pytest.mark.parametrize("kernel", ["masked", "nomask", "filtered_sub"])
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_kernel_matches_plain(kind, kernel, shape):
+    dev = _cuda_or_skip()
+    args, extras, near = hyp_inputs(kind, *shape)
+    fn, plain, extra = hyp_fns(kind)[kernel]
+    got = fn(*[a.to(dev) for a in args], *[extras[k].to(dev) for k in extra])
+    torch.cuda.synchronize()
+    want = plain(*args, *[extras[k] for k in extra])
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert ((got.cpu() - want).abs() <= near).all()
+
+
+@pytest.mark.parametrize("shape", HYP_SHAPES)
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_maskless_equals_masked_exactly(kind, shape):
+    dev = _cuda_or_skip()
+    args, extras, _ = hyp_inputs(kind, *shape)
+    a = [t.to(dev) for t in args]
+    e = {k: v.to(dev) for k, v in extras.items()}
+    if kind == "attrh":
+        masked = K5.attrh_rank_counts(*a, e["mask"])
+        nomask = K5.attrh_rank_counts_nomask(*a, e["fidx"], e["gold"])
+    else:
+        masked = K5.hyp_rank_counts(*a, e["mask"], family=kind)
+        nomask = K5.hyp_rank_counts_nomask(*a, e["fidx"], e["gold"], family=kind)
+    assert torch.equal(masked, nomask)
+
+
+def test_hyp_wrappers_check_inputs_and_count_launches():
+    dev = _cuda_or_skip()
+    args, extras, _ = hyp_inputs("lorentz", *HYP_SHAPES[0])
+    a = [t.to(dev) for t in args]
+    mask = extras["mask"].to(dev)
+    K5.reset_launches()
+    K5.hyp_rank_counts(*a, mask, family="lorentz")
+    assert K5.launches["hyp_rank_sweep_masked"] == 1
+    with pytest.raises(ValueError, match="unknown hyp_rank family"):
+        K5.hyp_rank_counts(*a, mask, family="klein")
+    with pytest.raises(TypeError, match="dtype"):
+        K5.hyp_rank_counts(*a, mask.to(torch.int32), family="lorentz")
+    with pytest.raises(ValueError, match="is on"):
+        K5.hyp_rank_counts(*a, extras["mask"], family="lorentz")
+    odd = [t[:, :7].contiguous() if t.dim() == 2 else t for t in a]
+    with pytest.raises(ValueError, match="halves"):
+        K5.attrh_rank_counts(odd[0], a[1], a[1], a[2], a[2], a[2], a[3], odd[4], a[5],
+                             a[5], a[6], mask)
+    assert K5.launches["hyp_rank_sweep_masked"] == 1
+    assert sum(K5.launches.values()) == 1
