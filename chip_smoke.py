@@ -16,13 +16,19 @@ script and were not checked against a copy of the file (this repo has
 none).  RotLH (the Lorentz epilogue) and AttRH (the two-half ranker) run at
 the same width in the kernel and kge-test phases.
 
-Three paths of the port are driven, each with the kernels' launch counts
+Four paths of the port are driven, each with the kernels' launch counts
 set to 0 just before it and read just after: FFT serving and evaluation
 (kge-test, predict, HTTP), FFT training (cli.run.train at the published
 WN18RR config: Adam lr 3e-4, N3 reg 0, 100 per-query negatives, 2 epochs),
-and the real-hyperbolic path (kge-test of RotH, RotLH and AttRH, RotH
-serving, 2 epochs of RotH training).  Phases, one JSON line each; any
-failure exits non-zero without the final line:
+the real-hyperbolic path (kge-test of RotH, RotLH and AttRH, RotH
+serving, 2 epochs of RotH training), and the GNN path at the JAX package's
+full-graph CompGCN configuration (benchmarks/gnn_train_bench.py): rank 32,
+hidden 200, 2 layers, opn mult, distmult, Adam lr 1e-3, batch 1000, 50
+negatives, edge dropout 0.3, the encoder re-run over all 173,670 edges
+every step (2 epochs of CompGCN training, 20 PoincareGCN steps, kge-test of
+CompGCN, PoincareGCN, LorentzGCN and PoincareGAT, CompGCN serving).
+Phases, one JSON line each; any failure exits non-zero without the final
+line:
   1 device    the card (torch.cuda), then nvidia-smi's name and power limit
   2 build     nvcc builds every kernel from csrc/ (one nvcc per source, all
               started together)
@@ -52,13 +58,26 @@ failure exits non-zero without the final line:
               launched there fails the run, K3/K4 must launch at least once
               per training step, and each of RotH, RotLH and AttRH must
               launch its family's three kernels
- 12 profile   torch.profiler over one whole-split ranking per ranker (FFTRotH
-              and RotH) and over 20 training steps of each: wall time, device
-              busy time and idle share, top kernels and host ops
- 13 the kernels line: launches, and the times of kernel and plain version
-              beside the kernel's bound (and the rankers' and the training
-              step's device time)
- 14 {"ok": true, "device": {...}}
+ 12 gnn-kernels  K9 against index_add_ (rtol 1e-5, atol 1e-6) and K10 against
+              x[ids] (bitwise) on one sorted half of the graph (E 86,835, N
+              40,943) at H = 1, 32, 200, forward and backward
+ 13 gnn-encode parity  each GNN model's encode through K9/K10 and through
+              their plain versions (rtol 1e-4, atol 1e-5)
+ 14 gnn-train-step parity  3 Adam steps of CompGCN, kernels against plain
+              (float64 held to PARITY_TOL; float32 reported)
+ 15 gnn-train, gnn-step-window, gnn-kge-test, gnn-serve  the GNN path:
+              2 epochs of CompGCN through cli.run.train, 20 PoincareGCN
+              steps, kge-test of the four models (dense ranker over the
+              cached encoding), CompGCN serving; gnn-launches: K9/K10 at
+              least once per training step and in every kge-test
+ 16 profile   torch.profiler over one whole-split ranking per ranker (FFTRotH
+              and RotH) and over 20 training steps of each and of CompGCN:
+              wall time, device busy time and idle share, top kernels and
+              host ops
+ 17 the kernels line: launches, and the times of kernel, plain version and
+              library call beside the kernel's bound (and the rankers' and
+              the training step's device time)
+ 18 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
 
@@ -112,10 +131,14 @@ KERNEL_META = {
     "attrh_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/hyp_rank.py:253",
     "attrh_rank_sweep_nomask": "complexhyperbolickge_tpu/kernels/hyp_rank.py:294",
     "attrh_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/hyp_rank.py:312",
+    "sorted_segment_sum": "complexhyperbolickge_tpu/kernels/segsum.py:98",
+    "row_gather": "complexhyperbolickge_tpu/kernels/gather.py:94",
 }
 SOURCES = {"chyp_rank": "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu",
            "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu",
-           "hyp_rank": "complexhyperbolickge_torch/kernels/csrc/hyp_rank.cu"}
+           "hyp_rank": "complexhyperbolickge_torch/kernels/csrc/hyp_rank.cu",
+           "sorted_segment_sum": "complexhyperbolickge_torch/kernels/csrc/segsum.cu",
+           "row_gather": "complexhyperbolickge_torch/kernels/csrc/gather.cu"}
 RANK_KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask",
                 "chyp_rank_filtered_sub")
 TRAIN_KERNELS = ("chyp_train_fwd", "chyp_train_bwd")
@@ -137,6 +160,30 @@ ATTRH_KERNELS = ("attrh_rank_sweep_masked", "attrh_rank_sweep_nomask",
 HYP_ARGS = {"hyp": ("lhs", "x2", "c", "t2", "rhs", "un", "bt"),
             "attrh": ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref",
                       "bt")}
+# the GNN path: the JAX package's full-graph CompGCN configuration
+# (benchmarks/gnn_train_bench.py:27-51, the README's full-graph CompGCN row)
+# at the CLI's default edge dropout 0.3: rank 32, hidden 200, 2 layers,
+# opn mult, distmult, basis 0, Adam lr 1e-3, batch 1000, 50 per-query
+# negatives, N3 reg 0, multi_c, bias learn, float32; 173,670 edges with
+# inverses re-encoded every step
+GNN_RANK, GNN_BATCH, GNN_NEG = 32, 1000, 50
+GNN_MODELS = ("CompGCN", "PoincareGCN", "LorentzGCN", "PoincareGAT")
+GNN_ARGS = dict(hidden_dim=200, layers=2, edge_dropout=0.3, dropout=0.0, opn="mult",
+                interaction="distmult", basis=0, gnn_agg_method=1)
+GNN_TRAIN_FLAGS = ["--model", "CompGCN", "--regularizer", "N3", "--reg", "0.0",
+                   "--optimizer", "Adam", "--rank", str(GNN_RANK), "--batch_size", str(GNN_BATCH),
+                   "--neg_sample_size", str(GNN_NEG), "--learning_rate", "1e-3", "--multi_c",
+                   "--bias", "learn", "--dtype", "float32",
+                   *[str(x) for k, v in GNN_ARGS.items() for x in (f"--{k}", v)]]
+GNN_TRAIN_CONFIG = dict(optimizer="Adam", learning_rate=1e-3, neg_sample_size=GNN_NEG)
+GNN_KERNELS = ("sorted_segment_sum", "row_gather")
+GNN_WIDTHS = (1, 32, 200)  # K9 / K10 widths on the encoder: edge weights, rank, hidden
+GNN_KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # K9 against index_add_: another order
+# a whole 2-layer encode, kernels vs plain: float32 (the hyperbolic maps
+# amplify summation-order noise near the ball's edge) and float64
+GNN_ENCODE_TOL = dict(rtol=1e-4, atol=1e-4)
+GNN_ENCODE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
+PROFILE_GNN_STEPS = 20
 # fp32 operations of one pair's epilogue after the contraction, counted in
 # csrc/hyp_rank.cu (pair_score) with every +, -, *, /, sqrt, clamp and
 # transcendental call as one: a floor, since a tanhf or log1pf is ~20
@@ -701,16 +748,19 @@ def train_window(dataset, seed: int, name: str = "FFTRotH"):
     return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed)
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, shapes: bool = False) -> dict:
     """torch.profiler over fn(): wall time, device busy time (the union of
     the CUDA kernels' intervals; annotation spans such as Optimizer.step's
-    cover gaps and are left out) and idle share, top kernels and host ops."""
+    cover gaps and are left out) and idle share, top kernels and host ops;
+    with `shapes`, also the ops whose own kernels take the most device time,
+    by input shapes (which tensors the top kernels work on)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -725,7 +775,15 @@ def profile_window(fn) -> dict:
         end = max(end, f)
         by_name[e.name] = by_name.get(e.name, 0.0) + (f - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {}
+    if shapes:
+        by_shape = sorted(prof.key_averages(group_by_input_shape=True),
+                          key=lambda e: -e.self_device_time_total)[:8]
+        out["top_device_ops_by_shape_ms"] = {
+            f"{e.key} {e.input_shapes}"[:160]: e.self_device_time_total / 1e3
+            for e in by_shape}
     return {
+        **out,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3 if kern else "not measured",
         "device_idle_share": 1.0 - busy / wall_us if kern else "not measured",
@@ -753,12 +811,12 @@ def profile_rankers(model, dataset) -> dict:
     return out
 
 
-def profile_steps(window) -> dict:
+def profile_steps(window, shapes: bool = False) -> dict:
     """PROFILE_STEPS training steps of a train_window, profiled."""
     trainer, b, w, gen = window
     trainer.run_epoch(b[:3], w[:3], gen)  # warm-up
     steps = slice(3, 3 + PROFILE_STEPS)
-    prof = profile_window(lambda: trainer.run_epoch(b[steps], w[steps], gen))
+    prof = profile_window(lambda: trainer.run_epoch(b[steps], w[steps], gen), shapes)
     busy = prof["device_busy_ms"]
     prof["device_busy_ms_per_step"] = (busy / PROFILE_STEPS if isinstance(busy, float)
                                        else "not measured")
@@ -767,14 +825,22 @@ def profile_steps(window) -> dict:
     return {"steps": PROFILE_STEPS, **prof}
 
 
-def phase_profile(fft, roth):
+def phase_profile(fft, roth, gnn_window):
     """Where the time goes: one whole-split ranking per ranker and
     PROFILE_STEPS training steps, of FFTRotH and of RotH (each a (model,
-    dataset, train_window) triple).  Returns the FFT training step's device
-    time (busy ms per step)."""
+    dataset, train_window) triple), and PROFILE_STEPS CompGCN training steps
+    (gnn_window) with their K9/K10 launches.  Returns the FFT training
+    step's device time (busy ms per step)."""
+    import complexhyperbolickge_torch.kernels as KS
+
+    before = KS.launches()
+    gnn = profile_steps(gnn_window, shapes=True)
+    gnn["kernel_launches_per_step"] = {
+        k: (KS.launches()[k] - before[k]) / (PROFILE_STEPS + 3) for k in GNN_KERNELS}
     out = {"phase": "profile", "split": "test", "batch": BATCH,
            "rankers": profile_rankers(*fft[:2]), "train": profile_steps(fft[2]),
-           "hyp_rankers": profile_rankers(*roth[:2]), "hyp_train": profile_steps(roth[2])}
+           "hyp_rankers": profile_rankers(*roth[:2]), "hyp_train": profile_steps(roth[2]),
+           "gnn_train": gnn}
     emit(out)
     return out["train"]["device_busy_ms_per_step"]
 
@@ -924,6 +990,381 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
     return rows
 
 
+# ------------------------------- the GNN path ----------------------------------
+
+
+def gnn_args(seed: int, name: str) -> dict:
+    """The run config of `name` at the GNN path's width, as cli.run saves it."""
+    return dict(dataset="synthetic", synthetic_seed=seed, data_path="data", debug=False,
+                model=name, rank=GNN_RANK, init_size=1e-3, bias="learn", gamma=0.0,
+                multi_c=True, dtype="float32", eval_batch_size=GNN_BATCH,
+                eval_backend="auto", eval_precision="highest", **GNN_ARGS, **WN18RR)
+
+
+def gnn_model(seed: int, name: str, dataset, **over):
+    """A fresh `name` on the card at the GNN path's width, drawn from `seed`."""
+    import torch
+
+    from complexhyperbolickge_torch.cli.run import build_model
+
+    ns = argparse.Namespace(**{**gnn_args(seed, name), **over})
+    return build_model(ns, dataset, DEVICE, generator=torch.Generator().manual_seed(seed))
+
+
+def gnn_kernel_inputs(model, h: int, seed: int):
+    """K9 and K10 inputs at the encoder's shapes: the first sorted half of
+    the graph (its K9 closure over the receiving nodes and K10 closure over
+    the tails), messages (E, h) and a node table (N, h) on the card."""
+    import numpy as np
+    import torch
+
+    g = model.graph
+    seg, gth = g.heads.halves[0], g.tail_gathers[0]
+    r = np.random.default_rng(seed)
+    msgs = torch.tensor(r.normal(size=(seg.num_edges, h)), dtype=torch.float32, device=DEVICE)
+    x = torch.tensor(r.normal(size=(seg.num_segments, h)), dtype=torch.float32, device=DEVICE)
+    return seg, gth, msgs, x
+
+
+def phase_gnn_kernels(model, seed: int):
+    """K9 against index_add_ and K10 against x[ids] on one sorted half of
+    the WN18RR-shape graph (E = 86,835 into N = 40,943) at H = 1, 32, 200,
+    forward and backward (against autograd of the plain versions); then the
+    times of kernel, plain version and library call.  Returns the rows'
+    measurements by (kernel, H)."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import gather as G
+    from complexhyperbolickge_torch.kernels import segsum as S
+
+    out = {"phase": "gnn-kernels", "E": None, "N": None, "widths": {}}
+    meas, failed = {}, []
+    for h in GNN_WIDTHS:
+        seg, gth, msgs, x = gnn_kernel_inputs(model, h, seed + h)
+        out["E"], out["N"] = seg.num_edges, seg.num_segments
+        gm = torch.randn((seg.num_segments, h), device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(seed))
+        gx = torch.randn((seg.num_edges, h), device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(seed + 1))
+        m1, m2 = msgs.clone().requires_grad_(), msgs.clone().requires_grad_()
+        s_k = seg(m1)
+        s_p = S.sorted_segment_sum_plain(m2, seg)
+        (s_k * gm).sum().backward()
+        (s_p * gm).sum().backward()
+        x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+        g_k = gth(x1)
+        g_p = G.row_gather_plain(x2, gth.ids)
+        (g_k * gx).sum().backward()
+        (g_p * gx).sum().backward()
+        lengths = seg.row_ptr.diff().long()
+        lib = torch.segment_reduce(msgs, "sum", lengths=lengths)
+        torch.cuda.synchronize()
+        s_k, s_p, g_k, g_p = s_k.detach(), s_p.detach(), g_k.detach(), g_p.detach()
+        res = {
+            "segsum_max_abs_err": float((s_k - s_p).abs().max()),
+            "segsum_within_tolerance": bool(torch.allclose(s_k, s_p, **GNN_KERNEL_TOL)),
+            "segsum_grad_equal": bool(torch.equal(m1.grad, m2.grad)),
+            "segment_reduce_max_abs_err": float((lib - s_p).abs().max()),
+            "gather_bitwise_equal": bool(torch.equal(g_k, g_p)),
+            "gather_grad_max_abs_err": float((x1.grad - x2.grad).abs().max()),
+            "gather_grad_within_tolerance": bool(torch.allclose(x1.grad, x2.grad,
+                                                                **GNN_KERNEL_TOL)),
+        }
+        out["widths"][h] = res
+        if not (res["segsum_within_tolerance"] and res["segsum_grad_equal"]
+                and res["gather_bitwise_equal"] and res["gather_grad_within_tolerance"]):
+            failed.append(f"H={h}: {res}")
+        ids64 = gth.ids.long()
+        n_read = int(gth.ids.unique().numel())  # the table rows the gather reads
+        meas[("sorted_segment_sum", h)] = dict(
+            max_abs_err=res["segsum_max_abs_err"],
+            ms=cuda_ms(lambda: S.sorted_segment_sum(msgs, seg), reps=50),
+            plain_ms=cuda_ms(lambda: S.sorted_segment_sum_plain(msgs, seg)),
+            library_ms=cuda_ms(lambda: torch.segment_reduce(msgs, "sum", lengths=lengths)),
+            nbytes=4 * (seg.num_edges * h + seg.num_segments + 1 + seg.num_segments * h),
+            ops=seg.num_edges * h,
+            shape={"E": seg.num_edges, "N": seg.num_segments, "H": h})
+        meas[("row_gather", h)] = dict(
+            max_abs_err=0.0 if res["gather_bitwise_equal"] else float((g_k - g_p).abs().max()),
+            ms=cuda_ms(lambda: G.row_gather(x, gth.ids), reps=50),
+            plain_ms=cuda_ms(lambda: G.row_gather_plain(x, gth.ids)),
+            library_ms=cuda_ms(lambda: torch.index_select(x, 0, ids64)),
+            nbytes=4 * (n_read * h + seg.num_edges + seg.num_edges * h), ops=0,
+            shape={"E": seg.num_edges, "N": seg.num_segments, "H": h, "rows_read": n_read})
+    emit(out)
+    if failed:
+        raise AssertionError("K9/K10 disagree with their plain versions: " + "; ".join(failed))
+    return meas
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a nested tuple (a GNN encoding: x and its relation pack)."""
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return [tree]
+
+
+def swap_plain_gnn():
+    """Swap K9's and K10's plain versions in for the kernels; returns the
+    function that swaps the kernels back."""
+    from complexhyperbolickge_torch.kernels import gather as G
+    from complexhyperbolickge_torch.kernels import segsum as S
+
+    real = (S.sorted_segment_sum, G.row_gather)
+    S.sorted_segment_sum, G.row_gather = S.sorted_segment_sum_plain, G.row_gather_plain
+
+    def restore():
+        S.sorted_segment_sum, G.row_gather = real
+
+    return restore
+
+
+def encode_kernel_and_plain(model, plain_runs: int = 1):
+    """The eval-mode encoding's tensors through K9/K10, then `plain_runs`
+    times with their plain versions swapped in, with each run's launches."""
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+
+    runs = []
+    with torch.no_grad():
+        for plain in [False] + [True] * plain_runs:
+            KS.reset_launches()
+            restore = swap_plain_gnn() if plain else (lambda: None)
+            try:
+                enc = tensor_leaves(model.encode())
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            runs.append((enc, {k: KS.launches()[k] for k in GNN_KERNELS}))
+    return runs
+
+
+def max_diff(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def phase_gnn_encode_parity(models: dict, dataset, seed: int):
+    """Each GNN model's eval-mode encode (rank 32, hidden 200, 2 layers,
+    multi_c, weights from the seed) once through K9/K10 and once with their
+    plain versions swapped in.  float64 (the kernels' double instances) is
+    held to GNN_ENCODE_TOL_F64.  In float32 both sum in other orders
+    (index_add_'s atomics), and the hyperbolic maps amplify that near the
+    ball's edge (artanh'), so the float32 encodings are held to
+    GNN_ENCODE_TOL, beside the plain version's own run-to-run spread.  Each
+    kernel run launches the kernels its encoder runs (K10 everywhere, K9
+    on the sorted-halves sums, which PoincareGAT does not have); the plain
+    runs launch nothing."""
+    import torch
+
+    out = {"phase": "gnn-encode parity", "tolerance": GNN_ENCODE_TOL,
+           "tolerance_float64": GNN_ENCODE_TOL_F64, "models": {}}
+    failed = []
+    for name, model in models.items():
+        (kern, k_launch), (plain, p_launch), (again, _) = encode_kernel_and_plain(model, 2)
+        k64, p64 = encode_kernel_and_plain(gnn_model(seed, name, dataset, dtype="float64"))
+        res = {"max_abs_err": max_diff(kern, plain),
+               "plain_vs_plain_max_abs_diff": max_diff(plain, again),
+               "max_abs_value": max(float(a.abs().max()) for a in kern),
+               "within_tolerance": all(bool(torch.allclose(a, b, **GNN_ENCODE_TOL))
+                                       for a, b in zip(kern, plain)),
+               "float64_max_abs_err": max_diff(k64[0], p64[0]),
+               "float64_within_tolerance": all(bool(torch.allclose(a, b, **GNN_ENCODE_TOL_F64))
+                                               for a, b in zip(k64[0], p64[0])),
+               "finite": all(bool(torch.isfinite(a).all()) for a in kern + k64[0]),
+               "kernel_launches": k_launch, "plain_launches": p_launch}
+        out["models"][name] = res
+        need = GNN_KERNELS[1:] if name == "PoincareGAT" else GNN_KERNELS
+        if (not (res["within_tolerance"] and res["float64_within_tolerance"] and res["finite"])
+                or not all(k_launch[k] and k64[1][k] for k in need)
+                or any(p_launch.values()) or any(p64[1].values())):
+            failed.append(f"{name}: {res}")
+    emit(out)
+    if failed:
+        raise AssertionError("GNN encodes through the kernels and the plain versions "
+                             "disagree: " + "; ".join(failed))
+
+
+def phase_gnn_train_step_parity(dataset, seed: int):
+    """3 Adam steps of CompGCN (edge dropout 0) from the same params with the
+    same negatives, once through K9/K10 and once with the plain versions.
+    Held to PARITY_TOL in float64 (both kernels have a float64 instance).
+    In float32 the step reorders f32 sums (K9's edge order against
+    index_add_'s atomics), and Adam turns that noise in near-zero gradient
+    components into visible steps, as it does between two runs of the plain
+    version alone: the float32 differences are reported beside the plain
+    version's own run-to-run spread."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.train.losses import sample_negatives
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    out = {"phase": "gnn-train-step parity", "model": "CompGCN", "steps": 3,
+           "tolerance_float64": PARITY_TOL, "dtypes": {}}
+    failed = []
+    for dtype in ("float64", "float32"):
+        model = gnn_model(seed, "CompGCN", dataset, edge_dropout=0.0, dtype=dtype)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        n_ent, n_rel = model.cfg.n_entities, model.cfg.n_relations
+        rng = np.random.default_rng(seed)
+        batches = np.stack([rng.integers(0, n_ent, (3, GNN_BATCH)),
+                            rng.integers(0, n_rel, (3, GNN_BATCH)),
+                            rng.integers(0, n_ent, (3, GNN_BATCH))], axis=-1).astype(np.int32)
+        weights = np.ones((3, GNN_BATCH), np.float32)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        negs = [sample_negatives(gen, torch.as_tensor(b, dtype=torch.int64, device=DEVICE),
+                                 n_ent, GNN_NEG) for b in batches]
+
+        def three_steps(plain: bool):
+            model.load_state_dict(init)
+            it = iter(negs)
+            trainer = Trainer(model, TrainConfig(**GNN_TRAIN_CONFIG), n_ent, n_rel,
+                              sampler=lambda *a: next(it))
+            KS.reset_launches()
+            restore = swap_plain_gnn() if plain else (lambda: None)
+            try:
+                trainer.run_epoch(batches, weights, None)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            counts = {k: KS.launches()[k] for k in GNN_KERNELS}
+            return {k: v.detach().clone() for k, v in model.state_dict().items()}, counts
+
+        kernel, kernel_launches = three_steps(False)
+        plain, plain_launches = three_steps(True)
+        res = {"kernel_launches": kernel_launches, "plain_launches": plain_launches,
+               "max_moved": max(float((kernel[k] - init[k]).abs().max()) for k in init),
+               "max_abs_diff": {k: float((kernel[k] - plain[k]).abs().max()) for k in init},
+               "not_within_parity_tol": [k for k in init if not torch.allclose(
+                   kernel[k], plain[k], **PARITY_TOL)]}
+        if dtype == "float32":
+            again, _ = three_steps(True)
+            res["plain_vs_plain_max_abs_diff"] = max(
+                float((again[k] - plain[k]).abs().max()) for k in init)
+        elif res["not_within_parity_tol"]:
+            failed.append(f"float64 params beyond PARITY_TOL: {res['not_within_parity_tol']}")
+        if set(plain_launches.values()) != {0} or min(kernel_launches.values()) < 3:
+            failed.append(f"{dtype} launches: kernel {kernel_launches}, plain {plain_launches}")
+        out["dtypes"][dtype] = res
+        del model
+    emit(out)
+    if failed:
+        raise AssertionError(f"kernel and plain GNN training steps disagree: {failed}")
+
+
+def write_gnn_run(seed: int, model) -> str:
+    """A run dir of `model` (weights as drawn) as the trainer writes it."""
+    from complexhyperbolickge_torch.train.checkpoint import save_checkpoint
+
+    name = type(model).__name__
+    work = WORK / "gnn" / name
+    save_checkpoint(str(work), model.state_dict(), config={"args": gnn_args(seed, name)})
+    return str(work)
+
+
+def phase_gnn_kge_test(dirs: dict):
+    """kge-test of each GNN run dir (auto = the dense ranker over the cached
+    encoding): finite metrics, and K9/K10 launched in each (K10 alone for
+    PoincareGAT, whose encoder sums over the unsorted [edges; loops] index).
+    The weights are untrained, so MRR is near chance."""
+    import numpy as np
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.cli.test import test
+
+    out = {"phase": "gnn-kge-test", "split": "test", "models": {}}
+    by_model = {}
+    for name, d in dirs.items():
+        before = KS.launches()
+        t0 = time.perf_counter()
+        m = test(d, device="cuda")
+        by_model[name] = {k: KS.launches()[k] - before[k] for k in GNN_KERNELS}
+        out["models"][name] = {"MRR": m["MRR"], "MR": m["MR"], "hits@[1,3,10]": m["hits@[1,3,10]"],
+                               "cli_seconds": time.perf_counter() - t0,
+                               "launches": by_model[name]}
+    emit(out)
+    # K10 in every encoder, K9 wherever it sums over the sorted halves
+    # (PoincareGAT's sums run over the unsorted [edges; loops] index)
+    bad = {n: v for n, v in out["models"].items()
+           if not (np.isfinite([v["MRR"], v["MR"]]).all() and 0.0 < v["MRR"] <= 1.0)
+           or not all(v["launches"][k] for k in (
+               GNN_KERNELS[1:] if n == "PoincareGAT" else GNN_KERNELS))}
+    if bad:
+        raise AssertionError(f"GNN kge-test failed or launched no K9/K10: {bad}")
+    return by_model
+
+
+def gnn_train_window(dataset, seed: int, name: str = "CompGCN"):
+    """A trainer at the GNN training config on a fresh `name`, with one
+    epoch's batches: what the GNN profile and step windows run."""
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.data.dataset import epoch_batches
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    model = gnn_model(seed, name, dataset)
+    trainer = Trainer(model, TrainConfig(**GNN_TRAIN_CONFIG),
+                      model.cfg.n_entities, model.cfg.n_relations)
+    b, w = epoch_batches(dataset.get_examples("train"), GNN_BATCH, np.random.default_rng(seed))
+    return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed)
+
+
+def phase_gnn_step_window(dataset, seed: int, name: str = "PoincareGCN"):
+    """PROFILE_GNN_STEPS training steps of `name` through Trainer.run_epoch,
+    so the hyperbolic convs' backward runs K9/K10 on the card: loss finite,
+    ms per step, launches per step."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+
+    trainer, b, w, gen = gnn_train_window(dataset, seed, name)
+    trainer.run_epoch(b[:2], w[:2], gen)  # warm-up
+    before = KS.launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.run_epoch(b[2:2 + PROFILE_GNN_STEPS], w[2:2 + PROFILE_GNN_STEPS], gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: KS.launches()[k] - before[k] for k in GNN_KERNELS}
+    out = {"phase": "gnn-step-window", "model": name, "steps": PROFILE_GNN_STEPS,
+           "loss": loss, "ms_per_step": 1e3 * secs / PROFILE_GNN_STEPS,
+           "triples_per_s": PROFILE_GNN_STEPS * GNN_BATCH / secs,
+           "launches_per_step": {k: v / PROFILE_GNN_STEPS for k, v in launches.items()},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    if not np.isfinite(loss) or min(launches.values()) < PROFILE_GNN_STEPS:
+        raise AssertionError(f"{name} training window failed: {out}")
+
+
+def gnn_kernel_rows(meas, launches, smi, name):
+    """The kernels line's K9 and K10 rows at the encoder's hidden width (H =
+    200), with the H = 1 and H = 32 measurements beside them.  Bound: bytes,
+    each input read once (msgs, row_ptr; the table, ids) and the output
+    written once, K10's table as the distinct rows its ids fetch; K9's E H
+    fp32 additions as operations."""
+    f32_peak, bw_peak, _ = peak_rates(name)
+    rows = []
+    for kname in GNN_KERNELS:
+        by_h = {}
+        for h in GNN_WIDTHS:
+            m = dict(meas[(kname, h)])
+            t_ops, t_bytes = m.pop("ops") / f32_peak * 1e3, m.pop("nbytes") / bw_peak * 1e3
+            by_h[h] = {**m, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        main = by_h[GNN_WIDTHS[-1]]
+        rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
+                     "replaces": KERNEL_META[kname], "launches": launches[kname], **main,
+                     "library": ("torch.segment_reduce" if kname == "sorted_segment_sum"
+                                 else "torch.index_select"),
+                     "card": smi, "other_widths": {h: by_h[h] for h in GNN_WIDTHS[:-1]}})
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -989,11 +1430,35 @@ def main(argv=None) -> int:
         launches = {**{k: serve_launches[k] for k in RANK_KERNELS},
                     **{k: train_launches[k] for k in TRAIN_KERNELS}}
 
+        # the GNN path: kernels and parity first, at full width
+        gnn_models = {m: gnn_model(a.seed, m, dataset) for m in GNN_MODELS}
+        gnn_meas = phase_gnn_kernels(gnn_models["CompGCN"], a.seed)
+        phase_gnn_encode_parity(gnn_models, dataset, a.seed)
+        phase_gnn_train_step_parity(dataset, a.seed)
+        gnn_dirs = {m: write_gnn_run(a.seed, g) for m, g in gnn_models.items()}
+        del gnn_models
+        KS.reset_launches()  # the GNN path starts here
+        gnn_history = phase_train(a.seed, GNN_TRAIN_FLAGS, label="gnn-train")
+        gnn_train_launches = KS.launches()
+        phase_gnn_step_window(dataset, a.seed)
+        gnn_by_model = phase_gnn_kge_test(gnn_dirs)
+        phase_serve(gnn_dirs["CompGCN"], label="gnn-serve")
+        gnn_launches = KS.launches()  # ... and ends here
+        gnn_steps = sum(h["steps"] for h in gnn_history)
+        emit({"phase": "gnn-launches", "train": {k: gnn_train_launches[k] for k in GNN_KERNELS},
+              "train_steps": gnn_steps, "kge_test_by_model": gnn_by_model,
+              "path": {k: gnn_launches[k] for k in GNN_KERNELS}})
+        if min(gnn_train_launches[k] for k in GNN_KERNELS) < gnn_steps:
+            raise AssertionError(f"K9/K10 launched fewer times than the {gnn_steps} CompGCN "
+                                 f"training steps: {gnn_train_launches}")
+
         step_ms = phase_profile(
             (model, dataset, train_window(dataset, a.seed)),
-            (*hyp["RotH"], train_window(hyp["RotH"][1], a.seed, "RotH")))
+            (*hyp["RotH"], train_window(hyp["RotH"][1], a.seed, "RotH")),
+            gnn_train_window(dataset, a.seed))
         rows = phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
         rows += hyp_kernel_rows(hyp, hyp_batches, hyp_launches, hyp_errors, smi, name)
+        rows += gnn_kernel_rows(gnn_meas, gnn_launches, smi, name)
         emit({"kernels": rows})
         torch.cuda.synchronize()
     except (Exception, SystemExit):  # report, then fail without the ok line

@@ -21,9 +21,12 @@ converted (train/checkpoint.py::opt_state_from_jax).  Shuffles and
 negatives derive from (seed, epoch), so a resumed run repeats a continuous
 one.
 
-Runs on the card unless --device cpu.  Flags of parts not ported yet
-(--mesh, --distributed, --subgraph, --profile_dir, --debug_nans, the GNN
-flags) are accepted and raise when set, naming their ROADMAP.md item.
+GNN models (CompGCN, PoincareGCN, PoincareGAT, LorentzGCN) train on the
+full graph through the same loop; their flags are --hidden_dim, --layers,
+--edge_dropout, --dropout, --opn, --interaction, --basis and
+--gnn_agg_method.  Runs on the card unless --device cpu.  Flags of parts
+not ported yet (--mesh, --distributed, --subgraph, --profile_dir,
+--debug_nans) are accepted and raise when set, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from complexhyperbolickge_torch.data.dataset import KGData, epoch_batches, synthetic_kg
-from complexhyperbolickge_torch.models import ModelConfig, get_model
+from complexhyperbolickge_torch.models import GNN_MODELS, ModelConfig, get_model
 from complexhyperbolickge_torch.train.checkpoint import (
     PickledStub,
     load_checkpoint,
@@ -64,7 +67,7 @@ DATASETS = ["FB15K", "WN", "WN18RR", "FB237", "YAGO3-10", "synthetic"]
 # flags of parts not ported yet: flag -> ROADMAP.md Queue 1 item
 _UNPORTED = {"mesh": 15, "distributed": 15, "subgraph": 14, "profile_dir": 16,
              "debug_nans": 16}
-# the GNN flags and their defaults (ROADMAP.md Queue 1 item 13)
+# the GNN flags and their defaults
 _GNN_DEFAULTS = {"hidden_dim": 200, "edge_dropout": 0.3, "layers": 2,
                  "opn": "mult", "interaction": "distmult", "basis": 0,
                  "gnn_agg_method": 1}
@@ -121,7 +124,8 @@ def load_dataset(args) -> KGData:
 
 def build_model(args, dataset: KGData, device, generator=None):
     """The run config's model on `device`, initialized from `generator`
-    (a CPU torch.Generator)."""
+    (a CPU torch.Generator).  A GNN takes the run config and the dataset
+    too: its graph is the train split."""
     n_ent, n_rel, _ = dataset.get_shape()
     cfg = ModelConfig(
         n_entities=n_ent,
@@ -134,7 +138,10 @@ def build_model(args, dataset: KGData, device, generator=None):
         dtype=args.dtype,
         dropout=args.dropout,
     )
-    return get_model(args.model)(cfg, device=device, generator=generator)
+    cls = get_model(args.model)
+    if args.model in GNN_MODELS:
+        return cls(cfg, args, dataset, device=device, generator=generator)
+    return cls(cfg, device=device, generator=generator)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -213,10 +220,6 @@ def _refuse_unported(args):
         if getattr(args, flag, None):
             raise NotImplementedError(f"--{flag} has no PyTorch port yet "
                                       f"(ROADMAP.md Queue 1 item {item})")
-    for flag, default in _GNN_DEFAULTS.items():
-        if getattr(args, flag, default) != default:
-            raise NotImplementedError(f"--{flag} (GNN) has no PyTorch port yet "
-                                      "(ROADMAP.md Queue 1 item 13)")
 
 
 def epoch_generator(seed: int, stream: int, device) -> torch.Generator:

@@ -2,15 +2,15 @@
 
 chyp_rank.py ports complexhyperbolickge_tpu/kernels/chyp_rank.py (K1, K2);
 chyp_train.py ports complexhyperbolickge_tpu/kernels/chyp_train.py (K3,
-K4); hyp_rank.py ports complexhyperbolickge_tpu/kernels/hyp_rank.py (K5-K8).
-The GNN's Pallas kernels (segsum, gather) are queued in ROADMAP.md Queue 2.
-Sources live in csrc/ and are compiled at first use (_build.py); importing
-this package builds nothing.
+K4); hyp_rank.py ports complexhyperbolickge_tpu/kernels/hyp_rank.py (K5-K8);
+segsum.py and gather.py port the GNN's kernels/segsum.py (K9) and
+kernels/gather.py (K10).  Sources live in csrc/ and are compiled at first
+use (_build.py); importing this package builds nothing.
 """
 
-from complexhyperbolickge_torch.kernels import chyp_rank, chyp_train, hyp_rank
+from complexhyperbolickge_torch.kernels import chyp_rank, chyp_train, gather, hyp_rank, segsum
 
-_MODULES = (chyp_rank, chyp_train, hyp_rank)
+_MODULES = (chyp_rank, chyp_train, hyp_rank, segsum, gather)
 
 
 def reset_launches():

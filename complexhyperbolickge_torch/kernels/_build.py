@@ -23,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chyp_rank", "chyp_train", "hyp_rank")
+SOURCES = ("chyp_rank", "chyp_train", "hyp_rank", "segsum", "gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,6 +47,8 @@ SIGNATURES = {
         "attrh_rank_sweep_nomask": [_P] * 13 + [_I] * 3 + [_P],
         "attrh_rank_filtered_sub": [_P] * 14 + [_I] * 4 + [_P],
     },
+    "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64")},
+    "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64")},
 }
 
 _lock = threading.Lock()

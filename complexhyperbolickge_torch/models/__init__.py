@@ -1,9 +1,10 @@
 """Model registry (counterpart of complexhyperbolickge_tpu/models/__init__.py).
 
-Ported: the four CHYP (FFT) names and the eight real-hyperbolic ones
-(Poincare ball and Lorentz).  The other 13 registered JAX models are queued
-in ROADMAP.md Queue 1 (item 11b: Euclidean and complex families; item 13:
-GNN encoders).
+Ported: the four CHYP (FFT) names, the eight real-hyperbolic ones
+(Poincare ball and Lorentz) and the four GNN encoders.  The other 9
+registered JAX models (Euclidean and complex families) are queued in
+ROADMAP.md Queue 1 item 11b.  A GNN class takes (cfg, args, dataset): its
+graph is the dataset's train split.
 """
 
 from __future__ import annotations
@@ -16,6 +17,13 @@ from complexhyperbolickge_torch.models.chyperbolic import (  # noqa: F401
     FFTRefH,
     FFTRotH,
     FFTUnitBall,
+)
+from complexhyperbolickge_torch.models.gnn import (  # noqa: F401
+    GNN_MODELS,
+    CompGCN,
+    LorentzGCN,
+    PoincareGAT,
+    PoincareGCN,
 )
 from complexhyperbolickge_torch.models.hyperbolic import (  # noqa: F401
     HYP_MODELS,
@@ -31,7 +39,7 @@ from complexhyperbolickge_torch.models.hyperbolic import (  # noqa: F401
     RotLH,
 )
 
-all_models = CHYP_MODELS + HYP_MODELS
+all_models = CHYP_MODELS + HYP_MODELS + GNN_MODELS
 
 _REGISTRY = {
     "FFTRotH": FFTRotH,
@@ -46,6 +54,10 @@ _REGISTRY = {
     "IsoH": IsoH,
     "RotLH": RotLH,
     "HyboNet": HyboNet,
+    "CompGCN": CompGCN,
+    "PoincareGCN": PoincareGCN,
+    "PoincareGAT": PoincareGAT,
+    "LorentzGCN": LorentzGCN,
 }
 
 
@@ -56,5 +68,5 @@ def get_model(name: str):
     except KeyError:
         raise NotImplementedError(
             f"model {name!r} is not ported to PyTorch yet (ROADMAP.md Queue 1, "
-            f"items 11b and 13); ported: {sorted(_REGISTRY)}"
+            f"item 11b); ported: {sorted(_REGISTRY)}"
         ) from None

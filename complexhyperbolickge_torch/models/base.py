@@ -210,3 +210,29 @@ def _softplus(x):
     """log(1 + e^x) as jax.nn.softplus computes it (logaddexp(x, 0));
     torch's F.softplus switches to the identity above x = 20."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# ----------------------------- shared primitives -----------------------------
+
+
+def dot_train(x, y):
+    """(B, d) or (B, 1, d) vs (B, K, d) -> (B, K) inner products."""
+    if x.dim() == 2:
+        x = x[:, None, :]
+    return torch.sum(x * y, dim=-1)
+
+
+def dot_all(x, y):
+    """(B, d) vs (N, d) -> (B, N) inner products as one matmul."""
+    return torch.matmul(x, y.T)
+
+
+def neg_sq_dist(lhs, rhs_e, all_pairs: bool):
+    """-(|x|^2 + |y|^2 - 2 <x, y>): the 'dist' similarity of CompGCN's transe
+    decoder (and of BaseE, not ported yet)."""
+    x2 = torch.sum(lhs * lhs, dim=-1, keepdim=True)  # (B, 1)
+    if all_pairs:
+        y2 = torch.sum(rhs_e * rhs_e, dim=-1)[None, :]  # (1, N)
+        return -(x2 + y2 - 2 * dot_all(lhs, rhs_e))
+    y2 = torch.sum(rhs_e * rhs_e, dim=-1)  # (B, K)
+    return -(x2 + y2 - 2 * dot_train(lhs, rhs_e))

@@ -1,9 +1,8 @@
 """Poincare-ball and Lorentz-hyperboloid ops.
 
-Port of complexhyperbolickge_tpu/ops/hyperbolic.py (the parts the
-real-hyperbolic models use; `hyp_distance`, `hyp_plain_sim_expmap_all` and
-`explicit_lorentz` serve only the GNN encoders and come with them).  Every
-distance comes in two forms:
+Port of complexhyperbolickge_tpu/ops/hyperbolic.py (`hyp_distance`,
+`hyp_plain_sim_expmap_all` and `explicit_lorentz` serve the GNN encoders and
+decoders only).  Every distance comes in two forms:
 
   * broadcast form: x (..., d) vs v (..., d), the training shape
     (B, 1, d) vs (B, K, d) and the rankers' gold-tail scores;
@@ -62,6 +61,20 @@ def mobius_add(x, y, c):
     num = (1 + 2 * c * xy + c * y2) * x + (1 - c * x2) * y
     denom = 1 + 2 * c * xy + c**2 * x2 * y2
     return num / denom.clamp_min(MIN_NORM)
+
+
+def hyp_distance(x, y, c):
+    """Poincare distance between ball points x and y, shared curvature,
+    broadcast form (the single-c PoincareGCN decoder)."""
+    sqrt_c = c**0.5
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    y2 = torch.sum(y * y, dim=-1, keepdim=True)
+    xy = torch.sum(x * y, dim=-1, keepdim=True)
+    c1 = 1 - 2 * c * xy + c * y2
+    c2 = 1 - c * x2
+    num = torch.sqrt(((c1**2) * x2 + (c2**2) * y2 - (2 * c1 * c2) * xy).clamp_min(MIN_NORM))
+    denom = 1 - 2 * c * xy + c**2 * x2 * y2
+    return 2 * artanh(sqrt_c * (num / denom.clamp_min(MIN_NORM))) / sqrt_c
 
 
 def _hyp_dist_multi_c_from_parts(x2, xv, vnorm, c):
@@ -177,6 +190,25 @@ def hyp_sim_expmap_all(x, v, c):
     return _hyp_dist_multi_c_from_parts(x2, xv, m, c)
 
 
+def hyp_plain_sim_expmap_all(x, v, c):
+    """hyp_distance(x, expmap0(v, c), c) in folded all-pairs form, x (B, d),
+    v (N, d), c (1, 1) -> (B, N): the plain distance takes its second
+    argument as a ball point, so expmap0 is folded once."""
+    sqrt_c = c**0.5
+    un = safe_norm(v)  # (N, 1)
+    xv_dir = torch.matmul(x, (v / un).T)  # (B, N)
+    m = tanh(sqrt_c * un[:, 0][None, :]) / sqrt_c  # ball radius
+    m = torch.minimum(m, (1 - ball_eps(v.dtype)) / sqrt_c)  # project()'s clip
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)  # (B, 1)
+    y2 = m**2
+    xy = m * xv_dir
+    c1 = 1 - 2 * c * xy + c * y2
+    c2 = 1 - c * x2
+    num = torch.sqrt(((c1**2) * x2 + (c2**2) * y2 - (2 * c1 * c2) * xy).clamp_min(MIN_NORM))
+    denom = 1 - 2 * c * xy + c**2 * x2 * y2
+    return 2 * artanh(sqrt_c * (num / denom.clamp_min(MIN_NORM))) / sqrt_c
+
+
 def lorentz_sim_expmap_all(x, v, c):
     """hyp_distance_multi_c_lorentz(x, expmap0_lorentz(v, c), c), folded."""
     un = safe_norm(v)  # (N, 1)
@@ -187,3 +219,10 @@ def lorentz_sim_expmap_all(x, v, c):
     x0 = torch.sqrt(torch.sum(x**2, dim=-1, keepdim=True) + 1 / c)
     v0 = torch.sqrt(s**2 + 1 / c)
     return arcosh(-c * (xdir * s - x0 * v0)) / sqrt_c
+
+
+def explicit_lorentz(x, c):
+    """Prepend the time-like coordinate sqrt(|x|^2 + 1/c) (the Lorentz GNN's
+    centroid mixing)."""
+    x0 = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True) + 1 / c)
+    return torch.cat([x0, x], dim=-1)

@@ -6,6 +6,14 @@ pickle of a dict with `format_version` (1), `params` (name -> numpy array),
 `best_mrr` and optionally `config`, plus a config.json beside it.  Files
 cross between the packages both ways.
 
+GNN params are nested in JAX: params["gnn"] is a list of per-layer dicts
+(with w_rel {w, b} and the mlp_curvature list of {w, b}), and the schema of
+a nested tree is keyed by jax.tree_util.keystr paths ("['gnn'][0]['w_rel']
+['w']").  The port's state_dict keys are the same paths dotted
+("gnn.0.w_rel.w"): `params_to_jax` nests them (an integer segment is a list
+index), `params_from_jax` flattens a nested tree back, and `_schema` keys a
+nested tree by keystr as JAX does, so checkpoints validate in both packages.
+
 A checkpoint written by the JAX trainer pickles its optax optimizer state
 (NamedTuples such as ScaleByAdamState), and a plain pickle.load would import
 optax and jax to rebuild them.  The loader here stubs every class from
@@ -62,6 +70,47 @@ class _JaxFreeUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def nest(flat: dict):
+    """Dotted names -> the JAX tree: "gnn.0.w_rel.w" -> tree["gnn"][0]["w_rel"]
+    ["w"]; a name without dots stays a top-level key."""
+    tree: dict = {}
+    for name, v in flat.items():
+        node, parts = tree, name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return _lists(tree)
+
+
+def _lists(node):
+    """Dicts whose keys are 0..n-1 become lists, depth first."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out) and sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Inverse of nest: a tree of dicts and lists -> dotted name -> leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _keystr(name: str) -> str:
+    """A dotted name as jax.tree_util.keystr writes its path."""
+    return "".join(f"[{int(p)}]" if p.isdigit() else f"[{p!r}]" for p in name.split("."))
+
+
 def _stub_nodes(tree):
     """Every node of a stubbed optax state, depth first."""
     yield tree
@@ -77,20 +126,22 @@ def opt_state_from_jax(opt_state) -> dict:
     """The optax state of a JAX checkpoint (inject_hyperparams around Adam,
     the torch-rule Adagrad or SGD, as load_checkpoint's stubs give it) ->
     the port's opt_state: mu -> exp_avg, nu -> exp_avg_sq, count -> step,
-    sum_of_squares -> sum, and the injected learning rate."""
+    sum_of_squares -> sum, and the injected learning rate; nested (GNN)
+    trees are keyed by their dotted names."""
     nodes = list(_stub_nodes(opt_state))
     lr = next(n["learning_rate"] for n in nodes
               if isinstance(n, dict) and "learning_rate" in n)
     by_name = {type(n).__name__: n for n in nodes if isinstance(n, PickledStub)}
     if "ScaleByAdamState" in by_name:
         count, mu, nu = by_name["ScaleByAdamState"]
+        mu, nu = flatten(mu), flatten(nu)
         state = {k: {"step": np.asarray(count, dtype=np.float32),
                      "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}
     elif "_RssState" in by_name:
         (sums,) = by_name["_RssState"]
         count = opt_state[0]  # inject_hyperparams' own step count
         state = {k: {"step": np.asarray(count, dtype=np.float32), "sum": v}
-                 for k, v in sums.items()}
+                 for k, v in flatten(sums).items()}
     else:  # SGD keeps no state
         state = {}
     return {"lr": float(lr), "state": state}
@@ -102,27 +153,33 @@ def _dtype_name(v) -> str:
     return str(np.result_type(v))
 
 
-def _schema(params: dict) -> dict:
-    """name -> [shape, dtype name], for numpy arrays or torch tensors."""
-    return {k: [list(v.shape), _dtype_name(v)] for k, v in params.items()}
+def _schema(params) -> dict:
+    """name -> [shape, dtype name] of a params tree (numpy arrays or torch
+    tensors), flat or nested or dotted: a flat tree keys by name, a nested
+    one by keystr path, as the JAX package's _schema does."""
+    flat = flatten(params)
+    key = (lambda k: k) if all("." not in k for k in flat) else _keystr
+    return {key(k): [list(v.shape), _dtype_name(v)] for k, v in flat.items()}
 
 
-def params_from_jax(np_params: dict, device, dtype: torch.dtype | None = None) -> dict:
-    """JAX params (name -> numpy array, as a JAX checkpoint or
-    `jax.tree.map(np.asarray, params)` holds them) -> name -> tensor on
-    `device`, cast to `dtype` when given.  The names are the model's
-    state_dict keys, so the result goes straight into load_state_dict."""
+def params_from_jax(np_params, device, dtype: torch.dtype | None = None) -> dict:
+    """JAX params (a tree of numpy arrays, as a JAX checkpoint or
+    `jax.tree.map(np.asarray, params)` holds them; nested GNN trees too) ->
+    dotted name -> tensor on `device`, cast to `dtype` when given.  The
+    names are the model's state_dict keys, so the result goes straight into
+    load_state_dict."""
     out = {}
-    for k, v in np_params.items():
+    for k, v in flatten(np_params).items():
         t = torch.from_numpy(np.array(v, copy=True))
         out[k] = t.to(device=device, dtype=dtype or t.dtype)
     return out
 
 
-def params_to_jax(params: dict) -> dict:
-    """Inverse of params_from_jax: name -> tensor (any device) -> name ->
-    numpy array, the layout JAX's load_checkpoint reads."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def params_to_jax(params: dict):
+    """Inverse of params_from_jax: dotted name -> tensor (any device) -> the
+    JAX tree of numpy arrays that JAX's load_checkpoint reads (nested for a
+    GNN, flat otherwise)."""
+    return nest({k: v.detach().cpu().numpy() for k, v in params.items()})
 
 
 def save_checkpoint(path: str, params: dict, opt_state=None, epoch: int = 0,

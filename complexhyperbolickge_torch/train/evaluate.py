@@ -11,7 +11,8 @@ eval_pack) and are excluded by count subtraction.
 
 Rankers are callables rank_fn(q (B, 3), fidx (B, L)) -> ranks (B,) float32
 over the model's current parameters, with q and fidx int64 tensors on the
-model's device.
+model's device.  GNN models rank and predict densely over their encoder
+output, computed once per params version (GNNModel.cached_encode).
 """
 
 from __future__ import annotations
@@ -47,6 +48,14 @@ def filtered_rank_counts(scores, target, fidx, n_entities: int):
     return total - sub + add
 
 
+def _score_all(model, queries):
+    """score_all over the current params; a GNN scores against its cached
+    eval-mode encoding."""
+    if getattr(model, "is_gnn", False):
+        return model.score_all(queries, cache=model.cached_encode())
+    return model.score_all(queries)
+
+
 def make_ranker(model, eval_batch_size: int | None = None,
                 precision: str = "highest"):
     """Dense filtered ranker: score_all materializes the (B, N) scores
@@ -56,7 +65,7 @@ def make_ranker(model, eval_batch_size: int | None = None,
 
     @torch.no_grad()
     def rank_batch(q, fidx):
-        scores = _mask_pad_cols(model.score_all(q[:, :2]), model.cfg.n_entities)
+        scores = _mask_pad_cols(_score_all(model, q[:, :2]), model.cfg.n_entities)
         target = torch.gather(scores, 1, q[:, 2:3])
         counts = filtered_rank_counts(scores, target, fidx, model.cfg.n_entities)
         # NaN discipline: target * 0 is NaN exactly when the gold score is;
@@ -91,7 +100,8 @@ def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
     'pallas_maskless' are kept because saved config.json files carry them;
     here they name the masked (K1, K5, K7) and maskless (K2, K6, K8) CUDA
     rankers.  'dense' is the materializing ranker, and the only one of the
-    families without a fused ranker.
+    families without a fused ranker: the GNN models, whose decoders score
+    against their encoder output, as in JAX.
 
     precision: only 'highest' (exact fp32) exists in the port; 'default'
     raises with the flag that selects the exact path.
@@ -112,8 +122,8 @@ def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
                 return ranker(model, masked=masked)
     if backend in ("pallas", "pallas_maskless"):
         raise NotImplementedError(
-            f"no fused CUDA ranker exists for {type(model).__name__} yet "
-            "(ROADMAP.md Queue 2)")
+            f"no fused CUDA ranker exists for {type(model).__name__}; rank it "
+            "with --eval_backend dense (or auto)")
     return make_ranker(model, eval_batch_size, precision=precision)
 
 
@@ -132,7 +142,7 @@ def make_predictor(model, k: int = 10):
     def predict(queries, fidx=None):
         _check_params_finite(model)
         n = model.cfg.n_entities
-        scores = _mask_pad_cols(model.score_all(queries), n)
+        scores = _mask_pad_cols(_score_all(model, queries), n)
         if fidx is not None:
             # one extra column absorbs the pad and out-of-range ids (torch
             # has no scatter "drop")

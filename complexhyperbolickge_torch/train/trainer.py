@@ -18,8 +18,12 @@ last batch of the epoch.
 Randomness comes from the torch.Generator the caller passes per epoch (the
 CLI derives it from (seed, epoch), so --resume reproduces a continuous
 run).  Per-query negative sampling is the only loss so far; the shared and
-pooled negative modes and the all-entity losses are item 10, GNN models
-item 13.
+pooled negative modes and the all-entity losses are item 10.
+
+GNN models encode the full graph once per training step, with edge and
+feature dropout drawn from the step's generator, and score through a
+BoundGNN; the validation loss scores against the eval-mode encoding, cached
+per params version (GNNModel.cached_encode).
 """
 
 from __future__ import annotations
@@ -87,9 +91,9 @@ class Trainer:
 
     def __init__(self, model, cfg: TrainConfig, n_entities: int,
                  n_relations: int, sampler=L.sample_negatives):
-        if getattr(model, "is_gnn", False):
-            raise NotImplementedError("GNN training has no PyTorch port yet "
-                                      "(ROADMAP.md Queue 1 item 13)")
+        self.is_gnn = getattr(model, "is_gnn", False)
+        if self.is_gnn and cfg.neg_mode in ("shared", "pool"):
+            raise ValueError(f"neg_mode={cfg.neg_mode!r} is not supported for GNN models")
         if cfg.neg_sample_size <= 0:
             raise NotImplementedError(
                 f"the {cfg.loss} loss (neg_sample_size <= 0) has no PyTorch "
@@ -109,15 +113,28 @@ class Trainer:
 
     # ------------------------------- loss core -------------------------------
 
-    def _loss(self, batch, weights, generator):
+    def _loss(self, batch, weights, generator, training: bool = True):
         cfg = self.cfg
+        model = self.model
+        if self.is_gnn:
+            from complexhyperbolickge_torch.models.gnn import BoundGNN
+
+            # the full-graph encoder once per step, with its dropouts when
+            # training; validation scores against the eval-mode encoding
+            cache = (model.encode(generator, training=True) if training
+                     else model.cached_encode())
+            model = BoundGNN(model, cache)
         loss, factors = L.neg_sampling_loss(
-            self.model, batch, weights, generator, self.n_entities,
+            model, batch, weights, generator, self.n_entities,
             cfg.neg_sample_size, cfg.double_neg, self.n_relations,
             sampler=self.sampler)
         if not cfg.reg:
             # reg weight 0 (every published config): no factor gathers
             return loss
+        if self.is_gnn:
+            # the factors are encoder weight matrices, normalized by the
+            # first one's leading dim as the reference does
+            return loss + self.reg_fn(factors, cfg.reg, factors[0].shape[0])
         return loss + self.reg_fn(factors, cfg.reg, torch.sum(weights), weights)
 
     def _upload(self, batches, weights):
@@ -160,7 +177,7 @@ class Trainer:
     def valid_loss(self, batches, weights, generator) -> float:
         """Mean loss over validation batches, without autograd."""
         b, w = self._upload(batches, weights)
-        return float(torch.stack([self._loss(b[i], w[i], generator)
+        return float(torch.stack([self._loss(b[i], w[i], generator, training=False)
                                   for i in range(b.shape[0])]).mean())
 
     # ---------------------------- optimizer state ----------------------------

@@ -1,5 +1,5 @@
-"""The chyp_rank (K1, K2) and hyp_rank (K5-K8) CUDA kernels against their
-plain PyTorch versions.
+"""The chyp_rank (K1, K2), hyp_rank (K5-K8), segsum (K9) and gather (K10)
+CUDA kernels against their plain PyTorch versions.
 
 Needs a CUDA card, the CUDA toolkit and no JAX; on a machine without a card
 every test skips (they carry the `cuda` marker).  On one with a card:
@@ -239,3 +239,91 @@ def test_hyp_wrappers_check_inputs_and_count_launches():
                              a[5], a[6], mask)
     assert K5.launches["hyp_rank_sweep_masked"] == 1
     assert sum(K5.launches.values()) == 1
+
+
+# ------------------- GNN: K9 (csrc/segsum.cu), K10 (csrc/gather.cu) -------------------
+
+from complexhyperbolickge_torch.kernels import gather as G  # noqa: E402
+from complexhyperbolickge_torch.kernels import segsum as S  # noqa: E402
+
+# (E, N, H): H = 1 (32 rows a warp), 3 (no 16-byte vectors), 32 and 200 (the
+# encoder's widths), 66 (16-byte vectors in float64 only); N = 1000 > E
+# leaves rows without edges
+GNN_SHAPES = [(1000, 300, 1), (777, 500, 3), (5000, 777, 32), (86_835, 40_943, 200),
+              (300, 1000, 66)]
+# K9 against index_add_: another summation order
+GNN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13)}
+
+
+def gnn_inputs(e, n, h, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    dst = np.sort(rng.integers(0, n, e))
+    msgs = torch.as_tensor(rng.normal(size=(e, h)), dtype=dtype)
+    x = torch.as_tensor(rng.normal(size=(n, h)), dtype=dtype)
+    ids = rng.integers(0, n, e)
+    return dst, msgs, x, ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", GNN_SHAPES)
+def test_segsum_matches_plain_forward_and_backward(shape, dtype):
+    dev = _cuda_or_skip()
+    e, n, h = shape
+    dst, msgs, _, _ = gnn_inputs(e, n, h, dtype)
+    seg, seg_cpu = S.make_sorted_segment_sum(dst, n, dev), S.make_sorted_segment_sum(dst, n, "cpu")
+    m = msgs.to(dev).requires_grad_()
+    out = seg(m)
+    g = torch.randn(out.shape, dtype=dtype, generator=torch.Generator().manual_seed(1))
+    (out * g.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    mc = msgs.clone().requires_grad_()
+    want = S.sorted_segment_sum_plain(mc, seg_cpu)
+    (want * g).sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), **GNN_TOL[dtype])
+    assert torch.equal(m.grad.cpu(), mc.grad)  # a gather: exact
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", GNN_SHAPES)
+def test_row_gather_matches_plain_forward_and_backward(shape, dtype):
+    dev = _cuda_or_skip()
+    e, n, h = shape
+    _, _, x, ids = gnn_inputs(e, n, h, dtype)
+    gth = G.make_row_gather(ids, n, dev)
+    xc = x.to(dev).requires_grad_()
+    out = gth(xc)
+    g = torch.randn(out.shape, dtype=dtype, generator=torch.Generator().manual_seed(2))
+    (out * g.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    xr = x.clone().requires_grad_()
+    want = G.row_gather_plain(xr, torch.as_tensor(ids))
+    (want * g).sum().backward()
+    assert torch.equal(out.detach().cpu(), want.detach())
+    # the backward is a K9 sum over the sorted ids
+    torch.testing.assert_close(xc.grad.cpu(), xr.grad, **GNN_TOL[dtype])
+    # and it is deterministic
+    again = torch.autograd.grad((gth(xc) * g.to(dev)).sum(), xc)[0]
+    assert torch.equal(again, xc.grad)
+
+
+def test_gnn_wrappers_check_inputs_and_count_launches():
+    dev = _cuda_or_skip()
+    dst, msgs, x, ids = gnn_inputs(500, 100, 8, torch.float32)
+    seg = S.make_sorted_segment_sum(dst, 100, dev)
+    gth = G.make_row_gather(ids, 100, dev)
+    S.reset_launches()
+    G.reset_launches()
+    seg(msgs.to(dev))
+    gth(x.to(dev))
+    assert S.launches["sorted_segment_sum"] == 1 and G.launches["row_gather"] == 1
+    with pytest.raises(TypeError, match="float32 and float64"):
+        seg(msgs.to(dev, torch.bfloat16))
+    with pytest.raises(TypeError, match="float32 and float64"):
+        gth(x.to(dev, torch.float16))
+    with pytest.raises(ValueError, match="shape"):
+        seg(msgs[:-1].to(dev))
+    with pytest.raises(ValueError, match="rows"):
+        gth(x[:-1].to(dev))
+    with pytest.raises(TypeError, match="int32"):
+        G.row_gather(x.to(dev), torch.as_tensor(ids, device=dev))
+    assert S.launches["sorted_segment_sum"] == 1 and G.launches["row_gather"] == 1

@@ -86,7 +86,7 @@ def test_fftisoh_needs_even_rank():
         get_model("FFTIsoH")(ModelConfig(n_entities=5, n_relations=2, rank=5))
 
 
-@pytest.mark.parametrize("name", ["RotE", "TransE", "ComplEx", "CompGCN", "nope"])
+@pytest.mark.parametrize("name", ["RotE", "TransE", "ComplEx", "RefE", "nope"])
 def test_unported_models_raise_with_roadmap_pointer(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(name)

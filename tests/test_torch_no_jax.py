@@ -1,7 +1,8 @@
 """The port stands alone: no module of complexhyperbolickge_torch, and not
 chip_smoke.py, imports jax, optax or complexhyperbolickge_tpu — checked on
-the source (AST scan) and at run time (a fresh interpreter loads and ranks
-a JAX-written checkpoint, with its pickled optax state, through the port).
+the source (AST scan, the GNN modules and kernels included) and at run time
+(a fresh interpreter loads and ranks JAX-written FFTRotH and PoincareGCN
+checkpoints, with their pickled optax state, through the port).
 """
 
 import ast
@@ -38,6 +39,9 @@ def _imported_roots(path: Path):
 def test_port_sources_import_no_jax():
     files = _port_sources()
     assert len(files) > 10 and files[-1].exists()
+    names = {str(f.relative_to(ROOT / "complexhyperbolickge_torch")) for f in files[:-1]}
+    assert {"kernels/segsum.py", "kernels/gather.py", "models/gnn/message.py",
+            "models/gnn/convs.py", "models/gnn/models.py", "utils/nn.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -64,6 +68,38 @@ def test_jax_checkpoint_loads_and_ranks_without_jax(tmp_path):
         "assert state['opt_state'] is not None\n"
         f"m = test({str(tmp_path)!r}, device='cpu')\n"
         "assert 0.0 < m['MRR'] <= 1.0, m\n"
+        "leaked = sorted({k.split('.')[0] for k in sys.modules}"
+        f" & set({sorted(FORBIDDEN)!r}))\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stdout + out.stderr
+
+
+def test_jax_gnn_checkpoint_loads_ranks_and_serves_without_jax(tmp_path):
+    """A JAX-written PoincareGCN dir (nested params["gnn"], optax state)
+    through the port's kge-test and predict in a fresh interpreter: no JAX
+    module is loaded."""
+    from complexhyperbolickge_tpu.cli.run import build_model, build_parser, load_dataset
+
+    args = build_parser().parse_args([
+        "--dataset", "synthetic", "--synthetic_entities", "50", "--model", "PoincareGCN",
+        "--rank", "6", "--hidden_dim", "8", "--bias", "learn", "--multi_c",
+        "--dtype", "float32", "--eval_batch_size", "32"])
+    params = build_model(args, load_dataset(args)).init(jax.random.PRNGKey(0))
+    jax_ckpt.save_checkpoint(str(tmp_path), params, optax.adam(1e-3).init(params),
+                             epoch=1, best_mrr=0.1, config={"args": vars(args)})
+    code = (
+        "import sys\n"
+        "from complexhyperbolickge_torch.cli.test import test\n"
+        "from complexhyperbolickge_torch.cli.predict import predict\n"
+        f"m = test({str(tmp_path)!r}, device='cpu')\n"
+        "assert 0.0 < m['MRR'] <= 1.0, m\n"
+        f"out = predict({str(tmp_path)!r}, [(1, 2)], k=3, device='cpu')\n"
+        "assert len(out[0]['tails']) == 3\n"
         "leaked = sorted({k.split('.')[0] for k in sys.modules}"
         f" & set({sorted(FORBIDDEN)!r}))\n"
         "assert not leaked, leaked\n"

@@ -310,3 +310,72 @@ def test_init_redraws_params_and_resets_the_optimizer():
     for (name, p), q in zip(pt.model.named_parameters(), want.parameters()):
         assert torch.equal(p, q), name
     assert pt.opt_state()["state"] == {}
+
+
+# ------------------------------ GNN training ----------------------------------
+
+GNN_ARGS = dict(hidden_dim=8, layers=2, edge_dropout=0.0, dropout=0.0, opn="mult",
+                interaction="distmult", basis=0, gnn_agg_method=1)
+GNN_DATA = dict(n_entities=N_ENT, n_relations=3, n_train=150, n_valid=20, n_test=20, seed=2)
+
+
+def gnn_negatives(key, batches):
+    """JAX's GNN step splits its key into (loss key, encoder key) first;
+    the loss key's first half draws the tail negatives."""
+    out = []
+    for step_key, batch in zip(jax.random.split(key, len(batches)), batches):
+        loss_key, _ = jax.random.split(step_key)
+        k_tail, _ = jax.random.split(loss_key, 2)
+        out.append(np.asarray(JL.sample_negatives(k_tail, jnp.asarray(batch), N_ENT, K)))
+    return out
+
+
+@pytest.mark.parametrize("name,reg", [("CompGCN", 0.0), ("PoincareGCN", 0.1)])
+def test_gnn_sgd_trajectory_matches_jax(name, reg):
+    """4 SGD steps of a GNN (the encoder re-run every step, edge dropout 0)
+    over the synthetic graph's train triples, then the validation loss; with
+    an N3 term over the encoder weights for PoincareGCN."""
+    import argparse
+
+    from complexhyperbolickge_tpu.data.dataset import synthetic_kg as jax_synthetic_kg
+
+    args = argparse.Namespace(**GNN_ARGS)
+    data, jdata = synthetic_kg(**GNN_DATA), jax_synthetic_kg(**GNN_DATA)
+    n_ent, n_rel, _ = data.get_shape()
+    cfg = dict(n_entities=n_ent, n_relations=n_rel, rank=RANK, bias="learn",
+               multi_c=True, dtype="float64")
+    jm = jax_get_model(name)(JaxConfig(**cfg), args, jdata)
+    r = np.random.default_rng(0)
+    jp = jax.tree.map(lambda v: jnp.asarray(np.asarray(v) + r.normal(0.0, 0.1, np.shape(v))),
+                      jm.init(jax.random.PRNGKey(0)))
+    init = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")  # JAX donates jp
+    tm = get_model(name)(ModelConfig(**cfg), args, data)
+    tm.load_state_dict(init)
+    batches, weights = epoch_batches(data.get_examples("train")[:4 * B - 3], B,
+                                     np.random.default_rng(1))
+    tcfg = dict(optimizer="SGD", learning_rate=0.125, neg_sample_size=K, regularizer="N3", reg=reg)
+    jt = JaxTrainer(jm, JaxTrainConfig(**tcfg), n_ent, n_rel)
+    key = jax.random.PRNGKey(3)
+    pt = Trainer(tm, TrainConfig(**tcfg), n_ent, n_rel, sampler=replay(gnn_negatives(key, batches)))
+    jp2, _, jloss = jt.run_epoch(jp, jt.tx.init(jp), batches, weights, key)
+    ploss = pt.run_epoch(batches, weights, None)
+    np.testing.assert_allclose(ploss, jloss, **TOL)
+    want = params_from_jax(jax.tree.map(np.asarray, jp2), "cpu")
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(), err_msg=n,
+                                   rtol=1e-9, atol=1e-11)
+    assert max(float((p - init[n]).abs().max()) for n, p in tm.named_parameters()) > 1e-3
+    vkey = jax.random.PRNGKey(8)
+    want_v = jt.valid_loss(jp2, batches[:2], weights[:2], vkey)
+    pt.sampler = replay(gnn_negatives(vkey, batches[:2]))
+    assert pt.valid_loss(batches[:2], weights[:2], None) == pytest.approx(want_v, rel=1e-9)
+
+
+def test_gnn_trainer_rejects_shared_and_pooled_negatives():
+    import argparse
+
+    model = get_model("CompGCN")(ModelConfig(n_entities=N_ENT, n_relations=6, rank=RANK),
+                                 argparse.Namespace(**GNN_ARGS), synthetic_kg(**GNN_DATA))
+    for mode in ("shared", "pool"):
+        with pytest.raises(ValueError, match="GNN"):
+            Trainer(model, TrainConfig(neg_mode=mode), N_ENT, 6)
