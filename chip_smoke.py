@@ -41,8 +41,10 @@ line:
   5 hyp-run   run dirs of RotH, RotLH and AttRH with planted test answers
               (write_run, plant): how many folds could be inverted
   6 hyp-kernels  K5 (Poincare on RotH, Lorentz on RotLH), K6, K7 and K8
-              (AttRH) against their plain versions on an eval batch
-              (B 500, Np 40,960, D 32); maskless == masked exactly
+              (AttRH) and the masked sweeps' radius tables against their
+              plain versions on an eval batch (B 500, Np 40,960, D 32);
+              the masked sweeps' curvature cvals[cid] is get_queries';
+              maskless == masked exactly
   7 kge-test  cli.test.test() with the auto (masked kernel), pallas_maskless
               and dense rankers: MRR equal within 1e-4, fused ranks identical;
               plus whole-split ranking throughput per ranker
@@ -57,7 +59,7 @@ line:
  11 launches  each path's kernel launches; a kernel of a path that never
               launched there fails the run, K3/K4 must launch at least once
               per training step, and each of RotH, RotLH and AttRH must
-              launch its family's three kernels
+              launch its family's three kernels and the radius launcher
  12 gnn-kernels  K9 against index_add_ (rtol 1e-5, atol 1e-6) and K10 against
               x[ids] (bitwise) on one sorted half of the graph (E 86,835, N
               40,943) at H = 1, 32, 200, forward and backward
@@ -156,10 +158,18 @@ TRAIN_CONFIGS = {"FFTRotH": dict(optimizer="Adam", learning_rate=3e-4, neg_sampl
 HYP_RANK_KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_sub")
 ATTRH_KERNELS = ("attrh_rank_sweep_masked", "attrh_rank_sweep_nomask",
                  "attrh_rank_filtered_sub")
-# the kernels' inputs in wrapper order (kernels/hyp_rank.py)
+# the kernels' inputs in wrapper order (kernels/hyp_rank.py): the maskless
+# kernels' leading inputs, and the masked sweeps' (curvature ids into the
+# ranker's cvals, and its radius table)
 HYP_ARGS = {"hyp": ("lhs", "x2", "c", "t2", "rhs", "un", "bt"),
             "attrh": ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref",
                       "bt")}
+HYP_MASKED_ARGS = {"hyp": ("lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii", "mask"),
+                   "attrh": ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs",
+                             "un_rot", "un_ref", "bt", "radii", "mask")}
+# the radius table against its plain version: libdevice's tanhf / sinhf and
+# torch's may round apart
+RADII_MAX_ULP = 2
 # the GNN path: the JAX package's full-graph CompGCN configuration
 # (benchmarks/gnn_train_bench.py:27-51, the README's full-graph CompGCN row)
 # at the CLI's default edge dropout 0.3: rank 32, hidden 200, 2 layers,
@@ -396,40 +406,61 @@ def phase_kernels(model, dataset):
 
 
 def hyp_family(family: str):
-    """A real-hyperbolic family's kernels: (input names in wrapper order,
-    plain all-entity scores of an input dict, kernel name -> (wrapper,
-    plain version, extra input names), the maskless count)."""
+    """A real-hyperbolic family's kernels: (the maskless kernels' leading
+    input names, plain all-entity scores of an input dict, kernel name ->
+    (wrapper, plain version, input names in wrapper order), the maskless
+    count, the radius table of an input dict through the kernel and the
+    plain version)."""
     from functools import partial
 
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
-    if family == "attrh":
-        names = HYP_ARGS["attrh"]
+    g = "attrh" if family == "attrh" else "hyp"
+    names, masked = HYP_ARGS[g], HYP_MASKED_ARGS[g]
+    un = ("un_rot", "un_ref") if g == "attrh" else ("un",)
+
+    def radii(x, fn):
+        return fn(x["cvals"], x[un[0]], family, *(x[k] for k in un[1:]))
+
+    tables = (partial(radii, fn=H.hyp_rank_radii), partial(radii, fn=H.hyp_rank_radii_plain))
+    if g == "attrh":
         return names, lambda x: H.attrh_scores_plain(*(x[k] for k in names if k != "t2")), {
-            "attrh_rank_sweep_masked": (H.attrh_rank_counts, H.attrh_rank_counts_plain,
-                                        ("mask",)),
+            "attrh_rank_sweep_masked": (H.attrh_rank_counts, H.attrh_rank_counts_plain, masked),
             "attrh_rank_sweep_nomask": (H.attrh_rank_sweep_nomask,
-                                        H.attrh_rank_sweep_nomask_plain, ("gold",)),
+                                        H.attrh_rank_sweep_nomask_plain, (*names, "gold")),
             "attrh_rank_filtered_sub": (H.attrh_rank_filtered_sub,
-                                        H.attrh_rank_filtered_sub_plain, ("fidx", "gold")),
-        }, H.attrh_rank_counts_nomask
-    names, fam = HYP_ARGS["hyp"], dict(family=family)
+                                        H.attrh_rank_filtered_sub_plain,
+                                        (*names, "fidx", "gold")),
+        }, H.attrh_rank_counts_nomask, tables
+    fam = dict(family=family)
     return names, lambda x: H.hyp_scores_plain(*(x[k] for k in names if k != "t2"), **fam), {
         "hyp_rank_sweep_masked": (partial(H.hyp_rank_counts, **fam),
-                                  partial(H.hyp_rank_counts_plain, **fam), ("mask",)),
+                                  partial(H.hyp_rank_counts_plain, **fam), masked),
         "hyp_rank_sweep_nomask": (partial(H.hyp_rank_sweep_nomask, **fam),
-                                  partial(H.hyp_rank_sweep_nomask_plain, **fam), ("gold",)),
+                                  partial(H.hyp_rank_sweep_nomask_plain, **fam),
+                                  (*names, "gold")),
         "hyp_rank_filtered_sub": (partial(H.hyp_rank_filtered_sub, **fam),
                                   partial(H.hyp_rank_filtered_sub_plain, **fam),
-                                  ("fidx", "gold")),
-    }, partial(H.hyp_rank_counts_nomask, **fam)
+                                  (*names, "fidx", "gold")),
+    }, partial(H.hyp_rank_counts_nomask, **fam), tables
+
+
+def ulps_apart(a, b) -> int:
+    """The largest distance in float32 units in the last place between two
+    tensors of one sign pattern (a larger sentinel where signs differ)."""
+    import torch
+
+    if not torch.equal(torch.sign(a), torch.sign(b)):
+        return 1 << 30
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
 
 
 def phase_hyp_kernels(hyp: dict):
-    """K5-K8 against their plain versions on one test batch of each model
-    (hyp: name -> (model, dataset)), and maskless == masked exactly.
-    Returns each model's batch (q, f, kernel inputs) and the errors keyed
-    by (kernel, family)."""
+    """K5-K8 and the radius launcher against their plain versions on one
+    test batch of each model (hyp: name -> (model, dataset)); the masked
+    sweeps' curvature cvals[cid] is the one get_queries took, bit for bit;
+    maskless == masked exactly.  Returns each model's batch (q, f, kernel
+    inputs) and the errors keyed by (kernel, family)."""
     import torch
 
     from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
@@ -438,21 +469,33 @@ def phase_hyp_kernels(hyp: dict):
     batches, errors, failed = {}, {}, []
     for name, (model, dataset) in hyp.items():
         family = HYP_MODELS[name]
-        names, scores, fns, maskless = hyp_family(family)
+        names, scores, fns, maskless, tables = hyp_family(family)
         dev = next(model.parameters()).device
         pack = dataset.eval_pack("test", "rhs")
         q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=dev)
         f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=dev)
         ranker = (AttRHRanker if family == "attrh" else HypRanker)(model)
         x = {**ranker.kernel_inputs(q, f, masked=False), **ranker.kernel_inputs(q, f)}
-        base = [x[k] for k in names]
         near = near_threshold(scores(x), x["t2"])
+        c_queries = model.get_queries(q[:, :2])[0][1].to(torch.float32).expand(len(q), 1)[:, 0]
         res = {"family": family, "batch": BATCH, "Np": int(x["rhs"].shape[0]),
                "D": int(x["rhs"].shape[1]), "L": int(x["fidx"].shape[1]),
-               "max_near_threshold": int(near.max()), "kernels": {}}
-        for kname, (kernel, plain, extra) in fns.items():
-            got = kernel(*base, *[x[k] for k in extra])
-            want = plain(*base, *[x[k] for k in extra])
+               "n_curvatures": int(x["cvals"].shape[0]),
+               "max_near_threshold": int(near.max()),
+               "c_equals_cvals_cid": bool(torch.equal(x["c"], x["cvals"][x["cid"].long()])),
+               "c_equals_get_queries": bool(torch.equal(x["c"], c_queries)), "kernels": {}}
+        if not (res["c_equals_cvals_cid"] and res["c_equals_get_queries"]):
+            failed.append(f"{name}: the kernels' curvature cvals[cid] is not get_queries'")
+        radii, radii_plain = tables[0](x), tables[1](x)
+        torch.cuda.synchronize()
+        res["radii_max_ulp"] = errors[("hyp_rank_radii", family)] = ulps_apart(
+            radii.cpu(), radii_plain.cpu())
+        if res["radii_max_ulp"] > RADII_MAX_ULP or not torch.equal(radii, x["radii"]):
+            failed.append(f"{name}: the radius table is {res['radii_max_ulp']} ulp from its "
+                          f"plain version (or not the ranker's)")
+        for kname, (kernel, plain, args) in fns.items():
+            got = kernel(*[x[k] for k in args])
+            want = plain(*[x[k] for k in args])
             torch.cuda.synchronize()
             diff = (got - want).abs()
             errors[(kname, family)] = int(diff.max())
@@ -462,9 +505,9 @@ def phase_hyp_kernels(hyp: dict):
                                      "within_tolerance": ok}
             if not ok:
                 failed.append(f"{name} {kname} disagrees with its plain version")
-        masked = fns[next(iter(fns))][0](*base, x["mask"])
+        kernel, _, args = fns[next(iter(fns))]
         res["maskless_equals_masked"] = bool(torch.equal(
-            masked, maskless(*base, x["fidx"], x["gold"])))
+            kernel(*[x[k] for k in args]), maskless(*[x[k] for k in names], x["fidx"], x["gold"])))
         if not res["maskless_equals_masked"]:
             failed.append(f"{name}: maskless != masked on a batch whose golds are filtered")
         out["models"][name] = res
@@ -931,21 +974,28 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
     (phase_hyp_kernels): the hyp_rank rows on RotH (Poincare) with the
     RotLH (Lorentz) instantiation beside them, the attrh rows on AttRH.
     Bound: per pair the 2 D operations of the contraction plus the family's
-    EPILOGUE_OPS; bytes each input once (the int8 mask, masked form) and the
-    counts once; a filtered subtraction scores only this batch's kept
-    filter ids (in range, not the gold) and reads their distinct rows."""
+    EPILOGUE_OPS (counted on the inline epilogue: the masked sweeps' radius
+    table holds part of them, precomputed once per params version); bytes each input once
+    (the int8 mask, the curvature ids, cvals and the radius table, masked
+    form) and the counts once; a filtered subtraction scores only this
+    batch's kept filter ids (in range, not the gold) and reads their
+    distinct rows.  The masked rows add the radius launcher's time and
+    launches and the masked sweep's registers and resident blocks."""
     import torch
 
-    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+    from complexhyperbolickge_torch.kernels.hyp_rank import (
+        AttRHRanker,
+        HypRanker,
+        masked_sweep_info,
+    )
     from complexhyperbolickge_torch.train.evaluate import make_ranker
 
     f32_peak, bw_peak, _ = peak_rates(name)
     timed = {}
     for mname, (model, _) in hyp.items():
         family = HYP_MODELS[mname]
-        names, _, fns, _ = hyp_family(family)
+        names, _, fns, _, tables = hyp_family(family)
         q, f, x = batches[mname]
-        base = [x[k] for k in names]
         (b, d), np_, l = x["lhs"].shape, x["rhs"].shape[0], x["fidx"].shape[1]
         n_pq = names.index("rhs") - 1  # per-query vectors
         n_pr = len(names) - names.index("rhs") - 1  # per-row vectors
@@ -954,9 +1004,10 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
         fidx, gold = x["fidx"].long(), x["gold"].long()
         kept = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
         n_rows = int(torch.unique(fidx[kept]).numel())
+        table_bytes = 4 * (x["radii"].numel() + x["cvals"].numel())
         work = {  # kernel name -> (fp32 operations, bytes)
             fns_name: w for fns_name, w in zip(fns, (
-                (b * np_ * pair_ops, vec + b * np_ + 4 * b),
+                (b * np_ * pair_ops, vec + b * np_ + table_bytes + 4 * b),
                 (b * np_ * pair_ops, vec + 4 * b + 4 * b),
                 (int(kept.sum()) * pair_ops,
                  4 * (b * d + b * n_pq + n_rows * (d + n_pr)) + 4 * b * l + 8 * b)))}
@@ -966,8 +1017,8 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
         for masked in (True, False):
             ranker = (AttRHRanker if family == "attrh" else HypRanker)(model, masked=masked)
             ranker_ms[masked] = cuda_ms(lambda: ranker(q, f), reps=4)
-        for kname, (kernel, plain, extra) in fns.items():
-            args = [*base, *[x[k] for k in extra]]
+        for kname, (kernel, plain, argnames) in fns.items():
+            args = [x[k] for k in argnames]
             ops, nbytes = work[kname]
             t_ops, t_bytes = ops / f32_peak * 1e3, nbytes / bw_peak * 1e3
             timed[(kname, family)] = {
@@ -978,6 +1029,13 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "dense_ms": dense_ms, "ranker_ms": ranker_ms[kname.endswith("_masked")],
                 "shape": {"B": b, "Np": np_, "D": d, "L": l}}
+            if kname.endswith("_masked"):
+                timed[(kname, family)].update(
+                    radii_ms=cuda_ms(lambda: tables[0](x), reps=50),
+                    radii_launches=launches["hyp_rank_radii"],
+                    radii_max_ulp=errors[("hyp_rank_radii", family)],
+                    n_curvatures=int(x["cvals"].shape[0]),
+                    **masked_sweep_info(family, x["lhs"].device, d))
     rows = []
     for kname in HYP_RANK_KERNELS + ATTRH_KERNELS:
         family = "attrh" if kname in ATTRH_KERNELS else "poincare"
@@ -1422,8 +1480,10 @@ def main(argv=None) -> int:
                 or not train_launches["chyp_rank_sweep_masked"]):
             raise AssertionError(f"K3/K4 launched fewer times than the {steps} "
                                  f"training steps, or K1 never: {train_launches}")
-        want = {"RotH": HYP_RANK_KERNELS, "RotLH": HYP_RANK_KERNELS, "AttRH": ATTRH_KERNELS,
-                "RotH training": ("hyp_rank_sweep_masked",)}
+        want = {"RotH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
+                "RotLH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
+                "AttRH": (*ATTRH_KERNELS, "hyp_rank_radii"),
+                "RotH training": ("hyp_rank_sweep_masked", "hyp_rank_radii")}
         missing = {m: [k for k in ks if k not in by_model[m]] for m, ks in want.items()}
         if any(missing.values()):
             raise AssertionError(f"real-hyperbolic kernels that never launched: {missing}")

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of every exported launcher; pointers and the stream are c_void_p
 SIGNATURES = {
     "chyp_rank": {
@@ -40,12 +41,14 @@ SIGNATURES = {
         "chyp_train_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
     },
     "hyp_rank": {
-        "hyp_rank_sweep_masked": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "hyp_rank_sweep_masked": [_P] * 11 + [_I] * 5 + [_P],
         "hyp_rank_sweep_nomask": [_P] * 9 + [_I] * 4 + [_F, _P],
         "hyp_rank_filtered_sub": [_P] * 10 + [_I] * 5 + [_F, _P],
-        "attrh_rank_sweep_masked": [_P] * 13 + [_I] * 3 + [_P],
+        "attrh_rank_sweep_masked": [_P] * 15 + [_I] * 4 + [_P],
         "attrh_rank_sweep_nomask": [_P] * 13 + [_I] * 3 + [_P],
         "attrh_rank_filtered_sub": [_P] * 14 + [_I] * 4 + [_P],
+        "hyp_rank_radii": [_P] * 4 + [_I] * 3 + [_F, _P],
+        "hyp_rank_masked_info": [_I, _I] + [_IP] * 4,
     },
     "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64")},
     "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64")},

@@ -22,6 +22,8 @@ ROW_TILE = 128
 class FusedRanker:
     TABLES: tuple = ()
     QUERIES: tuple = ()
+    # the model parameters the tables are built from
+    TABLE_PARAMS: tuple = ("entity", "bt")
 
     def __init__(self, model, masked: bool = True):
         if model.cfg.bias not in ("learn", "none", "constant"):
@@ -61,14 +63,13 @@ class FusedRanker:
         return t2.contiguous()
 
     def _get_tables(self):
-        """The padded tables, rebuilt when the entity or bt parameter object
-        or its `_version` counter changed, so an in-place update
+        """The padded tables, rebuilt when a TABLE_PARAMS parameter object or
+        its `_version` counter changed, so an in-place update
         (load_state_dict, an optimizer step) is never served stale."""
-        m = self.model
-        key = (m.entity, m.entity._version, m.bt, m.bt._version)
+        params = [getattr(self.model, name) for name in self.TABLE_PARAMS]
+        key = [(p, p._version) for p in params]
         old = self._tables_key
-        if (old is None or old[0] is not key[0] or old[1] != key[1]
-                or old[2] is not key[2] or old[3] != key[3]):
+        if old is None or any(o[0] is not k[0] or o[1] != k[1] for o, k in zip(old, key)):
             self._tables = self._prepare_tables()
             self._tables_key = key
         return self._tables

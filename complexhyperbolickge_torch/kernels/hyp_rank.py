@@ -8,13 +8,19 @@ CUDA kernels in csrc/hyp_rank.cu fuse, per entity tile,
     <x, v> -> family epilogue -> score = bt - dist^2
     -> count of {score >= t2} over the kept entities
 
-so the only outputs are (B,) int32 counts.  Six kernels, one wrapper each:
+so the only outputs are (B,) int32 counts.  Seven kernels, one wrapper each:
 
   * hyp_rank_counts          (K5, TPU hyp_rank_counts): masked sweep; an
     int8 (B, Np) mask marks filtered entities and pad rows.  `family`
     picks the epilogue: "poincare" (BaseH but AttRH: the double-folded
     expmap0 Poincare distance) or "lorentz" (BaseLorentz: folded
-    expmap0_lorentz and the hyperboloid distance).
+    expmap0_lorentz and the hyperboloid distance).  It reads the part of
+    each distance that depends on the pair only through (curvature,
+    entity) from a radius table, and each query's curvature as
+    cvals[cid[b]].
+  * hyp_rank_radii: that table, radii (n_c, Np, 4) for poincare or
+    (n_c, Np, 2) for lorentz and attrh, from the curvatures cvals (n_c,)
+    and un; built once per params version by the rankers.
   * hyp_rank_sweep_nomask    (K6, TPU hyp_rank_counts_nomask's kernel):
     counts every row except the gold, with no mask.
   * hyp_rank_filtered_sub    (K6's subtraction): re-scores each query's
@@ -22,20 +28,24 @@ so the only outputs are (B,) int32 counts.  Six kernels, one wrapper each:
   * attrh_rank_counts, attrh_rank_sweep_nomask, attrh_rank_filtered_sub
     (K7, K8 and K8's subtraction): the same three for AttRH, whose score is
     bt - w0 d(rot)^2 - w1 d(ref)^2 over the two halves of the features,
-    each a single-fold Poincare distance.
+    each a single-fold Poincare distance; K7 takes cid, cvals and a radius
+    table as K5 does.
 
 Inputs, all float32 and contiguous.  Per query (B,): x2 = |lhs|^2 (x2r, x2f
 per half for AttRH), c the curvature, t2 the gold-target score minus the
-lhs bias, and w0, w1 AttRH's weights.  lhs (B, D).  The table rhs (Np, D)
-with >= 1 zero pad row; un (Np,) = sqrt(max(|v|^2, MIN_NORM^2)) (un_rot,
-un_ref per half for AttRH), built once per params version; bt (Np,) tail
-biases with -1e30 on pad rows.  The pad rows' un is the MIN_NORM floor, so
-<x, v> / un = 0 there and nothing is NaN.
+lhs bias, and w0, w1 AttRH's weights; the masked sweeps take cid (B,)
+int32 in place of c, with cvals (n_c,) and radii.  lhs (B, D).  The table
+rhs (Np, D) with >= 1 zero pad row; un (Np,) = sqrt(max(|v|^2,
+MIN_NORM^2)) (un_rot, un_ref per half for AttRH), built once per params
+version; bt (Np,) tail biases with -1e30 on pad rows.  The pad rows' un is
+the MIN_NORM floor, so <x, v> / un = 0 there and nothing is NaN.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain PyTorch version beside it,
 which repeats the arithmetic with a matmul (a different summation order, so
-counts may differ on scores within float rounding of t2).
+counts may differ on scores within float rounding of t2).  The plain
+masked versions take the same inputs as the kernels, radii included, and
+recompute the radius part inline as the maskless ones do.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ launches = {
     "attrh_rank_sweep_masked": 0,
     "attrh_rank_sweep_nomask": 0,
     "attrh_rank_filtered_sub": 0,
+    "hyp_rank_radii": 0,
 }
 
 
@@ -65,6 +76,9 @@ def reset_launches():
 
 # the epilogue instantiations of the K5/K6 kernels
 FAMILIES = {"poincare": 0, "lorentz": 1}
+# the radius tables' families, and the floats of one table entry
+RADII_FAMILIES = {**FAMILIES, "attrh": 2}
+RADII_WIDTH = {"poincare": 4, "lorentz": 2, "attrh": 2}
 # project()'s clip radius times sqrt(c): the fused rankers score in float32
 # whatever the model dtype, so the float32 ball eps; passed to the kernels
 # as one f32 value so kernel and plain versions round it identically
@@ -99,25 +113,37 @@ def _ball_dist(xv, gamma, c, sqrt_c, x2):
     return 2.0 * _artanh(sqrt_c * (num / denom.clamp_min(MIN_NORM))) / sqrt_c
 
 
-def _poincare_dist(xv, un, c, x2):
-    """BaseH: distance to expmap0(v) (radius tanh(sqrt_c un) / sqrt_c,
-    clipped by project()), whose radius the distance folds once more."""
-    sqrt_c = torch.sqrt(c)
+def _poincare_radius(un, c, sqrt_c):
+    """BaseH: the radius of expmap0(v), tanh(sqrt_c un) / sqrt_c clipped
+    by project(), folded once more as the distance does."""
     m = _tanh15(sqrt_c * un) / sqrt_c
     m = torch.minimum(m, torch.full_like(sqrt_c, ONE_MINUS_EPS) / sqrt_c)
-    return _ball_dist(xv, _tanh15(sqrt_c * m) / sqrt_c, c, sqrt_c, x2)
+    return _tanh15(sqrt_c * m) / sqrt_c
+
+
+def _poincare_dist(xv, un, c, x2):
+    """BaseH: distance to expmap0(v), whose radius the distance folds once
+    more."""
+    sqrt_c = torch.sqrt(c)
+    return _ball_dist(xv, _poincare_radius(un, c, sqrt_c), c, sqrt_c, x2)
+
+
+def _lorentz_radius(un, c, sqrt_c):
+    """BaseLorentz: expmap0_lorentz(v)'s space radius s = sinh(sqrt_c un) /
+    (sqrt_c un) * un and time part v0 = sqrt(s^2 + 1 / c).  sinh is taken
+    as it is: the TPU kernel's exp-and-Taylor form works around a missing
+    TPU lowering."""
+    alpha = sqrt_c * un
+    s = torch.sinh(alpha) / alpha * un
+    return s, torch.sqrt(s * s + 1.0 / c)
 
 
 def _lorentz_dist(xv, un, c, x2):
-    """BaseLorentz: hyperboloid distance to expmap0_lorentz(v), of radius
-    s = sinh(sqrt_c un) / (sqrt_c un) * un; arcosh as log(z + sqrt(z^2 -
-    1)) with the clamp z >= 1 + 1e-6.  sinh is taken as it is: the TPU
-    kernel's exp-and-Taylor form works around a missing TPU lowering."""
+    """BaseLorentz: hyperboloid distance to expmap0_lorentz(v); arcosh as
+    log(z + sqrt(z^2 - 1)) with the clamp z >= 1 + 1e-6."""
     sqrt_c = torch.sqrt(c)
-    alpha = sqrt_c * un
-    s = torch.sinh(alpha) / alpha * un
+    s, v0 = _lorentz_radius(un, c, sqrt_c)
     x0 = torch.sqrt(x2 + 1.0 / c)
-    v0 = torch.sqrt(s * s + 1.0 / c)
     z = (-c * (xv * s - x0 * v0)).clamp_min(1 + 1e-6)
     return torch.log(z + torch.sqrt(z * z - 1.0)) / sqrt_c
 
@@ -125,11 +151,37 @@ def _lorentz_dist(xv, un, c, x2):
 _DISTS = {"poincare": _poincare_dist, "lorentz": _lorentz_dist}
 
 
+def _half_radius(un, sqrt_c):
+    """AttRH: the single fold of a raw half."""
+    return _tanh15(sqrt_c * un) / sqrt_c
+
+
 def _half_dist_sq(xv, un, c, x2):
     """AttRH: single-fold Poincare distance^2 to the raw half v."""
     sqrt_c = torch.sqrt(c)
-    d = _ball_dist(xv, _tanh15(sqrt_c * un) / sqrt_c, c, sqrt_c, x2)
+    d = _ball_dist(xv, _half_radius(un, sqrt_c), c, sqrt_c, x2)
     return d * d
+
+
+def hyp_rank_radii_plain(cvals, un, family: str, un2=None):
+    """The radius table in plain PyTorch: per (curvature, entity) the part
+    of a distance that does not depend on the query point, float32 (n_c,
+    Np, W).  poincare: (gamma, 2 c gamma, c gamma^2, c^2 gamma^2), the
+    folded radius and the ball distance's products as _ball_dist
+    associates them; lorentz: (s, v0); attrh: (gamma_rot, gamma_ref) from
+    un = un_rot and un2 = un_ref."""
+    c = cvals[:, None]
+    sqrt_c = torch.sqrt(c)
+    if family == "poincare":
+        g = _poincare_radius(un[None, :], c, sqrt_c)
+        parts = (g, 2.0 * c * g, c * g * g, c * c * g * g)
+    elif family == "lorentz":
+        parts = _lorentz_radius(un[None, :], c, sqrt_c)
+    elif family == "attrh":
+        parts = (_half_radius(un[None, :], sqrt_c), _half_radius(un2[None, :], sqrt_c))
+    else:
+        raise ValueError(f"unknown hyp_rank family {family!r}")
+    return torch.stack(parts, dim=-1)
 
 
 def hyp_scores_plain(lhs, x2, c, rhs, un, bt, family: str = "poincare"):
@@ -153,8 +205,11 @@ def _filtered_rows(fidx, gold, np_):
     return ok, fidx.long().clamp(0, np_ - 1)
 
 
-def hyp_rank_counts_plain(lhs, x2, c, t2, rhs, un, bt, mask, family="poincare"):
-    scores = hyp_scores_plain(lhs, x2, c, rhs, un, bt, family)
+def hyp_rank_counts_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
+                          family="poincare"):
+    """K5's plain version: the curvature cvals[cid], the radius part
+    recomputed inline (radii is the kernel's copy of it)."""
+    scores = hyp_scores_plain(lhs, x2, cvals[cid.long()], rhs, un, bt, family)
     return _count(scores, t2, mask == 0)
 
 
@@ -182,8 +237,11 @@ def attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt):
     return bt[None, :] - w0[:, None] * d2r - w1[:, None] * d2f
 
 
-def attrh_rank_counts_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt, mask):
-    scores = attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt)
+def attrh_rank_counts_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
+                            radii, mask):
+    """K7's plain version, as hyp_rank_counts_plain."""
+    scores = attrh_scores_plain(lhs, x2r, x2f, cvals[cid.long()], w0, w1, rhs, un_rot, un_ref,
+                                bt)
     return _count(scores, t2, mask == 0)
 
 
@@ -247,18 +305,90 @@ def _family(family: str) -> int:
         raise ValueError(f"unknown hyp_rank family {family!r}") from None
 
 
-def hyp_rank_counts(lhs, x2, c, t2, rhs, un, bt, mask, family: str = "poincare"):
+def _check_aligned(**tensors):
+    """The masked sweeps copy the per-row vectors and the radius table with
+    16-byte cp.async: each must start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _check_masked(b, np_, cid, cvals, radii, mask, family, device):
+    """cid int32 (B,), cvals float32 (n_c,), radii float32 (n_c, Np, W),
+    mask int8 (B, Np); returns n_c."""
+    if cvals.dim() != 1 or cvals.shape[0] < 1:
+        raise ValueError("cvals must be (n_c,) with n_c >= 1")
+    n_c = cvals.shape[0]
+    _check("cid", cid, torch.int32, (b,), device)
+    _check("cvals", cvals, torch.float32, (n_c,), device)
+    _check("radii", radii, torch.float32, (n_c, np_, RADII_WIDTH[family]), device)
+    _check("mask", mask, torch.int8, (b, np_), device)
+    return n_c
+
+
+def hyp_rank_counts(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
+                    family: str = "poincare"):
     """K5: #{j : mask[b, j] == 0 and score(b, j) >= t2[b]} per query, int32
-    (B,).  mask is int8 (B, Np), 1 = filtered out (and on pad rows)."""
+    (B,), at the curvature cvals[cid[b]].  mask is int8 (B, Np), 1 =
+    filtered out (and on pad rows); radii = hyp_rank_radii(cvals, un,
+    family).  On the card a cid outside [0, n_c) counts 0; the plain
+    version raises on it."""
     if lhs.device.type == "cpu":
-        return hyp_rank_counts_plain(lhs, x2, c, t2, rhs, un, bt, mask, family)
+        return hyp_rank_counts_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
+                                     family)
     fam = _family(family)
-    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt))
-    _check("mask", mask, torch.int8, (b, np_), lhs.device)
+    b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
+    n_c = _check_masked(b, np_, cid, cvals, radii, mask, family, lhs.device)
+    _check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
-    _launch("hyp_rank_sweep_masked", lhs.device, lhs, x2, c, t2, rhs, un, bt, mask,
-            counts, b, np_, d, fam, ONE_MINUS_EPS)
+    _launch("hyp_rank_sweep_masked", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
+            mask, counts, b, np_, d, n_c, fam)
     return counts
+
+
+def hyp_rank_radii(cvals, un, family: str, un2=None):
+    """The masked sweeps' radius table (hyp_rank_radii_plain), float32
+    (n_c, Np, 4) for poincare, (n_c, Np, 2) for lorentz and attrh (un =
+    un_rot, un2 = un_ref)."""
+    if cvals.device.type == "cpu":
+        return hyp_rank_radii_plain(cvals, un, family, un2)
+    try:
+        fam = RADII_FAMILIES[family]
+    except KeyError:
+        raise ValueError(f"unknown hyp_rank family {family!r}") from None
+    dev = cvals.device
+    if dev.type != "cuda":
+        raise ValueError(f"hyp_rank kernels take CPU or CUDA tensors, got {dev}")
+    if cvals.dim() != 1 or un.dim() != 1:
+        raise ValueError("cvals must be (n_c,) and un (Np,)")
+    n_c, np_ = cvals.shape[0], un.shape[0]
+    _check("cvals", cvals, torch.float32, (n_c,), dev)
+    _check("un", un, torch.float32, (np_,), dev)
+    if family == "attrh":
+        _check("un2", un2, torch.float32, (np_,), dev)
+    out = torch.empty((n_c, np_, RADII_WIDTH[family]), dtype=torch.float32, device=dev)
+    _launch("hyp_rank_radii", dev, cvals, un, un2 if family == "attrh" else None, out, n_c,
+            np_, fam, ONE_MINUS_EPS)
+    return out
+
+
+def masked_sweep_info(family: str, device, d: int) -> dict:
+    """Registers and local (spill) bytes a thread, shared bytes a block and
+    resident blocks per SM of the masked sweep of `family` ("poincare",
+    "lorentz" or "attrh") at feature width d on `device`, as the CUDA
+    runtime reports them."""
+    import ctypes
+
+    from complexhyperbolickge_torch.kernels._build import load_library
+
+    vals = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        rc = load_library("hyp_rank").hyp_rank_masked_info(
+            RADII_FAMILIES[family], d, *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError(f"hyp_rank_masked_info failed: cudaError {rc}")
+    return dict(zip(("regs_per_thread", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def hyp_rank_sweep_nomask(lhs, x2, c, t2, rhs, un, bt, gold, family: str = "poincare"):
@@ -309,16 +439,19 @@ def _check_attrh(lhs, per_query, rhs, per_row):
     return b, np_, d
 
 
-def attrh_rank_counts(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt, mask):
-    """K7: the masked AttRH count, as hyp_rank_counts."""
+def attrh_rank_counts(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt, radii,
+                      mask):
+    """K7: the masked AttRH count, as hyp_rank_counts; radii =
+    hyp_rank_radii(cvals, un_rot, "attrh", un_ref)."""
     if lhs.device.type == "cpu":
-        return attrh_rank_counts_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
-                                       bt, mask)
-    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt))
-    _check("mask", mask, torch.int8, (b, np_), lhs.device)
+        return attrh_rank_counts_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot,
+                                       un_ref, bt, radii, mask)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+    n_c = _check_masked(b, np_, cid, cvals, radii, mask, "attrh", lhs.device)
+    _check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
-    _launch("attrh_rank_sweep_masked", lhs.device, lhs, x2r, x2f, c, w0, w1, t2, rhs,
-            un_rot, un_ref, bt, mask, counts, b, np_, d)
+    _launch("attrh_rank_sweep_masked", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
+            un_rot, un_ref, bt, radii, mask, counts, b, np_, d, n_c)
     return counts
 
 
@@ -374,14 +507,32 @@ def _row_norm(rows):
     return torch.sqrt(torch.sum(rows * rows, dim=-1).clamp_min(MIN_NORM * MIN_NORM))
 
 
+def _curvatures(model, device):
+    """cvals (n_c,) float32, the model's curvatures: one per relation with
+    multi_c, else the shared one."""
+    r = torch.arange(model.cfg.n_relations, device=device)
+    return model.curvature(r).detach().to(torch.float32).reshape(-1).contiguous()
+
+
+def _curvature_ids(model, rel):
+    """cid (B,) int32: the relation with multi_c, else 0."""
+    if model.cfg.multi_c:
+        return rel.to(torch.int32).contiguous()
+    return torch.zeros(rel.shape, dtype=torch.int32, device=rel.device)
+
+
 class HypRanker(FusedRanker):
     """Filtered ranker for the BaseH family (not AttRH) and the BaseLorentz
     family; the counterpart of the JAX PallasHypRanker (interface:
     kernels/_ranker.py).  masked=True streams an int8 (B, Np) mask through
-    K5; masked=False runs K6 (sweep + filtered subtraction) with no mask."""
+    K5; masked=False runs K6 (sweep + filtered subtraction) with no mask.
+    The tables hold the curvatures cvals and K5's radius table, rebuilt when
+    the entities, biases or curvatures change; a query's curvature is
+    cvals[cid] for K5 and K6 alike."""
 
-    TABLES = ("rhs", "un", "bt")
-    QUERIES = ("lhs", "x2", "c", "t2")
+    TABLES = ("rhs", "un", "bt", "cvals", "radii")
+    QUERIES = ("lhs", "x2", "cid", "c", "t2")
+    TABLE_PARAMS = ("entity", "bt", "c")
 
     def __init__(self, model, masked: bool = True):
         from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
@@ -394,11 +545,15 @@ class HypRanker(FusedRanker):
 
     def _prepare_tables(self):
         rhs = _padded_table(self.model.entity.detach().to(torch.float32))
-        return rhs, _row_norm(rhs), self._padded_bias(rhs.shape[0], rhs.device)
+        un = _row_norm(rhs)
+        cvals = _curvatures(self.model, rhs.device)
+        return (rhs, un, self._padded_bias(rhs.shape[0], rhs.device), cvals,
+                hyp_rank_radii(cvals, un, self.family))
 
     def _queries_core(self, q):
-        """(lhs, x2, c, t2) of a batch; t2 as the JAX ranker takes it, the
-        model's own train-shape sim of the gold tail plus bt[gold]."""
+        """(lhs, x2, cid, c, t2) of a batch; c = cvals[cid], the curvature
+        get_queries took; t2 as the JAX ranker takes it, the model's own
+        train-shape sim of the gold tail plus bt[gold]."""
         m = self.model
         b = q.shape[0]
         (lhs, c), _ = m.get_queries(q[:, :2])
@@ -407,23 +562,28 @@ class HypRanker(FusedRanker):
         gold = q[:, 2]
         sim = m.sim((lhs, c), m.entity[gold].to(torch.float32)[:, None, :],
                     all_pairs=False)[:, 0]
-        return (lhs, torch.sum(lhs * lhs, dim=-1), c[:, 0].contiguous(),
+        cid = _curvature_ids(m, q[:, 1])
+        return (lhs, torch.sum(lhs * lhs, dim=-1), cid, self._get_tables()[3][cid.long()],
                 self._gold_threshold(sim, gold))
 
     def _counts(self, x, masked):
-        base = (x["lhs"], x["x2"], x["c"], x["t2"], x["rhs"], x["un"], x["bt"])
         if masked:
-            return hyp_rank_counts(*base, x["mask"], family=self.family)
+            return hyp_rank_counts(*(x[k] for k in ("lhs", "x2", "cid", "cvals", "t2", "rhs",
+                                                    "un", "bt", "radii", "mask")),
+                                   family=self.family)
+        base = (x["lhs"], x["x2"], x["c"], x["t2"], x["rhs"], x["un"], x["bt"])
         return hyp_rank_counts_nomask(*base, x["fidx"], x["gold"], family=self.family)
 
 
 class AttRHRanker(FusedRanker):
     """Filtered ranker for AttRH, whose score splits the features in two
     halves (the counterpart of the JAX PallasAttRHRanker): K7 masked, K8
-    maskless.  The halves are column ranges of one table, not two tables."""
+    maskless.  The halves are column ranges of one table, not two tables.
+    Curvatures and the radius table as in HypRanker."""
 
-    TABLES = ("rhs", "un_rot", "un_ref", "bt")
-    QUERIES = ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2")
+    TABLES = ("rhs", "un_rot", "un_ref", "bt", "cvals", "radii")
+    QUERIES = ("lhs", "x2r", "x2f", "cid", "c", "w0", "w1", "t2")
+    TABLE_PARAMS = ("entity", "bt", "c")
 
     def __init__(self, model, masked: bool = True):
         from complexhyperbolickge_torch.models.hyperbolic import AttRH
@@ -435,8 +595,10 @@ class AttRHRanker(FusedRanker):
     def _prepare_tables(self):
         rhs = _padded_table(self.model.entity.detach().to(torch.float32))
         h = rhs.shape[1] // 2
-        return (rhs, _row_norm(rhs[:, :h]), _row_norm(rhs[:, h:]),
-                self._padded_bias(rhs.shape[0], rhs.device))
+        un_rot, un_ref = _row_norm(rhs[:, :h]), _row_norm(rhs[:, h:])
+        cvals = _curvatures(self.model, rhs.device)
+        return (rhs, un_rot, un_ref, self._padded_bias(rhs.shape[0], rhs.device), cvals,
+                hyp_rank_radii(cvals, un_rot, "attrh", un_ref))
 
     def _queries_core(self, q):
         m = self.model
@@ -449,13 +611,16 @@ class AttRHRanker(FusedRanker):
         sim = m.sim((lhs, c, w), m.entity[gold].to(torch.float32)[:, None, :],
                     all_pairs=False)[:, 0]
         h = lhs.shape[1] // 2
+        cid = _curvature_ids(m, q[:, 1])
         return (lhs, torch.sum(lhs[:, :h] ** 2, dim=-1), torch.sum(lhs[:, h:] ** 2, dim=-1),
-                c[:, 0].contiguous(), w[:, 0].contiguous(), w[:, 1].contiguous(),
-                self._gold_threshold(sim, gold))
+                cid, self._get_tables()[4][cid.long()], w[:, 0].contiguous(),
+                w[:, 1].contiguous(), self._gold_threshold(sim, gold))
 
     def _counts(self, x, masked):
+        if masked:
+            return attrh_rank_counts(*(x[k] for k in (
+                "lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot",
+                "un_ref", "bt", "radii", "mask")))
         base = tuple(x[k] for k in ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs",
                                     "un_rot", "un_ref", "bt"))
-        if masked:
-            return attrh_rank_counts(*base, x["mask"])
         return attrh_rank_counts_nomask(*base, x["fidx"], x["gold"])

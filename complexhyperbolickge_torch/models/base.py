@@ -143,9 +143,13 @@ class KGModel(nn.Module):
     # ------------------------------ curvature -------------------------------
 
     def curvature(self, r):
-        """Per-query curvature, (B, 1) with multi_c and (1, 1) otherwise."""
+        """Per-query curvature, (B, 1) with multi_c and (1, 1) otherwise.
+        With multi_c the softplus runs over the whole (n_relations, 1) table
+        before the gather, so a relation's curvature has the same bits in
+        every batch (CPU kernels round by position in a vectorized loop), and
+        curvature(arange(n_relations)) indexes to it exactly."""
         if self.cfg.multi_c:
-            return _softplus(self.c[r])
+            return _softplus(self.c)[r]
         c0 = self.c[0][None, :]
         if self._softplus_single_c:
             c0 = _softplus(c0)

@@ -104,15 +104,35 @@ def _args(kind, t):
     return [t["lhs"], *(t[k] for k in PER_QUERY[g]), t["rhs"], *(t[k] for k in PER_ROW[g])]
 
 
+def _masked(kind):
+    """The masked wrapper called with the maskless ones' inputs (c in place
+    of cid, cvals and radii): each query its own curvature, cid = arange(B),
+    cvals = c, the radius table from its plain version."""
+    def call(lhs, *rest):
+        *base, mask = rest
+        if kind == "attrh":
+            x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt = base
+            radii = K.hyp_rank_radii_plain(c, un_rot, "attrh", un_ref)
+            pre, post = (x2r, x2f), (w0, w1, t2, rhs, un_rot, un_ref, bt, radii, mask)
+            fn = K.attrh_rank_counts
+        else:
+            x2, c, t2, rhs, un, bt = base
+            radii = K.hyp_rank_radii_plain(c, un, kind)
+            pre, post = (x2,), (t2, rhs, un, bt, radii, mask)
+            fn = lambda *a: K.hyp_rank_counts(*a, family=kind)  # noqa: E731
+        cid = torch.arange(len(c), dtype=torch.int32, device=c.device)
+        return fn(lhs, *pre, cid, c, *post)
+    return call
+
+
 def _fns(kind):
     """(masked, sweep, filtered_sub, maskless) wrappers of the family."""
     if kind == "attrh":
-        return (K.attrh_rank_counts, K.attrh_rank_sweep_nomask, K.attrh_rank_filtered_sub,
+        return (_masked(kind), K.attrh_rank_sweep_nomask, K.attrh_rank_filtered_sub,
                 K.attrh_rank_counts_nomask)
     fam = dict(family=kind)
-    return tuple((lambda fn: lambda *a: fn(*a, **fam))(fn) for fn in (
-        K.hyp_rank_counts, K.hyp_rank_sweep_nomask, K.hyp_rank_filtered_sub,
-        K.hyp_rank_counts_nomask))
+    return (_masked(kind), *((lambda fn: lambda *a: fn(*a, **fam))(fn) for fn in (
+        K.hyp_rank_sweep_nomask, K.hyp_rank_filtered_sub, K.hyp_rank_counts_nomask)))
 
 
 def _jax_counts(kind, j, masked):
@@ -380,3 +400,94 @@ def test_ranker_nan_discipline(kgs, name):
     assert torch.isnan(ranks).any()
     with pytest.raises(FloatingPointError):
         TEV.get_ranking(tm, pack, 64, rank_fn=_ranker(tm, True))
+
+
+# ------------------------- radius tables and curvatures -------------------------
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_radii_plain_equals_inline(kind, monkeypatch):
+    """The radius table holds, bit for bit in float32, the radius part that
+    the plain K5/K7 compute inline for a query of curvature cvals[cid]
+    (captured from their all-entity scores), and the ball distance's
+    products as _ball_dist associates them."""
+    rng = np.random.default_rng(11)
+    n_c, b = 5, 12
+    cvals = torch.as_tensor(rng.uniform(0.3, 2.0, n_c), dtype=torch.float32)
+    cid = torch.as_tensor(rng.integers(0, n_c, b), dtype=torch.int32)
+    rhs = torch.as_tensor(rng.normal(0, 0.6, (NP, D)), dtype=torch.float32)
+    lhs = torch.as_tensor(rng.normal(0, 0.2, (b, D)), dtype=torch.float32)
+    bt = torch.zeros(NP)
+    c = cvals[cid.long()]
+    seen = []
+    if kind == "lorentz":
+        inner = K._lorentz_radius
+        monkeypatch.setattr(K, "_lorentz_radius", lambda *a: seen.append(inner(*a)) or seen[-1])
+        K.hyp_scores_plain(lhs, torch.sum(lhs * lhs, -1), c, rhs, _norm(rhs), bt, kind)
+        table = K.hyp_rank_radii_plain(cvals, _norm(rhs), kind)[cid.long()]
+        assert torch.equal(table[..., 0], seen[0][0]) and torch.equal(table[..., 1], seen[0][1])
+        return
+    inner = K._ball_dist
+    monkeypatch.setattr(K, "_ball_dist",
+                        lambda xv, gamma, *a: seen.append(gamma) or inner(xv, gamma, *a))
+    h = D // 2
+    if kind == "attrh":
+        un_rot, un_ref = _norm(rhs[:, :h]), _norm(rhs[:, h:])
+        w = torch.full((b,), 0.5)
+        K.attrh_scores_plain(lhs, torch.sum(lhs[:, :h] ** 2, -1), torch.sum(lhs[:, h:] ** 2, -1),
+                             c, w, w, rhs, un_rot, un_ref, bt)
+        table = K.hyp_rank_radii_plain(cvals, un_rot, kind, un_ref)[cid.long()]
+        assert table.shape == (b, NP, 2)
+        assert torch.equal(table[..., 0], seen[0]) and torch.equal(table[..., 1], seen[1])
+        return
+    K.hyp_scores_plain(lhs, torch.sum(lhs * lhs, -1), c, rhs, _norm(rhs), bt, kind)
+    table = K.hyp_rank_radii_plain(cvals, _norm(rhs), kind)[cid.long()]
+    g, cc = seen[0], c[:, None]
+    assert table.shape == (b, NP, 4)
+    for i, want in enumerate((g, 2.0 * cc * g, cc * g * g, cc * cc * g * g)):
+        assert torch.equal(table[..., i], want), i
+
+
+@pytest.mark.parametrize("multi_c", [True, False])
+@pytest.mark.parametrize("name", ["RotH", "RefH", "AttH", "IsoH", "IFFTH", "RotLH",
+                                  "HyboNet", "AttRH"])
+def test_ranker_curvature_ids_match_get_queries(kgs, name, multi_c):
+    """The kernels' curvature cvals[cid] is, bit for bit, the curvature
+    get_queries used, with and without multi_c."""
+    tdata = kgs[0]
+    _, _, tm = _model_pair(name, tdata, multi_c=multi_c, seed=7)
+    pack = tdata.eval_pack("test", "rhs")
+    q = torch.as_tensor(pack.queries, dtype=torch.int64)
+    ranker = _ranker(tm, masked=True)
+    x = ranker.kernel_inputs(q, torch.as_tensor(pack.filter_idx, dtype=torch.int64))
+    assert x["cvals"].shape == (tdata.n_predicates if multi_c else 1,)
+    assert x["cid"].dtype == torch.int32 and x["cid"].shape == (len(q),)
+    c = tm.get_queries(q[:, :2])[0][1].to(torch.float32).expand(len(q), 1)[:, 0]
+    assert torch.equal(x["c"], c)
+    assert torch.equal(x["cvals"][x["cid"].long()], c)
+    assert x["radii"].shape == (len(x["cvals"]), x["rhs"].shape[0],
+                                2 if name in ("RotLH", "HyboNet", "AttRH") else 4)
+
+
+@pytest.mark.parametrize("name", ["RotH", "RotLH", "AttRH"])
+def test_ranker_tables_follow_curvature_updates(kgs, name):
+    """An in-place change to the curvatures alone rebuilds cvals and the
+    radius table."""
+    tdata = kgs[0]
+    tm = _model_pair(name, tdata)[2]
+    pack = tdata.eval_pack("test", "rhs")
+    q = torch.as_tensor(pack.queries, dtype=torch.int64)
+    f = torch.as_tensor(pack.filter_idx, dtype=torch.int64)
+    ranker = _ranker(tm, masked=True)
+    ranker(q, f)
+    tables = ranker._tables
+    with torch.no_grad():
+        tm.c.mul_(0.5)
+    after = ranker(q, f)
+    assert ranker._tables is not tables
+    new = dict(zip(ranker.TABLES, ranker._tables))
+    old = dict(zip(ranker.TABLES, tables))
+    assert not torch.equal(new["cvals"], old["cvals"])
+    assert not torch.equal(new["radii"], old["radii"])
+    assert torch.equal(new["rhs"], old["rhs"])
+    torch.testing.assert_close(after, _ranker(tm, masked=True)(q, f), rtol=0, atol=0)

@@ -124,14 +124,21 @@ HYP_KINDS = ("poincare", "lorentz", "attrh")
 # (B, N, D, L): D = 8 below one 32-wide chunk, 32 the main path's, 40 across
 # two chunks (AttRH's halves then split inside the second); ragged B and N
 HYP_SHAPES = [(48, 300, 8, 6), (37, 1000, 32, 9), (5, 129, 40, 3), (500, 4000, 32, 12)]
+# (B, N, D, L, Np): tables whose row count is not a multiple of the 128-row
+# tile (Np % 16 == 0: 16-byte mask copies; else byte loads), D = 32 and
+# D = 64 (two feature chunks), D = 18 (rows copied 4 bytes at a time)
+HYP_RAGGED = [(37, 1000, 32, 9, 1005), (45, 2000, 64, 7, 2016), (300, 3000, 64, 11, 3001),
+              (20, 500, 18, 5, 520)]
 
 
-def hyp_inputs(kind, b, n, d, l, seed=0):
+def hyp_inputs(kind, b, n, d, l, np_=None, seed=0, curvatures=None):
     """K5-K8 inputs on the CPU: thresholds at each query's gold score,
-    filter rows holding the gold once, pad = n; returns (args, extras,
-    near) with args the wrappers' leading inputs in order."""
+    filter rows holding the gold once, pad = n, Np rows (default n + 1
+    rounded up to 128), c = cvals[cid] for curvatures = (cvals, cid);
+    returns (args, extras, near) with args the maskless wrappers' leading
+    inputs in order."""
     rng = np.random.default_rng(seed)
-    np_ = -(-(n + 1) // 128) * 128
+    np_ = np_ or -(-(n + 1) // 128) * 128
     f32 = torch.float32
     lhs = torch.as_tensor(rng.normal(0, 0.2, (b, d)), dtype=f32)
     rhs = torch.zeros((np_, d), dtype=f32)
@@ -139,6 +146,8 @@ def hyp_inputs(kind, b, n, d, l, seed=0):
     bt = torch.full((np_,), -1e30, dtype=f32)
     bt[:n] = torch.as_tensor(rng.normal(0, 0.3, n), dtype=f32)
     c = torch.as_tensor(rng.uniform(0.5, 1.5, b), dtype=f32)
+    if curvatures is not None:
+        c = curvatures[0][curvatures[1].long()]
 
     def norm(rows):
         return torch.sqrt(torch.sum(rows * rows, -1).clamp_min(1e-30))
@@ -171,17 +180,39 @@ def hyp_inputs(kind, b, n, d, l, seed=0):
     return args, extras, near
 
 
+def masked_call(kind, fn, cid=None, cvals=None):
+    """The masked kernel or plain version `fn`, called with the maskless
+    wrappers' inputs (c in place of cid and cvals): by default each query
+    its own curvature, cid = arange(B), cvals = c; the radius table from
+    hyp_rank_radii on the inputs' device."""
+    def call(lhs, *rest):
+        *base, mask = rest
+        if kind == "attrh":
+            x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt = base
+        else:
+            x2, c, t2, rhs, un, bt = base
+        ids = torch.arange(len(c), dtype=torch.int32) if cid is None else cid
+        ids, cv = ids.to(c.device), (c if cvals is None else cvals.to(c.device))
+        if kind == "attrh":
+            radii = K5.hyp_rank_radii(cv, un_rot, "attrh", un_ref)
+            return fn(lhs, x2r, x2f, ids, cv, w0, w1, t2, rhs, un_rot, un_ref, bt, radii, mask)
+        radii = K5.hyp_rank_radii(cv, un, kind)
+        return fn(lhs, x2, ids, cv, t2, rhs, un, bt, radii, mask, family=kind)
+    return call
+
+
 def hyp_fns(kind):
     """name -> (kernel wrapper, plain version, extra input names)."""
     if kind == "attrh":
-        return {"masked": (K5.attrh_rank_counts, K5.attrh_rank_counts_plain, ("mask",)),
+        return {"masked": (masked_call(kind, K5.attrh_rank_counts),
+                           masked_call(kind, K5.attrh_rank_counts_plain), ("mask",)),
                 "nomask": (K5.attrh_rank_sweep_nomask, K5.attrh_rank_sweep_nomask_plain,
                            ("gold",)),
                 "filtered_sub": (K5.attrh_rank_filtered_sub,
                                  K5.attrh_rank_filtered_sub_plain, ("fidx", "gold"))}
     fam = {"family": kind}
-    return {"masked": (partial(K5.hyp_rank_counts, **fam),
-                       partial(K5.hyp_rank_counts_plain, **fam), ("mask",)),
+    return {"masked": (masked_call(kind, K5.hyp_rank_counts),
+                       masked_call(kind, K5.hyp_rank_counts_plain), ("mask",)),
             "nomask": (partial(K5.hyp_rank_sweep_nomask, **fam),
                        partial(K5.hyp_rank_sweep_nomask_plain, **fam), ("gold",)),
             "filtered_sub": (partial(K5.hyp_rank_filtered_sub, **fam),
@@ -210,11 +241,10 @@ def test_hyp_maskless_equals_masked_exactly(kind, shape):
     args, extras, _ = hyp_inputs(kind, *shape)
     a = [t.to(dev) for t in args]
     e = {k: v.to(dev) for k, v in extras.items()}
+    masked = hyp_fns(kind)["masked"][0](*a, e["mask"])
     if kind == "attrh":
-        masked = K5.attrh_rank_counts(*a, e["mask"])
         nomask = K5.attrh_rank_counts_nomask(*a, e["fidx"], e["gold"])
     else:
-        masked = K5.hyp_rank_counts(*a, e["mask"], family=kind)
         nomask = K5.hyp_rank_counts_nomask(*a, e["fidx"], e["gold"], family=kind)
     assert torch.equal(masked, nomask)
 
@@ -222,23 +252,90 @@ def test_hyp_maskless_equals_masked_exactly(kind, shape):
 def test_hyp_wrappers_check_inputs_and_count_launches():
     dev = _cuda_or_skip()
     args, extras, _ = hyp_inputs("lorentz", *HYP_SHAPES[0])
-    a = [t.to(dev) for t in args]
+    lhs, x2, c, t2, rhs, un, bt = [t.to(dev) for t in args]
     mask = extras["mask"].to(dev)
+    cid = torch.arange(len(c), dtype=torch.int32, device=dev)
     K5.reset_launches()
-    K5.hyp_rank_counts(*a, mask, family="lorentz")
-    assert K5.launches["hyp_rank_sweep_masked"] == 1
+    radii = K5.hyp_rank_radii(c, un, "lorentz")
+    K5.hyp_rank_counts(lhs, x2, cid, c, t2, rhs, un, bt, radii, mask, family="lorentz")
+    assert K5.launches["hyp_rank_sweep_masked"] == 1 and K5.launches["hyp_rank_radii"] == 1
+
+    def masked(**over):
+        kw = dict(lhs=lhs, x2=x2, cid=cid, cvals=c, t2=t2, rhs=rhs, un=un, bt=bt, radii=radii,
+                  mask=mask, family="lorentz")
+        kw.update(over)
+        return K5.hyp_rank_counts(**kw)
+
     with pytest.raises(ValueError, match="unknown hyp_rank family"):
-        K5.hyp_rank_counts(*a, mask, family="klein")
+        masked(family="klein")
     with pytest.raises(TypeError, match="dtype"):
-        K5.hyp_rank_counts(*a, mask.to(torch.int32), family="lorentz")
+        masked(mask=mask.to(torch.int32))
     with pytest.raises(ValueError, match="is on"):
-        K5.hyp_rank_counts(*a, extras["mask"], family="lorentz")
-    odd = [t[:, :7].contiguous() if t.dim() == 2 else t for t in a]
+        masked(mask=extras["mask"])
+    with pytest.raises(TypeError, match="int32"):
+        masked(cid=cid.long())
+    with pytest.raises(ValueError, match="shape"):
+        masked(cid=cid[:-1].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        masked(radii=K5.hyp_rank_radii(c, un, "poincare"))
+    with pytest.raises(ValueError, match="16-byte"):
+        masked(un=torch.cat([un[:1], un])[1:])
+    odd = lhs[:, :7].contiguous()
     with pytest.raises(ValueError, match="halves"):
-        K5.attrh_rank_counts(odd[0], a[1], a[1], a[2], a[2], a[2], a[3], odd[4], a[5],
-                             a[5], a[6], mask)
+        K5.attrh_rank_counts(odd, x2, x2, cid, c, c, c, t2, rhs[:, :7].contiguous(), un, un,
+                             bt, K5.hyp_rank_radii(c, un, "attrh", un), mask)
     assert K5.launches["hyp_rank_sweep_masked"] == 1
-    assert sum(K5.launches.values()) == 1
+    assert sum(K5.launches.values()) == 4  # and three radius tables
+
+
+@pytest.mark.parametrize("shape", HYP_SHAPES[1:] + [(500, 40_000, 32, 5)])
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_radii_matches_plain(kind, shape):
+    """The radius launcher against its plain version on the same card:
+    within 2 ulp (torch's CUDA tanh / sinh and the kernel's tanhf / sinhf
+    are both libdevice's, so they agree exactly on the H100); and within the
+    compounded rounding of the CPU's vectorized tanh / sinh (1 ulp each)."""
+    dev = _cuda_or_skip()
+    args, _, _ = hyp_inputs(kind, *shape)
+    un, un2 = (args[8], args[9]) if kind == "attrh" else (args[5], None)
+    cvals = torch.as_tensor(np.random.default_rng(3).uniform(0.2, 2.5, 22), dtype=torch.float32)
+    on_card = [cvals.to(dev), un.to(dev), kind, None if un2 is None else un2.to(dev)]
+    got = K5.hyp_rank_radii(*on_card).cpu()
+    want = K5.hyp_rank_radii_plain(*on_card).cpu()
+    assert got.shape == want.shape == (22, un.shape[0], K5.RADII_WIDTH[kind])
+    assert torch.isfinite(got).all() and (torch.sign(got) == torch.sign(want)).all()
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 2
+    torch.testing.assert_close(got, K5.hyp_rank_radii_plain(cvals, un, kind, un2),
+                               rtol=2e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", HYP_RAGGED)
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_masked_ragged_matches_plain_and_maskless(kind, shape):
+    """The masked sweeps at ragged B, Np and D, with 7 curvatures shared
+    through cid: within the near-threshold count of the plain version, and
+    exactly the maskless count (sweep - subtraction) at c = cvals[cid]."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
+    cid = torch.as_tensor(rng.integers(0, 7, shape[0]), dtype=torch.int32)
+    args, extras, near = hyp_inputs(kind, *shape, curvatures=(cvals, cid))
+    b = shape[0]
+    kernel = masked_call(kind, K5.attrh_rank_counts if kind == "attrh" else K5.hyp_rank_counts,
+                         cid, cvals)
+    plain = masked_call(kind, K5.attrh_rank_counts_plain if kind == "attrh"
+                        else K5.hyp_rank_counts_plain, cid, cvals)
+    a = [x.to(dev) for x in args]
+    e = {k: v.to(dev) for k, v in extras.items()}
+    got = kernel(*a, e["mask"])
+    torch.cuda.synchronize()
+    want = plain(*args, extras["mask"])
+    assert got.dtype == torch.int32 and got.shape == (b,)
+    assert ((got.cpu() - want).abs() <= near).all()
+    nomask = (K5.attrh_rank_counts_nomask(*a, e["fidx"], e["gold"]) if kind == "attrh"
+              else K5.hyp_rank_counts_nomask(*a, e["fidx"], e["gold"], family=kind))
+    assert torch.equal(got, nomask)
 
 
 # ------------------- GNN: K9 (csrc/segsum.cu), K10 (csrc/gather.cu) -------------------
