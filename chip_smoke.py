@@ -41,10 +41,10 @@ line:
   5 hyp-run   run dirs of RotH, RotLH and AttRH with planted test answers
               (write_run, plant): how many folds could be inverted
   6 hyp-kernels  K5 (Poincare on RotH, Lorentz on RotLH), K6, K7 and K8
-              (AttRH) and the masked sweeps' radius tables against their
-              plain versions on an eval batch (B 500, Np 40,960, D 32);
-              the masked sweeps' curvature cvals[cid] is get_queries';
-              maskless == masked exactly
+              (AttRH) and the sweeps' radius tables against their plain
+              versions on an eval batch (B 500, Np 40,960, D 32); the
+              sweeps' curvature cvals[cid] is get_queries'; maskless ==
+              masked exactly
   7 kge-test  cli.test.test() with the auto (masked kernel), pallas_maskless
               and dense rankers: MRR equal within 1e-4, fused ranks identical;
               plus whole-split ranking throughput per ranker
@@ -62,11 +62,15 @@ line:
               launch its family's three kernels and the radius launcher
  12 gnn-kernels  K9 against index_add_ (rtol 1e-5, atol 1e-6) and K10 against
               x[ids] (bitwise) on one sorted half of the graph (E 86,835, N
-              40,943) at H = 1, 32, 200, forward and backward
+              40,943) at H = 1, 32, 200, forward and backward, in float32
+              and in bfloat16 (K9 within one bfloat16 ulp, K10 bitwise)
  13 gnn-encode parity  each GNN model's encode through K9/K10 and through
               their plain versions (rtol 1e-4, atol 1e-5)
  14 gnn-train-step parity  3 Adam steps of CompGCN, kernels against plain
-              (float64 held to PARITY_TOL; float32 reported)
+              (float64 held to PARITY_TOL; float32 reported); gnn-bf16-train:
+              12 Adam steps of a bfloat16 CompGCN through K9/K10's bfloat16
+              instances, the loss finite and falling, float32 optimizer
+              state
  15 gnn-train, gnn-step-window, gnn-kge-test, gnn-serve  the GNN path:
               2 epochs of CompGCN through cli.run.train, 20 PoincareGCN
               steps, kge-test of the four models (dense ranker over the
@@ -77,8 +81,9 @@ line:
               wall time, device busy time and idle share, top kernels and
               host ops
  17 the kernels line: launches, and the times of kernel, plain version and
-              library call beside the kernel's bound (and the rankers' and
-              the training step's device time)
+              library call beside the kernel's bound (and the rankers' busy
+              time per call and the training step's device time; K9/K10's
+              bfloat16 instances under "bfloat16")
  18 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
@@ -158,15 +163,16 @@ TRAIN_CONFIGS = {"FFTRotH": dict(optimizer="Adam", learning_rate=3e-4, neg_sampl
 HYP_RANK_KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_sub")
 ATTRH_KERNELS = ("attrh_rank_sweep_masked", "attrh_rank_sweep_nomask",
                  "attrh_rank_filtered_sub")
-# the kernels' inputs in wrapper order (kernels/hyp_rank.py): the maskless
-# kernels' leading inputs, and the masked sweeps' (curvature ids into the
-# ranker's cvals, and its radius table)
+# the kernels' inputs in wrapper order (kernels/hyp_rank.py): the filtered
+# subtractions' leading inputs (each query's curvature c), and the sweeps'
+# (curvature ids into the ranker's cvals, and its radius table), followed
+# by the mask (K5, K7) or the gold (K6, K8)
 HYP_ARGS = {"hyp": ("lhs", "x2", "c", "t2", "rhs", "un", "bt"),
             "attrh": ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref",
                       "bt")}
-HYP_MASKED_ARGS = {"hyp": ("lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii", "mask"),
-                   "attrh": ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs",
-                             "un_rot", "un_ref", "bt", "radii", "mask")}
+HYP_SWEEP_ARGS = {"hyp": ("lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii"),
+                  "attrh": ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs",
+                            "un_rot", "un_ref", "bt", "radii")}
 # the radius table against its plain version: libdevice's tanhf / sinhf and
 # torch's may round apart
 RADII_MAX_ULP = 2
@@ -194,6 +200,11 @@ GNN_KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # K9 against index_add_: another or
 GNN_ENCODE_TOL = dict(rtol=1e-4, atol=1e-4)
 GNN_ENCODE_TOL_F64 = dict(rtol=1e-9, atol=1e-9)
 PROFILE_GNN_STEPS = 20
+# K9/K10's bfloat16 instances against their plain versions: both sum in
+# float32 (in other orders) and round once, so one bfloat16 ulp (2^-7
+# relative) where the float32 sums straddle a rounding boundary
+GNN_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+BF16_STEPS = 12  # Adam steps of the bfloat16 CompGCN phase
 # fp32 operations of one pair's epilogue after the contraction, counted in
 # csrc/hyp_rank.cu (pair_score) with every +, -, *, /, sqrt, clamp and
 # transcendental call as one: a floor, since a tanhf or log1pf is ~20
@@ -406,43 +417,49 @@ def phase_kernels(model, dataset):
 
 
 def hyp_family(family: str):
-    """A real-hyperbolic family's kernels: (the maskless kernels' leading
-    input names, plain all-entity scores of an input dict, kernel name ->
+    """A real-hyperbolic family's kernels: (the subtractions' leading input
+    names, plain all-entity scores of an input dict, kernel name ->
     (wrapper, plain version, input names in wrapper order), the maskless
-    count, the radius table of an input dict through the kernel and the
-    plain version)."""
+    count of an input dict, the radius table of an input dict through the
+    kernel and the plain version)."""
     from functools import partial
 
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
     g = "attrh" if family == "attrh" else "hyp"
-    names, masked = HYP_ARGS[g], HYP_MASKED_ARGS[g]
+    names, sweep = HYP_ARGS[g], HYP_SWEEP_ARGS[g]
     un = ("un_rot", "un_ref") if g == "attrh" else ("un",)
 
     def radii(x, fn):
         return fn(x["cvals"], x[un[0]], family, *(x[k] for k in un[1:]))
 
     tables = (partial(radii, fn=H.hyp_rank_radii), partial(radii, fn=H.hyp_rank_radii_plain))
+    fam = {} if g == "attrh" else dict(family=family)
+    counts_nomask = H.attrh_rank_counts_nomask if g == "attrh" else H.hyp_rank_counts_nomask
+
+    def maskless(x):
+        return counts_nomask(*(x[k] for k in sweep), x["fidx"], x["gold"], **fam)
+
     if g == "attrh":
         return names, lambda x: H.attrh_scores_plain(*(x[k] for k in names if k != "t2")), {
-            "attrh_rank_sweep_masked": (H.attrh_rank_counts, H.attrh_rank_counts_plain, masked),
+            "attrh_rank_sweep_masked": (H.attrh_rank_counts, H.attrh_rank_counts_plain,
+                                        (*sweep, "mask")),
             "attrh_rank_sweep_nomask": (H.attrh_rank_sweep_nomask,
-                                        H.attrh_rank_sweep_nomask_plain, (*names, "gold")),
+                                        H.attrh_rank_sweep_nomask_plain, (*sweep, "gold")),
             "attrh_rank_filtered_sub": (H.attrh_rank_filtered_sub,
                                         H.attrh_rank_filtered_sub_plain,
                                         (*names, "fidx", "gold")),
-        }, H.attrh_rank_counts_nomask, tables
-    fam = dict(family=family)
+        }, maskless, tables
     return names, lambda x: H.hyp_scores_plain(*(x[k] for k in names if k != "t2"), **fam), {
         "hyp_rank_sweep_masked": (partial(H.hyp_rank_counts, **fam),
-                                  partial(H.hyp_rank_counts_plain, **fam), masked),
+                                  partial(H.hyp_rank_counts_plain, **fam), (*sweep, "mask")),
         "hyp_rank_sweep_nomask": (partial(H.hyp_rank_sweep_nomask, **fam),
                                   partial(H.hyp_rank_sweep_nomask_plain, **fam),
-                                  (*names, "gold")),
+                                  (*sweep, "gold")),
         "hyp_rank_filtered_sub": (partial(H.hyp_rank_filtered_sub, **fam),
                                   partial(H.hyp_rank_filtered_sub_plain, **fam),
                                   (*names, "fidx", "gold")),
-    }, partial(H.hyp_rank_counts_nomask, **fam), tables
+    }, maskless, tables
 
 
 def ulps_apart(a, b) -> int:
@@ -506,8 +523,8 @@ def phase_hyp_kernels(hyp: dict):
             if not ok:
                 failed.append(f"{name} {kname} disagrees with its plain version")
         kernel, _, args = fns[next(iter(fns))]
-        res["maskless_equals_masked"] = bool(torch.equal(
-            kernel(*[x[k] for k in args]), maskless(*[x[k] for k in names], x["fidx"], x["gold"])))
+        res["maskless_equals_masked"] = bool(torch.equal(kernel(*[x[k] for k in args]),
+                                                         maskless(x)))
         if not res["maskless_equals_masked"]:
             failed.append(f"{name}: maskless != masked on a batch whose golds are filtered")
         out["models"][name] = res
@@ -838,6 +855,17 @@ def profile_window(fn, shapes: bool = False) -> dict:
     }
 
 
+def busy_ms(fn, calls: int = 5) -> float:
+    """The card's busy time per call of fn, from profile_window over
+    `calls` calls after one warm-up: a ranker call launches hundreds of
+    kernels, so CUDA events around back-to-back calls would time the host."""
+    fn()
+    busy = profile_window(lambda: [fn() for _ in range(calls)])["device_busy_ms"]
+    if not isinstance(busy, float):
+        raise AssertionError("torch.profiler saw no device time")
+    return busy / calls
+
+
 def profile_rankers(model, dataset) -> dict:
     """One whole-split ranking of the test split (both directions) per
     ranker, profiled."""
@@ -892,8 +920,9 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     """Times of each kernel and its plain version on the main paths'
     shapes, beside the kernel's bound.  Rankers: dense_ms is the dense
     ranker's device time per batch and ranker_ms that of the fused ranker
-    that launches the kernel, both with the query prep.  Train distance:
-    step_ms is one whole training step's device time (phase_profile)."""
+    that launches the kernel, both with the query prep, as the card's busy
+    time per call (busy_ms).  Train distance: step_ms is one whole training
+    step's device time (phase_profile)."""
     import numpy as np
 
     from complexhyperbolickge_torch.kernels import chyp_rank as K
@@ -906,14 +935,13 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     np_ = base[3].shape[0]
     l = xn["fidx"].shape[1]
     f32_peak, bw_peak, f64_peak = peak_rates(name)
-    # whole rankers per batch, query prep included (~200 launches a call, so
-    # few reps: the stream's queue of pending launches is bounded)
+    # whole rankers per batch, query prep included (~200 launches a call)
     dense = make_ranker(model)
-    dense_ms = cuda_ms(lambda: dense(q, f), reps=4)
+    dense_ms = busy_ms(lambda: dense(q, f))
     ranker_ms = {}
     for masked in (True, False):
         ranker = K.ChypRanker(model, masked=masked)
-        ranker_ms[masked] = cuda_ms(lambda: ranker(q, f), reps=4)
+        ranker_ms[masked] = busy_ms(lambda: ranker(q, f))
     n_rows = int(np.unique(xn["fidx"].cpu().numpy()).size)
     vec = 4 * (2 * b * d + 2 * b + 2 * np_ + np_ * d)  # lhs2, zn, t2, wn, bt, rhs
     # name -> (kernel, plain, args, fp32 ops, fp64 ops, bytes)
@@ -974,20 +1002,18 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
     (phase_hyp_kernels): the hyp_rank rows on RotH (Poincare) with the
     RotLH (Lorentz) instantiation beside them, the attrh rows on AttRH.
     Bound: per pair the 2 D operations of the contraction plus the family's
-    EPILOGUE_OPS (counted on the inline epilogue: the masked sweeps' radius
-    table holds part of them, precomputed once per params version); bytes each input once
-    (the int8 mask, the curvature ids, cvals and the radius table, masked
-    form) and the counts once; a filtered subtraction scores only this
-    batch's kept filter ids (in range, not the gold) and reads their
-    distinct rows.  The masked rows add the radius launcher's time and
-    launches and the masked sweep's registers and resident blocks."""
+    EPILOGUE_OPS (counted on the inline epilogue: the sweeps' radius table
+    holds part of them, precomputed once per params version), so the bound
+    measures the function's work whatever the kernel hoists; bytes each
+    input once (the curvature ids, cvals and the radius table, the int8
+    mask (masked) or the gold (maskless)) and the counts once; a filtered
+    subtraction scores only this batch's kept filter ids (in range, not the
+    gold) and reads their distinct rows.  The sweep rows add the radius
+    launcher's time and launches and the sweep's registers and resident
+    blocks; ranker_ms and dense_ms are busy times per call (busy_ms)."""
     import torch
 
-    from complexhyperbolickge_torch.kernels.hyp_rank import (
-        AttRHRanker,
-        HypRanker,
-        masked_sweep_info,
-    )
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker, sweep_info
     from complexhyperbolickge_torch.train.evaluate import make_ranker
 
     f32_peak, bw_peak, _ = peak_rates(name)
@@ -1008,15 +1034,15 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
         work = {  # kernel name -> (fp32 operations, bytes)
             fns_name: w for fns_name, w in zip(fns, (
                 (b * np_ * pair_ops, vec + b * np_ + table_bytes + 4 * b),
-                (b * np_ * pair_ops, vec + 4 * b + 4 * b),
+                (b * np_ * pair_ops, vec + table_bytes + 4 * b + 4 * b),
                 (int(kept.sum()) * pair_ops,
                  4 * (b * d + b * n_pq + n_rows * (d + n_pr)) + 4 * b * l + 8 * b)))}
         dense = make_ranker(model)
-        dense_ms = cuda_ms(lambda: dense(q, f), reps=4)
+        dense_ms = busy_ms(lambda: dense(q, f))
         ranker_ms = {}
         for masked in (True, False):
             ranker = (AttRHRanker if family == "attrh" else HypRanker)(model, masked=masked)
-            ranker_ms[masked] = cuda_ms(lambda: ranker(q, f), reps=4)
+            ranker_ms[masked] = busy_ms(lambda: ranker(q, f))
         for kname, (kernel, plain, argnames) in fns.items():
             args = [x[k] for k in argnames]
             ops, nbytes = work[kname]
@@ -1029,13 +1055,14 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "dense_ms": dense_ms, "ranker_ms": ranker_ms[kname.endswith("_masked")],
                 "shape": {"B": b, "Np": np_, "D": d, "L": l}}
-            if kname.endswith("_masked"):
+            if "_sweep_" in kname:
                 timed[(kname, family)].update(
                     radii_ms=cuda_ms(lambda: tables[0](x), reps=50),
                     radii_launches=launches["hyp_rank_radii"],
                     radii_max_ulp=errors[("hyp_rank_radii", family)],
                     n_curvatures=int(x["cvals"].shape[0]),
-                    **masked_sweep_info(family, x["lhs"].device, d))
+                    **sweep_info(family, x["lhs"].device, d,
+                                 masked=kname.endswith("_masked")))
     rows = []
     for kname in HYP_RANK_KERNELS + ATTRH_KERNELS:
         family = "attrh" if kname in ATTRH_KERNELS else "poincare"
@@ -1087,9 +1114,10 @@ def gnn_kernel_inputs(model, h: int, seed: int):
 def phase_gnn_kernels(model, seed: int):
     """K9 against index_add_ and K10 against x[ids] on one sorted half of
     the WN18RR-shape graph (E = 86,835 into N = 40,943) at H = 1, 32, 200,
-    forward and backward (against autograd of the plain versions); then the
-    times of kernel, plain version and library call.  Returns the rows'
-    measurements by (kernel, H)."""
+    forward and backward (against autograd of the plain versions), in
+    float32 and in bfloat16 (gnn_bf16_checks); then the times of kernel,
+    plain version and library call.  Returns the rows' measurements by
+    (kernel, H) and (kernel, H, "bfloat16")."""
     import torch
 
     from complexhyperbolickge_torch.kernels import gather as G
@@ -1134,6 +1162,23 @@ def phase_gnn_kernels(model, seed: int):
             failed.append(f"H={h}: {res}")
         ids64 = gth.ids.long()
         n_read = int(gth.ids.unique().numel())  # the table rows the gather reads
+        res["bfloat16"] = bf16 = gnn_bf16_checks(seg, gth, msgs, x, gm, gx)
+        if not all(v for k, v in bf16.items() if isinstance(v, bool)):
+            failed.append(f"H={h} bfloat16: {bf16}")
+        mb, xb = msgs.to(torch.bfloat16), x.to(torch.bfloat16)
+        meas[("sorted_segment_sum", h, "bfloat16")] = dict(
+            max_abs_err=bf16["segsum_max_abs_err"],
+            ms=cuda_ms(lambda: S.sorted_segment_sum(mb, seg), reps=50),
+            plain_ms=cuda_ms(lambda: S.sorted_segment_sum_plain(mb, seg)),
+            library_ms=cuda_ms(lambda: torch.segment_reduce(mb, "sum", lengths=lengths)),
+            nbytes=2 * (seg.num_edges * h + seg.num_segments * h) + 4 * (seg.num_segments + 1),
+            ops=seg.num_edges * h)
+        meas[("row_gather", h, "bfloat16")] = dict(
+            max_abs_err=0.0 if bf16["gather_bitwise_equal"] else None,
+            ms=cuda_ms(lambda: G.row_gather(xb, gth.ids), reps=50),
+            plain_ms=cuda_ms(lambda: G.row_gather_plain(xb, gth.ids)),
+            library_ms=cuda_ms(lambda: torch.index_select(xb, 0, ids64)),
+            nbytes=2 * (n_read * h + seg.num_edges * h) + 4 * seg.num_edges, ops=0)
         meas[("sorted_segment_sum", h)] = dict(
             max_abs_err=res["segsum_max_abs_err"],
             ms=cuda_ms(lambda: S.sorted_segment_sum(msgs, seg), reps=50),
@@ -1153,6 +1198,89 @@ def phase_gnn_kernels(model, seed: int):
     if failed:
         raise AssertionError("K9/K10 disagree with their plain versions: " + "; ".join(failed))
     return meas
+
+
+def gnn_bf16_checks(seg, gth, msgs, x, gm, gx) -> dict:
+    """K9's and K10's bfloat16 instances against their plain versions on
+    the bfloat16-rounded inputs, forward and backward: K9 within
+    GNN_BF16_TOL of its plain version (float32 sums rounded once), its
+    backward (K10) bitwise; K10 bitwise, its backward (K9 over the sorted
+    ids) within GNN_BF16_TOL of the float32 plain gradient rounded once."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import gather as G
+    from complexhyperbolickge_torch.kernels import segsum as S
+
+    bf = torch.bfloat16
+    gm_b, gx_b = gm.to(bf), gx.to(bf)
+    m1, m2 = msgs.to(bf).requires_grad_(), msgs.to(bf).requires_grad_()
+    s_k, s_p = seg(m1), S.sorted_segment_sum_plain(m2, seg)
+    (s_k * gm_b).sum().backward()
+    (s_p * gm_b).sum().backward()
+    x1 = x.to(bf).requires_grad_()
+    x2 = x.to(bf).float().requires_grad_()
+    g_k, g_p = gth(x1), G.row_gather_plain(x2, gth.ids)
+    (g_k * gx_b).sum().backward()
+    (g_p * gx_b.float()).sum().backward()
+    torch.cuda.synchronize()
+    s_k, s_p, g_k = s_k.detach(), s_p.detach(), g_k.detach()
+    want_grad = x2.grad.to(bf)
+    return {
+        "dtypes": [str(t.dtype) for t in (s_k, g_k, m1.grad, x1.grad)],
+        "segsum_max_abs_err": float((s_k.float() - s_p.float()).abs().max()),
+        "segsum_within_tolerance": bool(torch.allclose(s_k.float(), s_p.float(),
+                                                       **GNN_BF16_TOL)),
+        "segsum_grad_equal": bool(torch.equal(m1.grad, m2.grad)),
+        "gather_bitwise_equal": bool(torch.equal(g_k, g_p.detach().to(bf))),
+        "gather_grad_max_abs_err": float((x1.grad.float() - want_grad.float()).abs().max()),
+        "gather_grad_within_tolerance": bool(torch.allclose(
+            x1.grad.float(), want_grad.float(), **GNN_BF16_TOL)),
+        "all_bfloat16": all(t.dtype == bf for t in (s_k, g_k, m1.grad, x1.grad)),
+    }
+
+
+def phase_gnn_bf16_train(dataset, seed: int):
+    """BF16_STEPS Adam steps of a bfloat16 CompGCN (the GNN path's width,
+    dtype bfloat16) on one training batch with the same negatives and
+    dropout every step, so every sum and gather of its encoder runs K9's
+    and K10's bfloat16 instances: the loss finite and falling, K9/K10
+    launched every step, the optimizer's state float32 (as the JAX trainer
+    keeps it for bfloat16 params)."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.data.dataset import epoch_batches
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    model = gnn_model(seed, "CompGCN", dataset, dtype="bfloat16")
+    trainer = Trainer(model, TrainConfig(**GNN_TRAIN_CONFIG), model.cfg.n_entities,
+                      model.cfg.n_relations)
+    b, w = epoch_batches(dataset.get_examples("train"), GNN_BATCH, np.random.default_rng(seed))
+    b, w = trainer._upload(b[:1], w[:1])
+    losses = []
+    KS.reset_launches()  # the bfloat16 GNN path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BF16_STEPS):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        losses.append(trainer.train_step(b[0], w[0], gen))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: KS.launches()[k] for k in GNN_KERNELS}  # ... and ends here
+    losses = [float(v) for v in losses]
+    state = trainer.optimizer.state_dict()["state"]
+    state_dtypes = sorted({str(v.dtype) for st in state.values() for v in st.values()})
+    out = {"phase": "gnn-bf16-train", "model": "CompGCN", "dtype": "bfloat16",
+           "steps": BF16_STEPS, "losses": losses, "ms_per_step": 1e3 * secs / BF16_STEPS,
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+           "optimizer_state_dtypes": state_dtypes, "launches": launches}
+    emit(out)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the bfloat16 CompGCN loss is not finite and falling: {losses}")
+    if min(launches.values()) < BF16_STEPS or state_dtypes != ["torch.float32"]:
+        raise AssertionError(f"bfloat16 CompGCN: K9/K10 launched fewer times than its steps, "
+                             f"or its optimizer state is not float32: {out}")
 
 
 def tensor_leaves(tree) -> list:
@@ -1414,12 +1542,19 @@ def gnn_kernel_rows(meas, launches, smi, name):
             t_ops, t_bytes = m.pop("ops") / f32_peak * 1e3, m.pop("nbytes") / bw_peak * 1e3
             by_h[h] = {**m, "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        bf16 = {}
+        for h in GNN_WIDTHS:
+            m = dict(meas[(kname, h, "bfloat16")])
+            t_ops, t_bytes = m.pop("ops") / f32_peak * 1e3, m.pop("nbytes") / bw_peak * 1e3
+            bf16[h] = {**m, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         main = by_h[GNN_WIDTHS[-1]]
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                      "replaces": KERNEL_META[kname], "launches": launches[kname], **main,
                      "library": ("torch.segment_reduce" if kname == "sorted_segment_sum"
                                  else "torch.index_select"),
-                     "card": smi, "other_widths": {h: by_h[h] for h in GNN_WIDTHS[:-1]}})
+                     "card": smi, "other_widths": {h: by_h[h] for h in GNN_WIDTHS[:-1]},
+                     "bfloat16": bf16})
     return rows
 
 
@@ -1495,6 +1630,7 @@ def main(argv=None) -> int:
         gnn_meas = phase_gnn_kernels(gnn_models["CompGCN"], a.seed)
         phase_gnn_encode_parity(gnn_models, dataset, a.seed)
         phase_gnn_train_step_parity(dataset, a.seed)
+        phase_gnn_bf16_train(dataset, a.seed)
         gnn_dirs = {m: write_gnn_run(a.seed, g) for m, g in gnn_models.items()}
         del gnn_models
         KS.reset_launches()  # the GNN path starts here

@@ -42,16 +42,16 @@ SIGNATURES = {
     },
     "hyp_rank": {
         "hyp_rank_sweep_masked": [_P] * 11 + [_I] * 5 + [_P],
-        "hyp_rank_sweep_nomask": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "hyp_rank_sweep_nomask": [_P] * 11 + [_I] * 5 + [_P],
         "hyp_rank_filtered_sub": [_P] * 10 + [_I] * 5 + [_F, _P],
         "attrh_rank_sweep_masked": [_P] * 15 + [_I] * 4 + [_P],
-        "attrh_rank_sweep_nomask": [_P] * 13 + [_I] * 3 + [_P],
+        "attrh_rank_sweep_nomask": [_P] * 15 + [_I] * 4 + [_P],
         "attrh_rank_filtered_sub": [_P] * 14 + [_I] * 4 + [_P],
         "hyp_rank_radii": [_P] * 4 + [_I] * 3 + [_F, _P],
-        "hyp_rank_masked_info": [_I, _I] + [_IP] * 4,
+        "hyp_rank_sweep_info": [_I] * 3 + [_IP] * 4,
     },
-    "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64")},
-    "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64")},
+    "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
+    "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
 }
 
 _lock = threading.Lock()

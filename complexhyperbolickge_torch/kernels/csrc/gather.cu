@@ -64,3 +64,10 @@ extern "C" int row_gather_f64(const double* x, const int* ids, double* out,
                               int n_out, int h, cudaStream_t stream) {
   return launch_gather<double>(x, ids, out, n_out, h, stream);
 }
+
+// bf16 rows are copied as bits: 8 to a 16-byte vector where H % 8 == 0.
+extern "C" int row_gather_bf16(const __nv_bfloat16* x, const int* ids,
+                               __nv_bfloat16* out, int n_out, int h,
+                               cudaStream_t stream) {
+  return launch_gather<__nv_bfloat16>(x, ids, out, n_out, h, stream);
+}

@@ -2,10 +2,12 @@
 // row gather (K10, gather.cu) both give each output row a few lanes of a
 // warp (one warp when a row has 32 or more vector columns, several rows a
 // warp below that), and the lanes of a row stride its columns with 16-byte
-// loads and stores (float4 / double2) where H and both pointers allow.
+// loads and stores (float4 / double2 / 8 bf16 as a uint4) where H and both
+// pointers allow.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -25,6 +27,11 @@ template <>
 struct Vec<double> {
   using type = double2;
   static constexpr int width = 2;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  using type = uint4;  // 8 bf16, element 2i in the low half of word i
+  static constexpr int width = 8;
 };
 
 inline bool aligned16(const void* p) {

@@ -19,32 +19,103 @@
 // columns, 4 rows a warp; H = 1: 32 rows a warp).  The lanes of a row
 // stride its columns with 16-byte loads where H and both pointers allow, so
 // a warp reads contiguous row segments; each lane sums its columns over the
-// row's edges in edge order, in fp32 (fp64 for the double instance).  No
-// atomics and no cross-thread reduction, so the result is deterministic,
-// and a row without edges writes 0.  The backward, d_msgs = d_out[dst], is
-// a launch of the row gather (K10, gather.cu).
+// row's edges in edge order, in fp32 (fp64 for the double instance; the
+// bf16 instance loads bf16, 8 to a 16-byte vector, sums in fp32 and rounds
+// once to bf16 on store, half the bytes of f32).  No atomics and no
+// cross-thread reduction, so the result is deterministic, and a row
+// without edges writes 0.  The backward, d_msgs = d_out[dst], is a launch
+// of the row gather (K10, gather.cu).
 
 #include "rows.cuh"
 
 namespace {
 
-__device__ __forceinline__ float vzero(float) { return 0.0f; }
-__device__ __forceinline__ double vzero(double) { return 0.0; }
-__device__ __forceinline__ float4 vzero(float4) {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-__device__ __forceinline__ double2 vzero(double2) {
-  return make_double2(0.0, 0.0);
+// How one column of a row is summed: Acc, the running sum, from a zero,
+// plus each message element, and the stored value.  f32 and f64 (scalars
+// and 16-byte vectors) sum in their own type; bf16 sums in fp32 and rounds
+// once, round to nearest even.
+template <typename V>
+struct Sum;
+
+template <>
+struct Sum<float> {
+  using Acc = float;
+  static __device__ __forceinline__ Acc zero() { return 0.0f; }
+  static __device__ __forceinline__ Acc add(Acc a, float v) { return a + v; }
+  static __device__ __forceinline__ float store(Acc a) { return a; }
+};
+
+template <>
+struct Sum<double> {
+  using Acc = double;
+  static __device__ __forceinline__ Acc zero() { return 0.0; }
+  static __device__ __forceinline__ Acc add(Acc a, double v) { return a + v; }
+  static __device__ __forceinline__ double store(Acc a) { return a; }
+};
+
+template <>
+struct Sum<float4> {
+  using Acc = float4;
+  static __device__ __forceinline__ Acc zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  static __device__ __forceinline__ Acc add(Acc a, float4 v) {
+    return make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+  }
+  static __device__ __forceinline__ float4 store(Acc a) { return a; }
+};
+
+template <>
+struct Sum<double2> {
+  using Acc = double2;
+  static __device__ __forceinline__ Acc zero() { return make_double2(0.0, 0.0); }
+  static __device__ __forceinline__ Acc add(Acc a, double2 v) {
+    return make_double2(a.x + v.x, a.y + v.y);
+  }
+  static __device__ __forceinline__ double2 store(Acc a) { return a; }
+};
+
+// a bf16 is the top half of the float it widens to: exact
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned bf16_pack(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
-__device__ __forceinline__ double vadd(double a, double b) { return a + b; }
-__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-__device__ __forceinline__ double2 vadd(double2 a, double2 b) {
-  return make_double2(a.x + b.x, a.y + b.y);
-}
+template <>
+struct Sum<__nv_bfloat16> {
+  using Acc = float;
+  static __device__ __forceinline__ Acc zero() { return 0.0f; }
+  static __device__ __forceinline__ Acc add(Acc a, __nv_bfloat16 v) {
+    return a + __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(Acc a) { return __float2bfloat16_rn(a); }
+};
+
+template <>
+struct Sum<uint4> {  // 8 bf16
+  struct Acc {
+    float v[8];
+  };
+  static __device__ __forceinline__ Acc zero() {
+    Acc a;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.v[i] = 0.0f;
+    return a;
+  }
+  static __device__ __forceinline__ Acc add(Acc a, uint4 v) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a.v[2 * i] += bf16_lo(w[i]);
+      a.v[2 * i + 1] += bf16_hi(w[i]);
+    }
+    return a;
+  }
+  static __device__ __forceinline__ uint4 store(Acc a) {
+    return make_uint4(bf16_pack(a.v[0], a.v[1]), bf16_pack(a.v[2], a.v[3]),
+                      bf16_pack(a.v[4], a.v[5]), bf16_pack(a.v[6], a.v[7]));
+  }
+};
 
 template <typename V>
 __global__ void __launch_bounds__(rows::kThreads)
@@ -56,9 +127,9 @@ segsum_kernel(const V* __restrict__ msgs, const int* __restrict__ row_ptr,
   const int lo = row_ptr[row];
   const int hi = row_ptr[row + 1];
   for (; c < cols; c += lanes) {
-    V acc = vzero(V());
-    for (int e = lo; e < hi; ++e) acc = vadd(acc, msgs[(size_t)e * cols + c]);
-    out[(size_t)row * cols + c] = acc;
+    typename Sum<V>::Acc acc = Sum<V>::zero();
+    for (int e = lo; e < hi; ++e) acc = Sum<V>::add(acc, msgs[(size_t)e * cols + c]);
+    out[(size_t)row * cols + c] = Sum<V>::store(acc);
   }
 }
 
@@ -90,4 +161,10 @@ extern "C" int segsum_f32(const float* msgs, const int* row_ptr, float* out,
 extern "C" int segsum_f64(const double* msgs, const int* row_ptr, double* out,
                           int n_rows, int h, cudaStream_t stream) {
   return launch_segsum<double>(msgs, row_ptr, out, n_rows, h, stream);
+}
+
+extern "C" int segsum_bf16(const __nv_bfloat16* msgs, const int* row_ptr,
+                           __nv_bfloat16* out, int n_rows, int h,
+                           cudaStream_t stream) {
+  return launch_segsum<__nv_bfloat16>(msgs, row_ptr, out, n_rows, h, stream);
 }

@@ -6,8 +6,9 @@ and returns zero pad columns; this one returns exactly (E, ...) and takes
 any E.
 
   * `row_gather(x, ids)` (no autograd) launches `row_gather_f32` /
-    `row_gather_f64` (csrc/gather.cu) for a CUDA float32 or float64 x and
-    int32 ids; the result is bitwise x[ids].  K9's backward calls it.
+    `row_gather_f64` / `row_gather_bf16` (csrc/gather.cu) for a CUDA
+    float32, float64 or bfloat16 x and int32 ids; the result is bitwise
+    x[ids].  K9's backward calls it.
   * `make_row_gather(ids, num_rows, device)` is the GNN encoder's form for a
     static id vector (its edge gathers x[tail]): a callable `RowGather`,
     differentiable.  Its backward is the scatter-add of d_out into x's rows

@@ -14,27 +14,29 @@ so the only outputs are (B,) int32 counts.  Seven kernels, one wrapper each:
     int8 (B, Np) mask marks filtered entities and pad rows.  `family`
     picks the epilogue: "poincare" (BaseH but AttRH: the double-folded
     expmap0 Poincare distance) or "lorentz" (BaseLorentz: folded
-    expmap0_lorentz and the hyperboloid distance).  It reads the part of
-    each distance that depends on the pair only through (curvature,
-    entity) from a radius table, and each query's curvature as
-    cvals[cid[b]].
-  * hyp_rank_radii: that table, radii (n_c, Np, 4) for poincare or
-    (n_c, Np, 2) for lorentz and attrh, from the curvatures cvals (n_c,)
-    and un; built once per params version by the rankers.
+    expmap0_lorentz and the hyperboloid distance).
   * hyp_rank_sweep_nomask    (K6, TPU hyp_rank_counts_nomask's kernel):
     counts every row except the gold, with no mask.
+  * hyp_rank_radii: the sweeps' radius table, radii (n_c, Np, 4) for
+    poincare or (n_c, Np, 2) for lorentz and attrh, from the curvatures
+    cvals (n_c,) and un: per (curvature, entity) the part of each
+    distance that depends on the pair only through them; built once per
+    params version by the rankers.
   * hyp_rank_filtered_sub    (K6's subtraction): re-scores each query's
     filtered ids with the same arithmetic, for subtraction.
   * attrh_rank_counts, attrh_rank_sweep_nomask, attrh_rank_filtered_sub
     (K7, K8 and K8's subtraction): the same three for AttRH, whose score is
     bt - w0 d(rot)^2 - w1 d(ref)^2 over the two halves of the features,
-    each a single-fold Poincare distance; K7 takes cid, cvals and a radius
-    table as K5 does.
+    each a single-fold Poincare distance.
+The four sweeps are one CUDA kernel template (masked or not): each takes
+each query's curvature as cvals[cid[b]] and reads the radius part from
+the table.  A cid outside [0, n_c) gives a NaN curvature, so its query
+counts 0.
 
 Inputs, all float32 and contiguous.  Per query (B,): x2 = |lhs|^2 (x2r, x2f
-per half for AttRH), c the curvature, t2 the gold-target score minus the
-lhs bias, and w0, w1 AttRH's weights; the masked sweeps take cid (B,)
-int32 in place of c, with cvals (n_c,) and radii.  lhs (B, D).  The table
+per half for AttRH), cid int32 into cvals (n_c,) for the sweeps, c the
+curvature for the subtractions, t2 the gold-target score minus the lhs
+bias, and w0, w1 AttRH's weights.  lhs (B, D).  The table
 rhs (Np, D) with >= 1 zero pad row; un (Np,) = sqrt(max(|v|^2,
 MIN_NORM^2)) (un_rot, un_ref per half for AttRH), built once per params
 version; bt (Np,) tail biases with -1e30 on pad rows.  The pad rows' un is
@@ -44,8 +46,8 @@ Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain PyTorch version beside it,
 which repeats the arithmetic with a matmul (a different summation order, so
 counts may differ on scores within float rounding of t2).  The plain
-masked versions take the same inputs as the kernels, radii included, and
-recompute the radius part inline as the maskless ones do.
+sweeps take the same inputs as the kernels, radii included, and
+recompute the radius part inline.
 """
 
 from __future__ import annotations
@@ -205,16 +207,26 @@ def _filtered_rows(fidx, gold, np_):
     return ok, fidx.long().clamp(0, np_ - 1)
 
 
+def query_curvature(cid, cvals):
+    """c (B,) = cvals[cid], NaN where cid lies outside [0, n_c): the
+    curvature the sweeps take for each query."""
+    ok = (cid >= 0) & (cid < cvals.shape[0])
+    c = cvals[cid.long().clamp(0, cvals.shape[0] - 1)]
+    return torch.where(ok, c, torch.full_like(c, float("nan")))
+
+
 def hyp_rank_counts_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
                           family="poincare"):
     """K5's plain version: the curvature cvals[cid], the radius part
     recomputed inline (radii is the kernel's copy of it)."""
-    scores = hyp_scores_plain(lhs, x2, cvals[cid.long()], rhs, un, bt, family)
+    scores = hyp_scores_plain(lhs, x2, query_curvature(cid, cvals), rhs, un, bt, family)
     return _count(scores, t2, mask == 0)
 
 
-def hyp_rank_sweep_nomask_plain(lhs, x2, c, t2, rhs, un, bt, gold, family="poincare"):
-    scores = hyp_scores_plain(lhs, x2, c, rhs, un, bt, family)
+def hyp_rank_sweep_nomask_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
+                                family="poincare"):
+    """K6's plain version, as hyp_rank_counts_plain."""
+    scores = hyp_scores_plain(lhs, x2, query_curvature(cid, cvals), rhs, un, bt, family)
     return _count(scores, t2, _not_gold(rhs.shape[0], gold))
 
 
@@ -240,14 +252,16 @@ def attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt):
 def attrh_rank_counts_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
                             radii, mask):
     """K7's plain version, as hyp_rank_counts_plain."""
-    scores = attrh_scores_plain(lhs, x2r, x2f, cvals[cid.long()], w0, w1, rhs, un_rot, un_ref,
-                                bt)
+    scores = attrh_scores_plain(lhs, x2r, x2f, query_curvature(cid, cvals), w0, w1, rhs,
+                                un_rot, un_ref, bt)
     return _count(scores, t2, mask == 0)
 
 
-def attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
-                                  bt, gold):
-    scores = attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt)
+def attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref,
+                                  bt, radii, gold):
+    """K8's plain version, as hyp_rank_counts_plain."""
+    scores = attrh_scores_plain(lhs, x2r, x2f, query_curvature(cid, cvals), w0, w1, rhs,
+                                un_rot, un_ref, bt)
     return _count(scores, t2, _not_gold(rhs.shape[0], gold))
 
 
@@ -306,23 +320,22 @@ def _family(family: str) -> int:
 
 
 def _check_aligned(**tensors):
-    """The masked sweeps copy the per-row vectors and the radius table with
-    16-byte cp.async: each must start on a 16-byte boundary."""
+    """The sweeps copy the per-row vectors and read the radius table with
+    16-byte loads: each must start on a 16-byte boundary."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_masked(b, np_, cid, cvals, radii, mask, family, device):
-    """cid int32 (B,), cvals float32 (n_c,), radii float32 (n_c, Np, W),
-    mask int8 (B, Np); returns n_c."""
+def _check_sweep(b, np_, cid, cvals, radii, family, device):
+    """cid int32 (B,), cvals float32 (n_c,), radii float32 (n_c, Np, W);
+    returns n_c."""
     if cvals.dim() != 1 or cvals.shape[0] < 1:
         raise ValueError("cvals must be (n_c,) with n_c >= 1")
     n_c = cvals.shape[0]
     _check("cid", cid, torch.int32, (b,), device)
     _check("cvals", cvals, torch.float32, (n_c,), device)
     _check("radii", radii, torch.float32, (n_c, np_, RADII_WIDTH[family]), device)
-    _check("mask", mask, torch.int8, (b, np_), device)
     return n_c
 
 
@@ -331,14 +344,14 @@ def hyp_rank_counts(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
     """K5: #{j : mask[b, j] == 0 and score(b, j) >= t2[b]} per query, int32
     (B,), at the curvature cvals[cid[b]].  mask is int8 (B, Np), 1 =
     filtered out (and on pad rows); radii = hyp_rank_radii(cvals, un,
-    family).  On the card a cid outside [0, n_c) counts 0; the plain
-    version raises on it."""
+    family)."""
     if lhs.device.type == "cpu":
         return hyp_rank_counts_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
                                      family)
     fam = _family(family)
     b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
-    n_c = _check_masked(b, np_, cid, cvals, radii, mask, family, lhs.device)
+    n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
+    _check("mask", mask, torch.int8, (b, np_), lhs.device)
     _check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("hyp_rank_sweep_masked", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
@@ -347,9 +360,9 @@ def hyp_rank_counts(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
 
 
 def hyp_rank_radii(cvals, un, family: str, un2=None):
-    """The masked sweeps' radius table (hyp_rank_radii_plain), float32
-    (n_c, Np, 4) for poincare, (n_c, Np, 2) for lorentz and attrh (un =
-    un_rot, un2 = un_ref)."""
+    """The sweeps' radius table (hyp_rank_radii_plain), float32 (n_c, Np,
+    4) for poincare, (n_c, Np, 2) for lorentz and attrh (un = un_rot, un2 =
+    un_ref)."""
     if cvals.device.type == "cpu":
         return hyp_rank_radii_plain(cvals, un, family, un2)
     try:
@@ -372,10 +385,10 @@ def hyp_rank_radii(cvals, un, family: str, un2=None):
     return out
 
 
-def masked_sweep_info(family: str, device, d: int) -> dict:
+def sweep_info(family: str, device, d: int, masked: bool = True) -> dict:
     """Registers and local (spill) bytes a thread, shared bytes a block and
-    resident blocks per SM of the masked sweep of `family` ("poincare",
-    "lorentz" or "attrh") at feature width d on `device`, as the CUDA
+    resident blocks per SM of the sweep of `family` ("poincare", "lorentz"
+    or "attrh"), masked or not, at feature width d on `device`, as the CUDA
     runtime reports them."""
     import ctypes
 
@@ -383,33 +396,38 @@ def masked_sweep_info(family: str, device, d: int) -> dict:
 
     vals = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device):
-        rc = load_library("hyp_rank").hyp_rank_masked_info(
-            RADII_FAMILIES[family], d, *[ctypes.byref(v) for v in vals])
+        rc = load_library("hyp_rank").hyp_rank_sweep_info(
+            RADII_FAMILIES[family], int(masked), d, *[ctypes.byref(v) for v in vals])
     if rc != 0:
-        raise RuntimeError(f"hyp_rank_masked_info failed: cudaError {rc}")
+        raise RuntimeError(f"hyp_rank_sweep_info failed: cudaError {rc}")
     return dict(zip(("regs_per_thread", "local_bytes", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
 
 
-def hyp_rank_sweep_nomask(lhs, x2, c, t2, rhs, un, bt, gold, family: str = "poincare"):
+def hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
+                          family: str = "poincare"):
     """K6 sweep: #{j != gold[b] : score(b, j) >= t2[b]} per query, int32
-    (B,).  gold is int32 (B,), a row of this table or -1."""
+    (B,), at the curvature cvals[cid[b]].  gold is int32 (B,), a row of
+    this table or -1; radii as hyp_rank_counts takes it."""
     if lhs.device.type == "cpu":
-        return hyp_rank_sweep_nomask_plain(lhs, x2, c, t2, rhs, un, bt, gold, family)
+        return hyp_rank_sweep_nomask_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
+                                           family)
     fam = _family(family)
-    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt))
+    b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
+    n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
     _check("gold", gold, torch.int32, (b,), lhs.device)
+    _check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
-    _launch("hyp_rank_sweep_nomask", lhs.device, lhs, x2, c, t2, rhs, un, bt, gold,
-            counts, b, np_, d, fam, ONE_MINUS_EPS)
+    _launch("hyp_rank_sweep_nomask", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
+            gold, counts, b, np_, d, n_c, fam)
     return counts
 
 
 def hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
                           family: str = "poincare"):
     """K6 subtraction: #{l : fidx[b, l] in [0, Np), != gold[b], score >=
-    t2[b]} per query, int32 (B,).  fidx is int32 (B, L), rows deduplicated
-    (data/dataset.py::eval_pack)."""
+    t2[b]} per query, int32 (B,), at the curvature c[b].  fidx is int32
+    (B, L), rows deduplicated (data/dataset.py::eval_pack)."""
     if lhs.device.type == "cpu":
         return hyp_rank_filtered_sub_plain(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
                                            family)
@@ -422,13 +440,15 @@ def hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
     return sub
 
 
-def hyp_rank_counts_nomask(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
+def hyp_rank_counts_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, fidx, gold,
                            family: str = "poincare"):
     """K6: #{non-filtered, non-gold j : score >= t2} without a (B, Np) mask:
     the sweep counts every non-gold row and the filtered ids it counted are
-    subtracted.  Both kernels share one score routine, so a filtered id is
-    subtracted exactly when the sweep counted it."""
-    return (hyp_rank_sweep_nomask(lhs, x2, c, t2, rhs, un, bt, gold, family)
+    subtracted, at c = query_curvature(cid, cvals).  Both kernels share one
+    score routine and the table holds the inline radius part bit for bit,
+    so a filtered id is subtracted exactly when the sweep counted it."""
+    c = query_curvature(cid, cvals)
+    return (hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold, family)
             - hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold, family))
 
 
@@ -447,7 +467,8 @@ def attrh_rank_counts(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref
         return attrh_rank_counts_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot,
                                        un_ref, bt, radii, mask)
     b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
-    n_c = _check_masked(b, np_, cid, cvals, radii, mask, "attrh", lhs.device)
+    n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
+    _check("mask", mask, torch.int8, (b, np_), lhs.device)
     _check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("attrh_rank_sweep_masked", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
@@ -455,16 +476,19 @@ def attrh_rank_counts(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref
     return counts
 
 
-def attrh_rank_sweep_nomask(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt, gold):
+def attrh_rank_sweep_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
+                            radii, gold):
     """K8 sweep, as hyp_rank_sweep_nomask."""
     if lhs.device.type == "cpu":
-        return attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot,
-                                             un_ref, bt, gold)
-    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+        return attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
+                                             un_rot, un_ref, bt, radii, gold)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+    n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
     _check("gold", gold, torch.int32, (b,), lhs.device)
+    _check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
-    _launch("attrh_rank_sweep_nomask", lhs.device, lhs, x2r, x2f, c, w0, w1, t2, rhs,
-            un_rot, un_ref, bt, gold, counts, b, np_, d)
+    _launch("attrh_rank_sweep_nomask", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
+            un_rot, un_ref, bt, radii, gold, counts, b, np_, d, n_c)
     return counts
 
 
@@ -482,11 +506,15 @@ def attrh_rank_filtered_sub(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, b
     return sub
 
 
-def attrh_rank_counts_nomask(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt,
-                             fidx, gold):
-    """K8: the AttRH sweep minus its filtered subtraction."""
-    args = (lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt)
-    return attrh_rank_sweep_nomask(*args, gold) - attrh_rank_filtered_sub(*args, fidx, gold)
+def attrh_rank_counts_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
+                             radii, fidx, gold):
+    """K8: the AttRH sweep minus its filtered subtraction, as
+    hyp_rank_counts_nomask."""
+    c = query_curvature(cid, cvals)
+    sweep = attrh_rank_sweep_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref,
+                                    bt, radii, gold)
+    return sweep - attrh_rank_filtered_sub(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
+                                           bt, fidx, gold)
 
 
 # ---------------------------------- rankers -----------------------------------
@@ -526,9 +554,10 @@ class HypRanker(FusedRanker):
     family; the counterpart of the JAX PallasHypRanker (interface:
     kernels/_ranker.py).  masked=True streams an int8 (B, Np) mask through
     K5; masked=False runs K6 (sweep + filtered subtraction) with no mask.
-    The tables hold the curvatures cvals and K5's radius table, rebuilt when
-    the entities, biases or curvatures change; a query's curvature is
-    cvals[cid] for K5 and K6 alike."""
+    The tables hold the curvatures cvals and the sweeps' radius table,
+    rebuilt when the entities, biases or curvatures change; a query's
+    curvature is cvals[cid] for K5 and K6 alike, and c = cvals[cid] for
+    the subtraction."""
 
     TABLES = ("rhs", "un", "bt", "cvals", "radii")
     QUERIES = ("lhs", "x2", "cid", "c", "t2")
@@ -571,8 +600,12 @@ class HypRanker(FusedRanker):
             return hyp_rank_counts(*(x[k] for k in ("lhs", "x2", "cid", "cvals", "t2", "rhs",
                                                     "un", "bt", "radii", "mask")),
                                    family=self.family)
-        base = (x["lhs"], x["x2"], x["c"], x["t2"], x["rhs"], x["un"], x["bt"])
-        return hyp_rank_counts_nomask(*base, x["fidx"], x["gold"], family=self.family)
+        # K6 with the batch's c = cvals[cid], which the queries already hold
+        sweep = hyp_rank_sweep_nomask(*(x[k] for k in (
+            "lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii", "gold")),
+            family=self.family)
+        return sweep - hyp_rank_filtered_sub(*(x[k] for k in (
+            "lhs", "x2", "c", "t2", "rhs", "un", "bt", "fidx", "gold")), family=self.family)
 
 
 class AttRHRanker(FusedRanker):
@@ -621,6 +654,10 @@ class AttRHRanker(FusedRanker):
             return attrh_rank_counts(*(x[k] for k in (
                 "lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot",
                 "un_ref", "bt", "radii", "mask")))
-        base = tuple(x[k] for k in ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs",
-                                    "un_rot", "un_ref", "bt"))
-        return attrh_rank_counts_nomask(*base, x["fidx"], x["gold"])
+        # K8 with the batch's c = cvals[cid], which the queries already hold
+        sweep = attrh_rank_sweep_nomask(*(x[k] for k in (
+            "lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot", "un_ref",
+            "bt", "radii", "gold")))
+        return sweep - attrh_rank_filtered_sub(*(x[k] for k in (
+            "lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref", "bt", "fidx",
+            "gold")))

@@ -7,18 +7,19 @@ such an index `make_sorted_segment_sum` builds, once, the CSR offsets
 row_ptr (N + 1) of the sorted dst, and returns a callable
 `SortedSegmentSum`: msgs (E, ...) -> (N, ...), differentiable.
 
-  * forward: `sorted_segment_sum` launches `segsum_f32` / `segsum_f64`
-    (csrc/segsum.cu) for a CUDA float32 or float64 tensor: one warp per
-    node row, the row's edges summed in edge order, no atomics, so the
+  * forward: `sorted_segment_sum` launches `segsum_f32` / `segsum_f64` /
+    `segsum_bf16` (csrc/segsum.cu) for a CUDA float32, float64 or bfloat16
+    tensor: one warp per node row, the row's edges summed in edge order
+    (bfloat16 in float32, rounded once on store), no atomics, so the
     result is deterministic; a node without edges gets 0.
   * backward: d_msgs = d_out[dst], a launch of the row gather K10
     (kernels/gather.py::row_gather).
 
 For a CPU tensor both passes run the plain PyTorch versions,
-`sorted_segment_sum_plain` (index_add_ into zeros) and
-`gather.row_gather_plain`, which sum in another order (within rounding of
-the kernel).  A CUDA tensor of another dtype raises.  Each launch is
-counted in `launches`.
+`sorted_segment_sum_plain` (index_add_ into zeros; bfloat16 into float32
+zeros, rounded once) and `gather.row_gather_plain`, which sum in another
+order (within rounding of the kernel).  A CUDA tensor of another dtype
+raises.  Each launch is counted in `launches`.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from complexhyperbolickge_torch.kernels._build import check_tensor, launch
 launches = {"sorted_segment_sum": 0}
 
 # the instantiations of csrc/segsum.cu and csrc/gather.cu
-KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 
 def reset_launches():
@@ -45,8 +46,7 @@ def check_kernel_dtype(name: str, t: torch.Tensor):
     if t.dtype not in KERNEL_DTYPES:
         raise TypeError(
             f"{name} has dtype {t.dtype}: the GNN kernels K9/K10 are built for "
-            "float32 and float64 only (a bfloat16 form is not in ROADMAP.md "
-            "yet); run the GNN in float32 or float64")
+            "float32, float64 and bfloat16")
 
 
 class SortedSegmentSum:
@@ -81,9 +81,11 @@ def make_sorted_segment_sum(dst_sorted, num_segments: int, device) -> SortedSegm
 
 
 def sorted_segment_sum_plain(msgs, seg: SortedSegmentSum):
-    """out[n] = sum of msgs[e] over dst[e] = n, by index_add_ into zeros."""
-    out = msgs.new_zeros((seg.num_segments, *msgs.shape[1:]))
-    return out.index_add_(0, seg.dst, msgs)
+    """out[n] = sum of msgs[e] over dst[e] = n, by index_add_ into zeros; a
+    bfloat16 sum is taken in float32 and rounded once, as the kernel does."""
+    acc = msgs.float() if msgs.dtype == torch.bfloat16 else msgs
+    out = acc.new_zeros((seg.num_segments, *msgs.shape[1:]))
+    return out.index_add_(0, seg.dst, acc).to(msgs.dtype)
 
 
 # --------------------------------- wrapper ------------------------------------

@@ -9,7 +9,9 @@ optimizer.
 Optimizers (torch.optim, the reference's own): Adam (betas 0.9/0.999, eps
 1e-8), Adagrad (initial accumulator 0, eps 1e-10; the rule the JAX package
 re-implemented to match torch) and SGD.  SparseAdam is ROADMAP Queue 1
-item 10.
+item 10.  For bfloat16 params the optimizer keeps its state and update
+arithmetic in float32 and adds the update, cast to bfloat16, to the param,
+as the JAX trainer's _f32_state_for_bf16 does (F32StateForBF16).
 
 Gradient accumulation (`update_steps`): gradients are summed over k batches
 (.backward() accumulates by sum) and applied on every k-th batch and on the
@@ -61,8 +63,58 @@ class TrainConfig:
     scan_unroll: int = 1  # the JAX epoch scan's unroll; no meaning here
 
 
-def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
-    params = list(params)
+class F32StateForBF16:
+    """A torch.optim optimizer whose bfloat16 params are stepped through
+    float32 copies: the state (exp_avg, exp_avg_sq, sum) and the update
+    arithmetic are float32, and each step adds the float32 update, cast to
+    bfloat16, to the bfloat16 param; optax's apply_updates after the JAX
+    trainer's _f32_state_for_bf16.  Params of other dtypes are the inner
+    optimizer's own.  Only five members exist, what the port uses of an
+    optimizer: param_groups (the inner optimizer's, so reduce_lr reaches
+    it), state_dict / load_state_dict (the float32 state), step and
+    zero_grad.  It is not a torch.optim.Optimizer: no .state,
+    add_param_group or hooks, so code that needs those (an LR scheduler)
+    takes .inner, whose params are the float32 copies."""
+
+    def __init__(self, make, params):
+        self.params = params
+        self.shadow = {i: p.detach().float() for i, p in enumerate(params)
+                       if p.dtype == torch.bfloat16}
+        self.inner = make([self.shadow.get(i, p) for i, p in enumerate(params)])
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, sd):
+        self.inner.load_state_dict(sd)
+
+    @torch.no_grad()
+    def step(self):
+        for i, s in self.shadow.items():
+            p = self.params[i]
+            s.copy_(p)  # exact: every bfloat16 is a float32
+            s.grad = None if p.grad is None else p.grad.float()
+        self.inner.step()
+        for i, s in self.shadow.items():
+            p = self.params[i]
+            if p.grad is not None:  # (p + u) - p in float32 is u to float32 rounding
+                p.add_((s - p.float()).to(p.dtype))
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.inner.zero_grad(set_to_none=set_to_none)
+        for i in self.shadow:
+            p = self.params[i]
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+
+def _torch_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
     if name == "Adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if name == "Adagrad":
@@ -74,6 +126,15 @@ def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
         raise NotImplementedError("SparseAdam has no PyTorch port yet "
                                   "(ROADMAP.md Queue 1 item 10); use Adam")
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+def make_optimizer(name: str, lr: float, params):
+    """The torch.optim optimizer `name` over params; with bfloat16 params,
+    wrapped in F32StateForBF16."""
+    params = list(params)
+    if any(p.dtype == torch.bfloat16 for p in params):
+        return F32StateForBF16(lambda ps: _torch_optimizer(name, lr, ps), params)
+    return _torch_optimizer(name, lr, params)
 
 
 def reduce_lr(optimizer: torch.optim.Optimizer, factor: float = 0.8):

@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
-"""Times the hyp_rank kernels of the PyTorch/CUDA port (K5-K8 and the radius
-launcher) on one NVIDIA GPU at the WN18RR eval shape: B = 500 queries, a
-40,943-entity table padded to Np = 40,960 rows, D = 32, 22 curvatures
-(multi_c), 5 filtered ids a query.  Inputs are drawn from --seed at the
-scales of chip_smoke.py's planted runs (entity ~ N(0, 0.05), bt ~ N(0,
-0.01)); thresholds are each query's gold score.
+"""Times the hyp_rank kernels of the PyTorch/CUDA port (the sweeps K5-K8 and
+the radius launcher) and the fused rankers on one NVIDIA GPU, at two eval
+shapes (B = 500 queries, D = 32, 5 filtered ids a query):
 
-    python3 scripts/torch_hyp_rank_bench.py [--seed 0] [--reps 50]
+  wn18rr    40,943 entities padded to Np = 40,960 rows, 22 curvatures
+            (11 relations with inverses, multi_c): a 14 MB Poincare table;
+  yago3-10  123,182 entities padded to Np = 123,264, 74 curvatures (37
+            relations with inverses): a 146 MB Poincare table, larger than
+            the card's 50 MB L2; the size at which the JAX package's `auto`
+            backend takes the maskless kernel (100,000 entities or more).
 
-Prints one JSON line per family: registers and resident blocks of the
-masked sweep, the masked count against the maskless one (must be equal)
-and the plain one (within the near-threshold count), and device times
-(CUDA events, interleaved masked, maskless, maskless, masked), then the
-card's name and power limit.
+Inputs are drawn from --seed at the scales of chip_smoke.py's planted runs
+(entity ~ N(0, 0.05), bt ~ N(0, 0.01)); thresholds are each query's gold
+score.
+
+    python3 scripts/torch_hyp_rank_bench.py [--shape wn18rr yago3-10] [--seed 0] [--reps 50]
+
+Prints one JSON line per shape and family: the sweeps' op bound (as
+chip_smoke.py's kernels line counts it), registers and resident blocks of
+the masked and the maskless sweep, the masked count against the maskless
+one (must be equal) and against the plain version (within the
+near-threshold count), device times (CUDA events; interleaved masked,
+maskless, maskless, masked), the radius launcher's time, and the fused
+ranker's busy time per call on the card (torch.profiler, 5 calls, masked
+and maskless) for RotH, RotLH and AttRH models of the shape's size; then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -23,9 +35,13 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
-B, N, NP, D, L, N_C = 500, 40_943, 40_960, 32, 5, 22
+B, D, L = 500, 32, 5
+# shape -> (entities, padded rows, curvatures)
+SHAPES = {"wn18rr": (40_943, 40_960, 22), "yago3-10": (123_182, 123_264, 74)}
+MODELS = {"poincare": "RotH", "lorentz": "RotLH", "attrh": "AttRH"}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -44,24 +60,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def inputs(kind: str, seed: int):
+def inputs(kind: str, shape: str, seed: int):
     import numpy as np
     import torch
 
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
+    n, np_, n_c = SHAPES[shape]
     rng = np.random.default_rng(seed)
     dev = "cuda"
     f32 = torch.float32
-    rhs = torch.zeros((NP, D), dtype=f32)
-    rhs[:N] = torch.as_tensor(rng.normal(0, 0.05, (N, D)), dtype=f32)
-    bt = torch.full((NP,), -1e30, dtype=f32)
-    bt[:N] = torch.as_tensor(rng.normal(0, 0.01, N), dtype=f32)
+    rhs = torch.zeros((np_, D), dtype=f32)
+    rhs[:n] = torch.as_tensor(rng.normal(0, 0.05, (n, D)), dtype=f32)
+    bt = torch.full((np_,), -1e30, dtype=f32)
+    bt[:n] = torch.as_tensor(rng.normal(0, 0.01, n), dtype=f32)
     lhs = torch.as_tensor(rng.normal(0, 0.1, (B, D)), dtype=f32)
-    cvals = torch.as_tensor(np.log1p(np.exp(rng.normal(1.0, 0.05, N_C))), dtype=f32)
-    cid = torch.as_tensor(rng.integers(0, N_C, B), dtype=torch.int32)
+    cvals = torch.as_tensor(np.log1p(np.exp(rng.normal(1.0, 0.05, n_c))), dtype=f32)
+    cid = torch.as_tensor(rng.integers(0, n_c, B), dtype=torch.int32)
     # distinct filter ids a row (as eval_pack deduplicates them), the gold first
-    fidx = torch.as_tensor(np.stack([rng.choice(N, L, replace=False) for _ in range(B)]))
+    fidx = torch.as_tensor(np.stack([rng.choice(n, L, replace=False) for _ in range(B)]))
     gold = fidx[:, 0].clone()
     t = {k: v.to(dev) for k, v in dict(lhs=lhs, rhs=rhs, bt=bt, cvals=cvals, cid=cid).items()}
     t["c"] = t["cvals"][t["cid"].long()]
@@ -85,74 +102,102 @@ def inputs(kind: str, seed: int):
     t["t2"] = scores[torch.arange(B, device=dev), gold.to(dev)].contiguous()
     t["near"] = ((scores - t["t2"][:, None]).abs()
                  <= (1e-5 * (1 + t["t2"].abs()))[:, None]).sum(1)
-    mask = torch.zeros((B, NP), dtype=torch.int8, device=dev)
-    mask[:, N:] = 1
+    del scores
+    mask = torch.zeros((B, np_), dtype=torch.int8, device=dev)
+    mask[:, n:] = 1
     mask.scatter_(1, fidx.to(dev), 1)
     t.update(mask=mask, fidx=fidx.to(dev, torch.int32), gold=gold.to(dev, torch.int32))
     return t
 
 
-def bench(kind: str, seed: int, reps: int) -> dict:
-    import torch
-
+def kernels(kind: str, t: dict):
+    """(masked, maskless sweep, maskless count, plain masked count, radius
+    launcher), each a function of no arguments."""
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
-    t = inputs(kind, seed)
     if kind == "attrh":
-        masked_args = [t[k] for k in ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2",
-                                      "rhs", "un_rot", "un_ref", "bt", "radii", "mask")]
-        base = [t[k] for k in ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot",
-                               "un_ref", "bt")]
+        pre = [t[k] for k in ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs",
+                              "un_rot", "un_ref", "bt", "radii")]
+        return (lambda: H.attrh_rank_counts(*pre, t["mask"]),
+                lambda: H.attrh_rank_sweep_nomask(*pre, t["gold"]),
+                lambda: H.attrh_rank_counts_nomask(*pre, t["fidx"], t["gold"]),
+                lambda: H.attrh_rank_counts_plain(*pre, t["mask"]),
+                lambda: H.hyp_rank_radii(t["cvals"], t["un_rot"], "attrh", t["un_ref"]))
+    pre = [t[k] for k in ("lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii")]
+    return (lambda: H.hyp_rank_counts(*pre, t["mask"], family=kind),
+            lambda: H.hyp_rank_sweep_nomask(*pre, t["gold"], family=kind),
+            lambda: H.hyp_rank_counts_nomask(*pre, t["fidx"], t["gold"], family=kind),
+            lambda: H.hyp_rank_counts_plain(*pre, t["mask"], family=kind),
+            lambda: H.hyp_rank_radii(t["cvals"], t["un"], kind))
 
-        def masked():
-            return H.attrh_rank_counts(*masked_args)
 
-        def sweep():
-            return H.attrh_rank_sweep_nomask(*base, t["gold"])
+def bench(kind: str, shape: str, seed: int, reps: int) -> dict:
+    import torch
 
-        def maskless():
-            return H.attrh_rank_counts_nomask(*base, t["fidx"], t["gold"])
+    import chip_smoke as S
+    from complexhyperbolickge_torch.kernels import hyp_rank as H
 
-        def plain():
-            return H.attrh_rank_counts_plain(*masked_args)
-
-        def radii():
-            return H.hyp_rank_radii(t["cvals"], t["un_rot"], "attrh", t["un_ref"])
-    else:
-        masked_args = [t[k] for k in ("lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt",
-                                      "radii", "mask")]
-        base = [t[k] for k in ("lhs", "x2", "c", "t2", "rhs", "un", "bt")]
-
-        def masked():
-            return H.hyp_rank_counts(*masked_args, family=kind)
-
-        def sweep():
-            return H.hyp_rank_sweep_nomask(*base, t["gold"], family=kind)
-
-        def maskless():
-            return H.hyp_rank_counts_nomask(*base, t["fidx"], t["gold"], family=kind)
-
-        def plain():
-            return H.hyp_rank_counts_plain(*masked_args, family=kind)
-
-        def radii():
-            return H.hyp_rank_radii(t["cvals"], t["un"], kind)
-
-    got, want, ref = masked(), maskless(), plain()
+    t = inputs(kind, shape, seed)
+    masked, sweep, maskless, plain, radii = kernels(kind, t)
+    got, nomask, ref = masked(), maskless(), plain()
     torch.cuda.synchronize()
-    times = {"masked": [], "maskless_sweep": []}
+    times = {}
     for name in ("masked", "maskless_sweep", "maskless_sweep", "masked"):
-        times[name].append(cuda_ms(masked if name == "masked" else sweep, reps))
-    return {"family": kind,
-            **H.masked_sweep_info(kind, torch.device("cuda"), D),
-            "masked_equals_maskless": bool(torch.equal(got, want)),
+        times.setdefault(name, []).append(cuda_ms(masked if name == "masked" else sweep, reps))
+    info = {"masked" if m else "maskless": H.sweep_info(kind, torch.device("cuda"), D, masked=m)
+            for m in (True, False)}
+    # the sweeps' op bound as chip_smoke.py's kernels line counts it: per
+    # pair the contraction's 2 D operations and the epilogue's (counted as
+    # if the radius part were computed per pair)
+    f32_peak = S.peak_rates(torch.cuda.get_device_name(0))[0]
+    np_ = int(t["rhs"].shape[0])
+    return {"shape": shape, "family": kind, "Np": np_,
+            "n_curvatures": int(t["cvals"].shape[0]),
+            "bound_ms": B * np_ * (2 * D + S.EPILOGUE_OPS[kind]) / f32_peak * 1e3,
+            "table_mb": t["radii"].numel() * 4 / 1e6, "sweeps": info,
+            "masked_equals_maskless": torch.equal(got, nomask),
             "max_abs_err_vs_plain": int((got - ref).abs().max()),
             "within_near_threshold": bool(((got - ref).abs() <= t["near"]).all()),
             "ms": times, "radii_ms": cuda_ms(radii, reps)}
 
 
+def ranker_busy(kind: str, shape: str, seed: int) -> dict:
+    """The fused ranker's busy time on the card per call of B queries
+    (masked and maskless), for a model of the shape's size with weights
+    drawn from the seed."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as S
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+    from complexhyperbolickge_torch.models import ModelConfig, get_model
+
+    n, _, n_c = SHAPES[shape]
+    name = MODELS[kind]
+    cfg = ModelConfig(n_entities=n, n_relations=n_c, rank=D, bias="learn", multi_c=True,
+                      dtype="float32")
+    model = get_model(name)(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        model.entity.copy_(torch.as_tensor(rng.normal(0, 0.05, (n, D)), dtype=torch.float32))
+    q = torch.as_tensor(np.stack([rng.integers(0, n, B), rng.integers(0, n_c, B),
+                                  rng.integers(0, n, B)], 1), device="cuda")
+    f = torch.as_tensor(np.concatenate([q[:, 2:].cpu().numpy(),
+                                        rng.integers(0, n, (B, L - 1))], 1), device="cuda")
+    out = {"model": name}
+    for masked in (True, False):
+        ranker = (AttRHRanker if kind == "attrh" else HypRanker)(model, masked=masked)
+        ranker(q, f)  # tables and warm-up
+        prof = S.profile_window(lambda: [ranker(q, f) for _ in range(5)])
+        out["masked" if masked else "maskless"] = {
+            "device_busy_ms_per_call": prof["device_busy_ms"] / 5,
+            "kernels_per_call": prof["device_kernels"] / 5}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--shape", nargs="+", choices=sorted(SHAPES), default=["wn18rr"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=50)
     a = p.parse_args(argv)
@@ -166,10 +211,13 @@ def main(argv=None) -> int:
     print(json.dumps({"ptxas": [ln.strip() for ln in _build.build_logs.get("hyp_rank", "")
                                 .splitlines() if "registers" in ln or "spill" in ln]}))
     ok = True
-    for kind in ("poincare", "lorentz", "attrh"):
-        row = bench(kind, a.seed, a.reps)
-        print(json.dumps(row), flush=True)
-        ok &= row["masked_equals_maskless"] and row["within_near_threshold"]
+    for shape in a.shape:
+        for kind in ("poincare", "lorentz", "attrh"):
+            row = bench(kind, shape, a.seed, a.reps)
+            row["ranker"] = ranker_busy(kind, shape, a.seed)
+            print(json.dumps(row), flush=True)
+            ok &= row["masked_equals_maskless"] and row["within_near_threshold"]
+            torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0 if ok else 1

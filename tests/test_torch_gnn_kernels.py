@@ -45,6 +45,37 @@ def test_segsum_plain_matches_the_pallas_kernel(e, n, h, tn, te):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("e,n,h,tn,te", [(1000, 300, 40, 64, 128), (5000, 777, 200, 256, 512)])
+def test_segsum_plain_bf16_is_the_pallas_kernel_rounded_once(e, n, h, tn, te):
+    """bfloat16 messages: the plain version sums in float32 and rounds once,
+    what the JAX kernel's float32 output gives cast to bfloat16 (within one
+    bfloat16 ulp, 2^-7 relative: the two sum in other orders); its gradient
+    (a gather) and K10's closure backward over bfloat16 (a float32 sum
+    rounded once) likewise."""
+    rng = np.random.default_rng(2)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    msgs = torch.as_tensor(rng.normal(size=(e, h)), dtype=torch.bfloat16)
+    want = jax_segsum(dst, n, tn=tn, te=te, interpret=True)(jnp.asarray(msgs.float().numpy()))
+    m = msgs.clone().requires_grad_()
+    got = S.make_sorted_segment_sum(dst, n, "cpu")(m)
+    assert got.shape == (n, h) and got.dtype == torch.bfloat16
+    want_bf16 = torch.as_tensor(np.asarray(want)).to(torch.bfloat16).float()
+    torch.testing.assert_close(got.float(), want_bf16, rtol=2 ** -7, atol=1e-6)
+    g = torch.as_tensor(rng.normal(size=(n, h)), dtype=torch.bfloat16)
+    (got * g).sum().backward()
+    assert m.grad.dtype == torch.bfloat16 and torch.equal(m.grad, g[torch.as_tensor(dst).long()])
+    ids = rng.integers(0, n, e)
+    x = torch.as_tensor(rng.normal(size=(n, h)), dtype=torch.bfloat16).requires_grad_()
+    gx = torch.as_tensor(rng.normal(size=(e, h)), dtype=torch.bfloat16)
+    out = G.make_row_gather(ids, n, "cpu")(x)
+    assert torch.equal(out, x.detach()[torch.as_tensor(ids)])
+    (out * gx).sum().backward()
+    wide = torch.zeros((n, h)).index_add_(0, torch.as_tensor(ids), gx.float())
+    assert x.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(x.grad.float(), wide.to(torch.bfloat16).float(),
+                               rtol=2 ** -7, atol=1e-6)
+
+
 def test_segsum_gradient_matches_jax():
     rng = np.random.default_rng(1)
     e, n, h = 700, 90, 32

@@ -104,35 +104,38 @@ def _args(kind, t):
     return [t["lhs"], *(t[k] for k in PER_QUERY[g]), t["rhs"], *(t[k] for k in PER_ROW[g])]
 
 
-def _masked(kind):
-    """The masked wrapper called with the maskless ones' inputs (c in place
-    of cid, cvals and radii): each query its own curvature, cid = arange(B),
-    cvals = c, the radius table from its plain version."""
+def _tabled(kind, fn, cid=None):
+    """A sweep wrapper (K5-K8, or the maskless count) or its plain version,
+    called with the subtractions' inputs (c in place of cid, cvals and
+    radii) and then its own extra inputs: by default each query its own
+    curvature, cid = arange(B), cvals = c, the radius table from its plain
+    version."""
+    fam = {} if kind == "attrh" else dict(family=kind)
+
     def call(lhs, *rest):
-        *base, mask = rest
         if kind == "attrh":
-            x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt = base
+            (x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt), extra = rest[:10], rest[10:]
             radii = K.hyp_rank_radii_plain(c, un_rot, "attrh", un_ref)
-            pre, post = (x2r, x2f), (w0, w1, t2, rhs, un_rot, un_ref, bt, radii, mask)
-            fn = K.attrh_rank_counts
+            pre, post = (x2r, x2f), (w0, w1, t2, rhs, un_rot, un_ref, bt, radii)
         else:
-            x2, c, t2, rhs, un, bt = base
+            (x2, c, t2, rhs, un, bt), extra = rest[:6], rest[6:]
             radii = K.hyp_rank_radii_plain(c, un, kind)
-            pre, post = (x2,), (t2, rhs, un, bt, radii, mask)
-            fn = lambda *a: K.hyp_rank_counts(*a, family=kind)  # noqa: E731
-        cid = torch.arange(len(c), dtype=torch.int32, device=c.device)
-        return fn(lhs, *pre, cid, c, *post)
+            pre, post = (x2,), (t2, rhs, un, bt, radii)
+        ids = torch.arange(len(c), dtype=torch.int32, device=c.device) if cid is None else cid
+        return fn(lhs, *pre, ids, c, *post, *extra, **fam)
     return call
 
 
-def _fns(kind):
-    """(masked, sweep, filtered_sub, maskless) wrappers of the family."""
+def _fns(kind, cid=None):
+    """(masked, sweep, filtered_sub, maskless) wrappers of the family, each
+    called with the subtractions' inputs and its own extras."""
     if kind == "attrh":
-        return (_masked(kind), K.attrh_rank_sweep_nomask, K.attrh_rank_filtered_sub,
-                K.attrh_rank_counts_nomask)
-    fam = dict(family=kind)
-    return (_masked(kind), *((lambda fn: lambda *a: fn(*a, **fam))(fn) for fn in (
-        K.hyp_rank_sweep_nomask, K.hyp_rank_filtered_sub, K.hyp_rank_counts_nomask)))
+        return (_tabled(kind, K.attrh_rank_counts, cid),
+                _tabled(kind, K.attrh_rank_sweep_nomask, cid), K.attrh_rank_filtered_sub,
+                _tabled(kind, K.attrh_rank_counts_nomask, cid))
+    return (_tabled(kind, K.hyp_rank_counts, cid), _tabled(kind, K.hyp_rank_sweep_nomask, cid),
+            lambda *a: K.hyp_rank_filtered_sub(*a, family=kind),
+            _tabled(kind, K.hyp_rank_counts_nomask, cid))
 
 
 def _jax_counts(kind, j, masked):
@@ -161,6 +164,33 @@ def test_plain_matches_pallas_interpret(inputs, masked):
     near = _near(scores, t["t2"]).numpy()
     assert (np.abs(got.numpy() - want) <= near).all()
     assert got.sum() > 0  # thresholds sit inside the score range
+
+
+def test_plain_nomask_gold_minus_one_and_bad_cid_match_pallas_interpret(inputs):
+    """The maskless plain versions with gold = -1 (every row counts, the
+    gold's filter slot is subtracted) and a cid outside [0, n_c) (a NaN
+    curvature: the query counts 0) against the JAX maskless kernel given
+    gold -1 and c = NaN for those queries."""
+    kind, t, j, scores = inputs
+    gold = t["gold"].clone()
+    gold[::3] = -1
+    cid = torch.arange(B, dtype=torch.int32)
+    bad = torch.zeros(B, dtype=torch.bool)
+    bad[1::5] = True
+    cid[1::10], cid[6::10] = B + 3, -1
+    c_jax = np.where(bad.numpy(), np.nan, t["c"].numpy()).astype(np.float32)[:, None]
+    want = np.asarray(_jax_counts(kind, {**j, "gold": jnp.asarray(gold.numpy()),
+                                         "c": jnp.asarray(c_jax)}, masked=False))
+    got = _fns(kind, cid)[3](*_args(kind, t), t["fidx"], gold)
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    assert (got[bad] == 0).all() and (want[bad.numpy()] == 0).all()
+    assert (np.abs(got.numpy() - want) <= _near(scores, t["t2"]).numpy()).all()
+    # gold = -1: the gold row counts in the sweep and its filter slot is
+    # subtracted, so the count matches the filtered one
+    sweep = _fns(kind, cid)[1](*_args(kind, t), gold)
+    keep = torch.arange(NP)[None, :] != gold[:, None].long()
+    full = ((scores >= t["t2"][:, None]) & keep).sum(1, dtype=torch.int32)
+    assert torch.equal(sweep[~bad], full[~bad]) and (sweep[bad] == 0).all()
 
 
 def test_plain_nomask_equals_masked_up_to_ties(inputs):
@@ -491,3 +521,24 @@ def test_ranker_tables_follow_curvature_updates(kgs, name):
     assert not torch.equal(new["radii"], old["radii"])
     assert torch.equal(new["rhs"], old["rhs"])
     torch.testing.assert_close(after, _ranker(tm, masked=True)(q, f), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["RotH", "RotLH", "AttRH"])
+def test_rankers_build_the_radius_table_in_both_forms(kgs, name):
+    """The masked and the maskless rankers hand their sweeps the same
+    radius table, hyp_rank_radii_plain of the padded table's norms at the
+    model's curvatures, bit for bit."""
+    tdata = kgs[0]
+    tm = _model_pair(name, tdata)[2]
+    pack = tdata.eval_pack("test", "rhs")
+    q = torch.as_tensor(pack.queries, dtype=torch.int64)
+    f = torch.as_tensor(pack.filter_idx, dtype=torch.int64)
+    got = {m: _ranker(tm, masked=m).kernel_inputs(q, f) for m in (True, False)}
+    x = got[True]
+    if name == "AttRH":
+        want = K.hyp_rank_radii_plain(x["cvals"], x["un_rot"], "attrh", x["un_ref"])
+    else:
+        want = K.hyp_rank_radii_plain(x["cvals"], x["un"], "lorentz" if name == "RotLH"
+                                      else "poincare")
+    for m in (True, False):
+        assert torch.equal(got[m]["radii"], want), m

@@ -180,44 +180,50 @@ def hyp_inputs(kind, b, n, d, l, np_=None, seed=0, curvatures=None):
     return args, extras, near
 
 
-def masked_call(kind, fn, cid=None, cvals=None):
-    """The masked kernel or plain version `fn`, called with the maskless
-    wrappers' inputs (c in place of cid and cvals): by default each query
-    its own curvature, cid = arange(B), cvals = c; the radius table from
+def tabled_call(kind, fn, cid=None, cvals=None):
+    """A sweep (masked or maskless), the maskless count or a plain version
+    `fn`, called with the subtractions' inputs (c in place of cid and
+    cvals) and then its own extra inputs: by default each query its own
+    curvature, cid = arange(B), cvals = c; the radius table from
     hyp_rank_radii on the inputs' device."""
+    fam = {} if kind == "attrh" else {"family": kind}
+
     def call(lhs, *rest):
-        *base, mask = rest
         if kind == "attrh":
-            x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt = base
+            (x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt), extra = rest[:10], rest[10:]
         else:
-            x2, c, t2, rhs, un, bt = base
+            (x2, c, t2, rhs, un, bt), extra = rest[:6], rest[6:]
         ids = torch.arange(len(c), dtype=torch.int32) if cid is None else cid
         ids, cv = ids.to(c.device), (c if cvals is None else cvals.to(c.device))
         if kind == "attrh":
             radii = K5.hyp_rank_radii(cv, un_rot, "attrh", un_ref)
-            return fn(lhs, x2r, x2f, ids, cv, w0, w1, t2, rhs, un_rot, un_ref, bt, radii, mask)
+            return fn(lhs, x2r, x2f, ids, cv, w0, w1, t2, rhs, un_rot, un_ref, bt, radii, *extra)
         radii = K5.hyp_rank_radii(cv, un, kind)
-        return fn(lhs, x2, ids, cv, t2, rhs, un, bt, radii, mask, family=kind)
+        return fn(lhs, x2, ids, cv, t2, rhs, un, bt, radii, *extra, **fam)
     return call
 
 
 def hyp_fns(kind):
     """name -> (kernel wrapper, plain version, extra input names)."""
     if kind == "attrh":
-        return {"masked": (masked_call(kind, K5.attrh_rank_counts),
-                           masked_call(kind, K5.attrh_rank_counts_plain), ("mask",)),
-                "nomask": (K5.attrh_rank_sweep_nomask, K5.attrh_rank_sweep_nomask_plain,
-                           ("gold",)),
+        return {"masked": (tabled_call(kind, K5.attrh_rank_counts),
+                           tabled_call(kind, K5.attrh_rank_counts_plain), ("mask",)),
+                "nomask": (tabled_call(kind, K5.attrh_rank_sweep_nomask),
+                           tabled_call(kind, K5.attrh_rank_sweep_nomask_plain), ("gold",)),
                 "filtered_sub": (K5.attrh_rank_filtered_sub,
                                  K5.attrh_rank_filtered_sub_plain, ("fidx", "gold"))}
     fam = {"family": kind}
-    return {"masked": (masked_call(kind, K5.hyp_rank_counts),
-                       masked_call(kind, K5.hyp_rank_counts_plain), ("mask",)),
-            "nomask": (partial(K5.hyp_rank_sweep_nomask, **fam),
-                       partial(K5.hyp_rank_sweep_nomask_plain, **fam), ("gold",)),
+    return {"masked": (tabled_call(kind, K5.hyp_rank_counts),
+                       tabled_call(kind, K5.hyp_rank_counts_plain), ("mask",)),
+            "nomask": (tabled_call(kind, K5.hyp_rank_sweep_nomask),
+                       tabled_call(kind, K5.hyp_rank_sweep_nomask_plain), ("gold",)),
             "filtered_sub": (partial(K5.hyp_rank_filtered_sub, **fam),
                              partial(K5.hyp_rank_filtered_sub_plain, **fam),
                              ("fidx", "gold"))}
+
+
+def maskless_fn(kind):
+    return K5.attrh_rank_counts_nomask if kind == "attrh" else K5.hyp_rank_counts_nomask
 
 
 @pytest.mark.parametrize("shape", HYP_SHAPES)
@@ -242,10 +248,7 @@ def test_hyp_maskless_equals_masked_exactly(kind, shape):
     a = [t.to(dev) for t in args]
     e = {k: v.to(dev) for k, v in extras.items()}
     masked = hyp_fns(kind)["masked"][0](*a, e["mask"])
-    if kind == "attrh":
-        nomask = K5.attrh_rank_counts_nomask(*a, e["fidx"], e["gold"])
-    else:
-        nomask = K5.hyp_rank_counts_nomask(*a, e["fidx"], e["gold"], family=kind)
+    nomask = tabled_call(kind, maskless_fn(kind))(*a, e["fidx"], e["gold"])
     assert torch.equal(masked, nomask)
 
 
@@ -286,6 +289,17 @@ def test_hyp_wrappers_check_inputs_and_count_launches():
                              bt, K5.hyp_rank_radii(c, un, "attrh", un), mask)
     assert K5.launches["hyp_rank_sweep_masked"] == 1
     assert sum(K5.launches.values()) == 4  # and three radius tables
+    gold = extras["gold"].to(dev)
+    K5.hyp_rank_sweep_nomask(lhs, x2, cid, c, t2, rhs, un, bt, radii, gold, family="lorentz")
+    K5.hyp_rank_sweep_nomask(lhs, x2, cid, c, t2, rhs, un, bt, radii, gold, family="lorentz")
+    assert K5.launches["hyp_rank_sweep_nomask"] == 2
+    with pytest.raises(TypeError, match="int32"):
+        K5.hyp_rank_sweep_nomask(lhs, x2, cid, c, t2, rhs, un, bt, radii, gold.long(),
+                                 family="lorentz")
+    with pytest.raises(ValueError, match="shape"):
+        K5.hyp_rank_sweep_nomask(lhs, x2, cid, c, t2, rhs, un, bt,
+                                 K5.hyp_rank_radii(c, un, "poincare"), gold, family="lorentz")
+    assert K5.launches["hyp_rank_sweep_nomask"] == 2
 
 
 @pytest.mark.parametrize("shape", HYP_SHAPES[1:] + [(500, 40_000, 32, 5)])
@@ -310,6 +324,20 @@ def test_hyp_radii_matches_plain(kind, shape):
                                rtol=2e-6, atol=0)
 
 
+def ragged_inputs(kind, shape, bad_cid=False):
+    """K5-K8 inputs at a ragged shape with 7 curvatures shared through cid;
+    bad_cid: every 7th query's cid outside [0, 7) (a NaN curvature) and
+    every 5th query's gold -1.  Returns (cid, cvals, args, extras, near)."""
+    rng = np.random.default_rng(5)
+    cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
+    cid = torch.as_tensor(rng.integers(0, 7, shape[0]), dtype=torch.int32)
+    args, extras, near = hyp_inputs(kind, *shape, curvatures=(cvals, cid))
+    if bad_cid:
+        cid[3::7] = torch.as_tensor([-1, 7, 1 << 20])[torch.arange(len(cid[3::7])) % 3].int()
+        extras["gold"][::5] = -1
+    return cid, cvals, args, extras, near
+
+
 @pytest.mark.parametrize("shape", HYP_RAGGED)
 @pytest.mark.parametrize("kind", HYP_KINDS)
 def test_hyp_masked_ragged_matches_plain_and_maskless(kind, shape):
@@ -317,14 +345,11 @@ def test_hyp_masked_ragged_matches_plain_and_maskless(kind, shape):
     through cid: within the near-threshold count of the plain version, and
     exactly the maskless count (sweep - subtraction) at c = cvals[cid]."""
     dev = _cuda_or_skip()
-    rng = np.random.default_rng(5)
-    cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
-    cid = torch.as_tensor(rng.integers(0, 7, shape[0]), dtype=torch.int32)
-    args, extras, near = hyp_inputs(kind, *shape, curvatures=(cvals, cid))
+    cid, cvals, args, extras, near = ragged_inputs(kind, shape)
     b = shape[0]
-    kernel = masked_call(kind, K5.attrh_rank_counts if kind == "attrh" else K5.hyp_rank_counts,
+    kernel = tabled_call(kind, K5.attrh_rank_counts if kind == "attrh" else K5.hyp_rank_counts,
                          cid, cvals)
-    plain = masked_call(kind, K5.attrh_rank_counts_plain if kind == "attrh"
+    plain = tabled_call(kind, K5.attrh_rank_counts_plain if kind == "attrh"
                         else K5.hyp_rank_counts_plain, cid, cvals)
     a = [x.to(dev) for x in args]
     e = {k: v.to(dev) for k, v in extras.items()}
@@ -333,9 +358,38 @@ def test_hyp_masked_ragged_matches_plain_and_maskless(kind, shape):
     want = plain(*args, extras["mask"])
     assert got.dtype == torch.int32 and got.shape == (b,)
     assert ((got.cpu() - want).abs() <= near).all()
-    nomask = (K5.attrh_rank_counts_nomask(*a, e["fidx"], e["gold"]) if kind == "attrh"
-              else K5.hyp_rank_counts_nomask(*a, e["fidx"], e["gold"], family=kind))
+    nomask = tabled_call(kind, maskless_fn(kind), cid, cvals)(*a, e["fidx"], e["gold"])
     assert torch.equal(got, nomask)
+
+
+@pytest.mark.parametrize("shape", HYP_RAGGED)
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_maskless_ragged_matches_plain_and_masked(kind, shape):
+    """The maskless sweeps K6/K8 at ragged B, Np and D, with cids outside
+    [0, n_c) and golds of -1: within the near-threshold count of the plain
+    version (the bad cids count 0), and sweep - subtraction equal to the
+    masked count exactly."""
+    dev = _cuda_or_skip()
+    cid, cvals, args, extras, near = ragged_inputs(kind, shape, bad_cid=True)
+    b = shape[0]
+    sweep = K5.attrh_rank_sweep_nomask if kind == "attrh" else K5.hyp_rank_sweep_nomask
+    plain = (K5.attrh_rank_sweep_nomask_plain if kind == "attrh"
+             else K5.hyp_rank_sweep_nomask_plain)
+    a = [x.to(dev) for x in args]
+    e = {k: v.to(dev) for k, v in extras.items()}
+    got = tabled_call(kind, sweep, cid, cvals)(*a, e["gold"])
+    torch.cuda.synchronize()
+    want = tabled_call(kind, plain, cid, cvals)(*args, extras["gold"])
+    bad = (cid < 0) | (cid >= 7)
+    assert got.dtype == torch.int32 and got.shape == (b,)
+    assert ((got.cpu() - want).abs() <= near).all()
+    assert (got.cpu()[bad] == 0).all() and (want[bad] == 0).all()
+    # the masked count of the same queries (with gold -1 the sweep counts
+    # the gold row and the subtraction removes its filter slot)
+    masked_fn = K5.attrh_rank_counts if kind == "attrh" else K5.hyp_rank_counts
+    masked = tabled_call(kind, masked_fn, cid, cvals)(*a, e["mask"])
+    maskless = tabled_call(kind, maskless_fn(kind), cid, cvals)(*a, e["fidx"], e["gold"])
+    assert torch.equal(masked, maskless)
 
 
 # ------------------- GNN: K9 (csrc/segsum.cu), K10 (csrc/gather.cu) -------------------
@@ -348,8 +402,12 @@ from complexhyperbolickge_torch.kernels import segsum as S  # noqa: E402
 # leaves rows without edges
 GNN_SHAPES = [(1000, 300, 1), (777, 500, 3), (5000, 777, 32), (86_835, 40_943, 200),
               (300, 1000, 66)]
-# K9 against index_add_: another summation order
-GNN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13)}
+# K9 against index_add_: another summation order; in bfloat16 both sum in
+# float32 and round once, so they differ by at most one bfloat16 ulp (2^-7
+# relative) where the float32 sums straddle a rounding boundary
+GNN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-13),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+GNN_DTYPES = [torch.float32, torch.float64, torch.bfloat16]
 
 
 def gnn_inputs(e, n, h, dtype, seed=0):
@@ -361,7 +419,7 @@ def gnn_inputs(e, n, h, dtype, seed=0):
     return dst, msgs, x, ids
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", GNN_DTYPES)
 @pytest.mark.parametrize("shape", GNN_SHAPES)
 def test_segsum_matches_plain_forward_and_backward(shape, dtype):
     dev = _cuda_or_skip()
@@ -380,7 +438,7 @@ def test_segsum_matches_plain_forward_and_backward(shape, dtype):
     assert torch.equal(m.grad.cpu(), mc.grad)  # a gather: exact
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", GNN_DTYPES)
 @pytest.mark.parametrize("shape", GNN_SHAPES)
 def test_row_gather_matches_plain_forward_and_backward(shape, dtype):
     dev = _cuda_or_skip()
@@ -392,12 +450,15 @@ def test_row_gather_matches_plain_forward_and_backward(shape, dtype):
     g = torch.randn(out.shape, dtype=dtype, generator=torch.Generator().manual_seed(2))
     (out * g.to(dev)).sum().backward()
     torch.cuda.synchronize()
-    xr = x.clone().requires_grad_()
+    # the plain version's backward sums the cotangent rows (index_put_); in
+    # bfloat16 it sums in float32 and rounds once, as K9 does
+    wide = dtype == torch.bfloat16
+    xr = (x.float() if wide else x).clone().requires_grad_()
     want = G.row_gather_plain(xr, torch.as_tensor(ids))
-    (want * g).sum().backward()
-    assert torch.equal(out.detach().cpu(), want.detach())
+    (want * (g.float() if wide else g)).sum().backward()
+    assert torch.equal(out.detach().cpu(), want.detach().to(dtype))
     # the backward is a K9 sum over the sorted ids
-    torch.testing.assert_close(xc.grad.cpu(), xr.grad, **GNN_TOL[dtype])
+    torch.testing.assert_close(xc.grad.cpu(), xr.grad.to(dtype), **GNN_TOL[dtype])
     # and it is deterministic
     again = torch.autograd.grad((gth(xc) * g.to(dev)).sum(), xc)[0]
     assert torch.equal(again, xc.grad)
@@ -413,9 +474,12 @@ def test_gnn_wrappers_check_inputs_and_count_launches():
     seg(msgs.to(dev))
     gth(x.to(dev))
     assert S.launches["sorted_segment_sum"] == 1 and G.launches["row_gather"] == 1
-    with pytest.raises(TypeError, match="float32 and float64"):
-        seg(msgs.to(dev, torch.bfloat16))
-    with pytest.raises(TypeError, match="float32 and float64"):
+    seg(msgs.to(dev, torch.bfloat16))  # the bfloat16 instances
+    gth(x.to(dev, torch.bfloat16))
+    assert S.launches["sorted_segment_sum"] == 2 and G.launches["row_gather"] == 2
+    with pytest.raises(TypeError, match="float32, float64 and bfloat16"):
+        seg(msgs.to(dev, torch.float16))
+    with pytest.raises(TypeError, match="float32, float64 and bfloat16"):
         gth(x.to(dev, torch.float16))
     with pytest.raises(ValueError, match="shape"):
         seg(msgs[:-1].to(dev))
@@ -423,4 +487,4 @@ def test_gnn_wrappers_check_inputs_and_count_launches():
         gth(x[:-1].to(dev))
     with pytest.raises(TypeError, match="int32"):
         G.row_gather(x.to(dev), torch.as_tensor(ids, device=dev))
-    assert S.launches["sorted_segment_sum"] == 1 and G.launches["row_gather"] == 1
+    assert S.launches["sorted_segment_sum"] == 2 and G.launches["row_gather"] == 2
