@@ -82,7 +82,8 @@ line:
               host ops
  17 the kernels line: launches, and the times of kernel, plain version and
               library call beside the kernel's bound (and the rankers' busy
-              time per call and the training step's device time; K9/K10's
+              time per call and the training step's device time; the sweeps'
+              registers, blocks per SM, shared and local bytes; K9/K10's
               bfloat16 instances under "bfloat16")
  18 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
@@ -391,7 +392,8 @@ def phase_kernels(model, dataset):
                                    [xn["fidx"], xn["gold"]]),
     }
     result = {"phase": "kernels", "batch": BATCH, "Np": int(xm["rhs"].shape[0]),
-              "D": int(xm["rhs"].shape[1]), "L": int(xn["fidx"].shape[1]),
+              "D": int(xm["lhs2"].shape[1]), "ld": int(xm["rhs"].shape[1]),
+              "L": int(xn["fidx"].shape[1]),
               "max_near_threshold": int(near.max()), "kernels": {}}
     errors = {}
     for name, (kernel, plain, extra) in pairs.items():
@@ -932,7 +934,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     q, f, xm, xn = batch
     base = [xm[k] for k in ("lhs2", "zn", "t2", "rhs", "wn", "bt")]
     b, d = base[0].shape[0] // 2, base[0].shape[1]
-    np_ = base[3].shape[0]
+    np_, ld = base[3].shape  # the table's rows padded to ld >= d floats
     l = xn["fidx"].shape[1]
     f32_peak, bw_peak, f64_peak = peak_rates(name)
     # whole rankers per batch, query prep included (~200 launches a call)
@@ -943,7 +945,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
         ranker = K.ChypRanker(model, masked=masked)
         ranker_ms[masked] = busy_ms(lambda: ranker(q, f))
     n_rows = int(np.unique(xn["fidx"].cpu().numpy()).size)
-    vec = 4 * (2 * b * d + 2 * b + 2 * np_ + np_ * d)  # lhs2, zn, t2, wn, bt, rhs
+    vec = 4 * (2 * b * d + 2 * b + 2 * np_ + np_ * ld)  # lhs2, zn, t2, wn, bt, rhs
     # name -> (kernel, plain, args, fp32 ops, fp64 ops, bytes)
     work = {
         "chyp_rank_sweep_masked": (K.chyp_rank_counts, K.chyp_rank_counts_plain,
@@ -992,7 +994,10 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
             row.update(step_ms=step_ms, shape={"B": tb, "K": tk, "D": td})
         else:
             row.update(dense_ms=dense_ms, ranker_ms=ranker_ms[kname == "chyp_rank_sweep_masked"],
-                       shape={"B": b, "Np": np_, "D": d, "L": l})
+                       shape={"B": b, "Np": np_, "D": d, "ld": ld, "L": l})
+            if kname != "chyp_rank_filtered_sub":
+                row.update(K.sweep_info(base[0].device, d,
+                                        masked=kname == "chyp_rank_sweep_masked"))
         rows.append(row)
     return rows
 

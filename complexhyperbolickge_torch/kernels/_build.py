@@ -5,8 +5,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc into
 ctypes.  Nothing is compiled or loaded at import: the first caller builds
 (`load_library`), and `build_all` starts one nvcc per source at once.  A
 library is rebuilt when the sha256 of its source and flags differs from
-the stamp written beside it.  `check_tensor` and `launch` are the wrappers'
-shared input checks and launch call.
+the stamp written beside it.  `check_tensor`, `check_aligned`, `launch` and
+`kernel_info` are the wrappers' shared input checks, launch call and
+compiled-kernel report.
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of every exported launcher; pointers and the stream are c_void_p
 SIGNATURES = {
     "chyp_rank": {
-        "chyp_rank_sweep_masked": [_P] * 8 + [_I, _I, _I, _F, _P],
-        "chyp_rank_sweep_nomask": [_P] * 8 + [_I, _I, _I, _F, _P],
-        "chyp_rank_filtered_sub": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+        "chyp_rank_sweep_masked": [_P] * 8 + [_I] * 4 + [_F, _P],
+        "chyp_rank_sweep_nomask": [_P] * 8 + [_I] * 4 + [_F, _P],
+        "chyp_rank_filtered_sub": [_P] * 9 + [_I] * 5 + [_F, _P],
+        "chyp_rank_sweep_info": [_I] * 2 + [_IP] * 4,
     },
     "chyp_train": {
         "chyp_train_fwd": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
@@ -154,6 +156,26 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(**tensors):
+    """Raise unless each tensor starts on a 16-byte boundary: the sweeps
+    copy per-row vectors (and read tables) with 16-byte loads."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def kernel_info(lib_name: str, fn: str, device, *args, n: int = 4) -> list:
+    """The n ints that info function `fn` of library `lib_name` writes
+    through its trailing pointers for `args` on `device` (what the CUDA
+    runtime reports of a compiled kernel); raise if it fails."""
+    vals = [ctypes.c_int() for _ in range(n)]
+    with torch.cuda.device(device):
+        rc = getattr(load_library(lib_name), fn)(*args, *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: cudaError {rc}")
+    return [v.value for v in vals]
 
 
 def launch(lib_name: str, fn: str, device, *args):

@@ -19,22 +19,27 @@ so the only outputs are (B,) int32 counts.  Three kernels, one wrapper each:
 
 Inputs, all float32 and contiguous: lhs2 (2B, D) = [lhs; swap_neg(lhs)],
 zn (B,) the clamped Hermitian norm of lhs, t2 (B,) the gold-target score
-minus the lhs bias, rhs (Np, D) the entity table with >= 1 zero pad row,
-wn (Np,) = clamp(|w|^2 - 1, -1, -eps), bt (Np,) tail biases with -1e30 on
-pad rows.  The features need no padding (D = 66 at rank 33).
+minus the lhs bias, rhs (Np, ld) the entity table with >= 1 zero pad row
+and rows of ld >= D floats, of which the first D are the features, wn (Np,)
+= clamp(|w|^2 - 1, -1, -eps), bt (Np,) tail biases with -1e30 on pad rows.
+ChypRanker pads the table's rows to a multiple of 4 floats (68 at rank 33:
+D = 66), which the sweeps copy into shared memory 16 bytes at a time; the
+query rows stay at D.  The sweeps take wn and bt on a 16-byte boundary.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain PyTorch version beside it,
-which repeats the arithmetic with a matmul (a different summation order, so
-counts may differ on scores within float rounding of t2).
+which repeats the arithmetic with a matmul over the table's first D columns
+(a different summation order, so counts may differ on scores within float
+rounding of t2).
 """
 
 from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.kernels._build import check_aligned
 from complexhyperbolickge_torch.kernels._build import check_tensor as _check
-from complexhyperbolickge_torch.kernels._build import launch
+from complexhyperbolickge_torch.kernels._build import kernel_info, launch
 from complexhyperbolickge_torch.kernels._ranker import ROW_TILE, FusedRanker
 from complexhyperbolickge_torch.ops.chyperbolic import chyp_distance, swap_neg
 from complexhyperbolickge_torch.ops.math import ball_eps, round_up
@@ -69,10 +74,16 @@ def _score_epilogue(acc_re, acc_im, zn, wn, bt):
     return bt - d * d
 
 
+def _features(rhs, d):
+    """The table's first d columns, contiguous (the table itself when its
+    rows are d wide), so a padded table contracts as the unpadded one."""
+    return rhs if rhs.shape[1] == d else rhs[:, :d].contiguous()
+
+
 def chyp_scores_plain(lhs2, zn, rhs, wn, bt):
     """All-entity scores (B, Np) in plain PyTorch: bt - dist^2."""
     b = lhs2.shape[0] // 2
-    acc = lhs2 @ rhs.T
+    acc = lhs2 @ _features(rhs, lhs2.shape[1]).T
     return _score_epilogue(acc[:b], acc[b:], zn[:, None], wn[None, :], bt[None, :])
 
 
@@ -93,7 +104,7 @@ def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
     np_ = rhs.shape[0]
     ok = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
     f = fidx.long().clamp(0, np_ - 1)
-    rows = rhs[f]  # (B, L, D)
+    rows = _features(rhs, lhs2.shape[1])[f]  # (B, L, D)
     acc_re = torch.einsum("bd,bld->bl", lhs2[:b], rows)
     acc_im = torch.einsum("bd,bld->bl", lhs2[b:], rows)
     scores = _score_epilogue(acc_re, acc_im, zn[:, None], wn[f], bt[f])
@@ -104,22 +115,24 @@ def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
 
 
 def _check_common(lhs2, zn, t2, rhs, wn, bt):
-    """Validate the shared inputs of a CUDA launch; returns (B, Np, D)."""
+    """Validate the shared inputs of a CUDA launch; returns (B, Np, D, ld)."""
     dev = lhs2.device
     if dev.type != "cuda":
         raise ValueError(f"chyp_rank kernels take CPU or CUDA tensors, got {dev}")
     if lhs2.dim() != 2 or lhs2.shape[0] % 2 or rhs.dim() != 2:
-        raise ValueError("lhs2 must be (2B, D) and rhs (Np, D)")
+        raise ValueError("lhs2 must be (2B, D) and rhs (Np, ld)")
     b, d = lhs2.shape[0] // 2, lhs2.shape[1]
-    np_ = rhs.shape[0]
+    np_, ld = rhs.shape
+    if ld < d:
+        raise ValueError(f"rhs rows hold {ld} floats, fewer than the {d} features")
     f32 = torch.float32
     _check("lhs2", lhs2, f32, (2 * b, d), dev)
     _check("zn", zn, f32, (b,), dev)
     _check("t2", t2, f32, (b,), dev)
-    _check("rhs", rhs, f32, (np_, d), dev)
+    _check("rhs", rhs, f32, (np_, ld), dev)
     _check("wn", wn, f32, (np_,), dev)
     _check("bt", bt, f32, (np_,), dev)
-    return b, np_, d
+    return b, np_, d, ld
 
 
 def _launch(name, device, *args):
@@ -132,11 +145,12 @@ def chyp_rank_counts(lhs2, zn, t2, rhs, wn, bt, mask):
     (B,).  mask is int8 (B, Np), 1 = filtered out (and on pad rows)."""
     if lhs2.device.type == "cpu":
         return chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask)
-    b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
+    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt)
     _check("mask", mask, torch.int8, (b, np_), lhs2.device)
+    check_aligned(wn=wn, bt=bt)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
     _launch("chyp_rank_sweep_masked", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
-            mask, counts, b, np_, d, X_MIN)
+            mask, counts, b, np_, d, ld, X_MIN)
     return counts
 
 
@@ -145,11 +159,12 @@ def chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold):
     (B,).  gold is int32 (B,), a row of this table or -1."""
     if lhs2.device.type == "cpu":
         return chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold)
-    b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
+    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt)
     _check("gold", gold, torch.int32, (b,), lhs2.device)
+    check_aligned(wn=wn, bt=bt)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
     _launch("chyp_rank_sweep_nomask", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
-            gold, counts, b, np_, d, X_MIN)
+            gold, counts, b, np_, d, ld, X_MIN)
     return counts
 
 
@@ -159,15 +174,23 @@ def chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
     (data/dataset.py::eval_pack)."""
     if lhs2.device.type == "cpu":
         return chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold)
-    b, np_, d = _check_common(lhs2, zn, t2, rhs, wn, bt)
+    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt)
     if fidx.dim() != 2:
         raise ValueError("fidx must be (B, L)")
     _check("fidx", fidx, torch.int32, (b, fidx.shape[1]), lhs2.device)
     _check("gold", gold, torch.int32, (b,), lhs2.device)
     sub = torch.empty(b, dtype=torch.int32, device=lhs2.device)
     _launch("chyp_rank_filtered_sub", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
-            fidx, gold, sub, b, np_, d, fidx.shape[1], X_MIN)
+            fidx, gold, sub, b, np_, d, ld, fidx.shape[1], X_MIN)
     return sub
+
+
+def sweep_info(device, d: int, masked: bool = True) -> dict:
+    """Registers and local (spill) bytes a thread, resident blocks per SM
+    and shared bytes a block of the masked or maskless sweep at feature
+    width d on `device`, as the CUDA runtime reports them."""
+    vals = kernel_info("chyp_rank", "chyp_rank_sweep_info", device, int(masked), d)
+    return dict(zip(("regs_per_thread", "local_bytes", "blocks_per_sm", "smem_bytes"), vals))
 
 
 def chyp_rank_counts_nomask(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
@@ -205,9 +228,12 @@ class ChypRanker(FusedRanker):
         # n + 1: at least one pad row, where pad filter ids (== n_entities)
         # land: masked in K1, unreachable (bt = -1e30) in K2
         np_ = round_up(n + 1, ROW_TILE)
-        rhs = torch.zeros((np_, d), dtype=torch.float32, device=ent.device)
-        rhs[:n] = ent
-        wn = (torch.sum(rhs * rhs, dim=-1) - 1.0).clamp(-1.0, -_EPS)
+        rows = torch.zeros((np_, d), dtype=torch.float32, device=ent.device)
+        rows[:n] = ent
+        # wn from the unpadded rows, so its bits do not depend on the stride
+        wn = (torch.sum(rows * rows, dim=-1) - 1.0).clamp(-1.0, -_EPS)
+        # rows padded with zeros to a multiple of 4 floats: 16-byte copies
+        rhs = torch.nn.functional.pad(rows, (0, round_up(d, 4) - d))
         return rhs, self._padded_bias(np_, ent.device), wn
 
     def _queries_core(self, q):

@@ -6,7 +6,8 @@
 //   chyp_rank_sweep_nomask  <- chyp_rank_counts_nomask (_rank_kernel_nomask)
 //   chyp_rank_filtered_sub  <- the filtered subtraction of chyp_rank_counts_nomask
 //
-// For query b and entity row j of the padded table:
+// For query b and entity row j of the padded table (rows of ld >= D floats,
+// of which the first D are the entity's features):
 //   acc_re = sum_k lhs2[b][k]     * rhs[j][k]          (Re<z,w> + 1)
 //   acc_im = sum_k lhs2[B + b][k] * rhs[j][k]          (Im<z,w>; lhs2[B+b] = swap_neg(lhs[b]))
 //   x      = max(2 ((acc_re - 1)^2 + acc_im^2) / (zn[b] wn[j]) - 1, x_min)
@@ -26,38 +27,89 @@
 // counted is subtracted exactly, and the JAX kernel's residual +-1 on exact
 // non-gold ties between two contraction shapes cannot occur.
 //
-// Bound on an H100 SXM at the WN18RR eval shape (B=500, N=40,943, D=66):
-// 2 (2B) N D = 5.4 GFLOP of fp32 FMA per batch, ~81 us at 67 TFLOP/s of
-// CUDA-core fp32 (exact fp32 rules out TF32 and wgmma has no fp32 input),
-// against ~9.4 us for its 10.8 MB table plus 20.7 MB int8 mask at
-// 3.35 TB/s: compute-bound, plus 20.5 M log/sqrt/div epilogues.
-// Design: 256-thread blocks take a 32-query x 128-entity tile; features are
-// staged through shared memory in chunks of 32; each thread keeps a 4 x 4
-// register tile of (acc_re, acc_im) pairs, reads its 4 queries' values as
-// one broadcast float4 and its 4 entities' values conflict-free (row stride
-// 33).  A block walks 8 entity tiles (grid = entity chunks x query tiles,
-// 40 x 16 blocks at the eval shape, so B = 500 still fills 132 SMs) and adds
-// its per-query counts with one int32 atomicAdd per query and warp: exact
-// and independent of block order, unlike the TPU's sequential-grid
-// accumulator.
+// Bound on an H100 SXM at the WN18RR eval shape (B = 500, Np = 40,960,
+// D = 66): 2 (2B) Np D = 5.4 GFLOP of fp32 FMA per batch, ~81 us at 67
+// TFLOP/s of CUDA-core fp32 (exact fp32 rules out TF32, 3xTF32 and wgmma),
+// against ~9.6 us for its 11.1 MB table (rows padded to 68 floats) plus
+// 20.5 MB int8 mask at 3.35 TB/s: compute-bound, plus 20.5 M epilogues of
+// one IEEE division, one square root and one logf each.
+//
+// The sweeps (K1 masked, K2 maskless) are one kernel template,
+// chyp_sweep_kernel<masked>, on the pipeline of the real-hyperbolic sweeps
+// (hyp_rank.cu, shared through sweep.cuh):
+//   * whole rows: a stage holds an entity tile's rows, all D <= 68 features
+//     (D = 66 at rank 33: one stage an item, two barriers, no 2-wide
+//     remainder chunk), with the tile's wn and bt and, masked, its 64 x 128
+//     int8 mask slice; wider D is split into equal chunks of at most 68
+//     (a multiple of 4) features;
+//   * the stage is copied with cp.async into one of two buffers while the
+//     other buffer's contraction and epilogue run; 16-byte copies where the
+//     table's row stride ld is a multiple of 4 (the ranker pads rows to 68
+//     floats), 4-byte copies otherwise; the epilogue reads wn, bt and the
+//     mask from shared memory; the maskless stage has no mask and keeps
+//     j != gold[b];
+//   * the query tile's rows (64 re rows and their 64 swapped im rows) and
+//     its zn, t2 and gold are staged once per query tile (a D too wide for
+//     that, above ~140: the query rows a chunk a stage);
+//   * staged rows have a stride of 68 floats (17 x 16 bytes, odd): a lane's
+//     float4 reads along k are conflict-free, the query values are read as
+//     broadcast float4s: 12 shared loads per 128 FMAs; each thread keeps a
+//     4 query x 4 entity register tile of (acc_re, acc_im) pairs (124-128
+//     registers, no spills);
+//   * 64 queries an item, the most that register tile allows (512 threads
+//     x 124-128 registers fill an SM's register file): each entity tile is
+//     staged 8 times a batch of 500, not 16 (measured on the H100: 32
+//     queries of 256 threads, 2 blocks an SM, took 7 % longer; the L2 ->
+//     shared copies of the restaged rows cost ~0.05 ms a batch at 32);
+//   * persistent blocks: 1 of 512 threads an SM (121 KB of shared memory
+//     masked), the grid the occupancy API's blocks per SM times the SMs,
+//     each block a contiguous range of (query tile, entity tile) items;
+//     a block adds its per-query counts with one int32 atomicAdd per query
+//     and warp when its query tile changes: exact and independent of block
+//     order, unlike the TPU's sequential-grid accumulator.
+// What bounds them (measured on the H100 at WN18RR with 32 queries an item,
+// by cutting one part at a time, PERF.md): the parts add up rather than
+// overlap: the contraction ~0.12 ms (~70 % of the FMA pipe while it runs;
+// shared loads at ~75 % of it), the epilogue ~0.05 ms (~0.03 of it the
+// IEEE division's and square root's branch structure), and staging,
+// barriers and the mask ~0.09 ms (~0.05 of it the restaged rows, which 64
+// queries an item halve).  The filtered subtraction (one
+// block per query over its <= L ids) keeps its schedule: it is ~1/40 of
+// the sweep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 namespace {
 
-constexpr int kTQ = 32;            // queries per block tile
-constexpr int kTN = 128;           // entities per block tile
-constexpr int kKC = 32;            // features staged per chunk
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kQPT = 4;            // queries per thread (one warp owns 4)
-constexpr int kEPT = 4;            // entities per thread (lane + 32 e)
-constexpr int kTilesPerBlock = 8;  // entity tiles walked by one block
-constexpr int kQStride = kTQ + 4;  // float4-aligned, fewer store conflicts
+using rank_sweeps::aligned16;
+using rank_sweeps::cp_async16;
+using rank_sweeps::cp_async4;
+using rank_sweeps::cp_async_commit;
+using rank_sweeps::cp_async_wait;
+using rank_sweeps::lane_of;
+using rank_sweeps::next_pos;
+using rank_sweeps::StagePos;
+
+constexpr int kTQ = 64;         // queries per block tile
+constexpr int kTN = 128;        // entities per block tile
+constexpr int kThreads = 512;   // 16 warps
+constexpr int kQPT = 4;         // queries per thread (one warp owns 4)
+constexpr int kEPT = 4;         // entities per thread (lane + 32 e)
+constexpr int kChunk = 68;      // features of a staged entity row (and its stride)
 constexpr int kSubThreads = 128;
+constexpr int kSweepBlocks = 1;  // resident sweep blocks an SM is compiled for
+constexpr int kMaxSweepSmem = 160 * 1024;  // dynamic shared memory a block may ask for
+// the query tile's staged rows: 64 re rows, then their 64 im rows, of one
+// chunk (staged per stage) or of all D features (once per query tile)
+constexpr int kQueryChunkFloats = 2 * kTQ * kChunk;
 
 static_assert(kThreads / 32 * kQPT == kTQ, "one warp per 4 queries");
 static_assert(32 * kEPT == kTN, "one lane per 4 entities");
+static_assert(kChunk % 4 == 0 && (kChunk / 4) % 2 == 1,
+              "16-byte rows at an odd count of 16-byte columns: conflict-free float4 reads");
 
 __device__ __forceinline__ void chyp_accumulate(float& acc_re, float& acc_im,
                                                 float q_re, float q_im,
@@ -81,99 +133,275 @@ __device__ __forceinline__ float chyp_score(float acc_re, float acc_im,
   return __fsub_rn(bt, __fmul_rn(d, d));
 }
 
+// ------------------------------ sweeps (K1, K2) ------------------------------
+
+struct SweepArgs {
+  const float *lhs2, *zn, *t2, *rhs, *wn, *bt;
+  const int8_t* mask;  // masked sweep: 1 = not counted
+  const int* gold;     // maskless sweep: the row not counted, or -1
+  int* out;
+  int B, Np, D, ld;    // ld: floats a table row (>= D)
+  float x_min;
+  int n_et, n_chunks, kc, n_items;  // entity tiles, feature chunks of kc, items
+  int q_stride;       // floats a staged query row: D rounded up to 4 (whole tile)
+  bool q_per_stage;   // the whole query tile does not fit: a chunk per stage
+  bool vec_rows;  // ld % 4 == 0, rhs 16-byte aligned: 16-byte row copies
+  bool vec_q;     // D % 4 == 0, lhs2 16-byte aligned: 16-byte query copies
+  bool vec_mask;  // Np % 16 == 0, mask 16-byte aligned: 16-byte mask copies
+};
+
+// One stage of the pipeline: a feature chunk of the entity rows and, on an
+// item's last chunk, the tile's wn, bt and, masked, its mask slice.  The
+// query rows sit after the two stages: the tile's, all D features, copied
+// once per query tile, or (a D too wide for that) one chunk per buffer.
+struct StageRows {
+  float w[kTN][kChunk];
+  float wn[kTN], bt[kTN];
+};
 template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-chyp_sweep_kernel(const float* __restrict__ lhs2, const float* __restrict__ zn,
-                  const float* __restrict__ t2, const float* __restrict__ rhs,
-                  const float* __restrict__ wn, const float* __restrict__ bt,
-                  const int8_t* __restrict__ mask, const int* __restrict__ gold,
-                  int* __restrict__ counts, int B, int Np, int D, float x_min) {
-  __shared__ __align__(16) float q_re[kKC][kQStride];
-  __shared__ __align__(16) float q_im[kKC][kQStride];
-  __shared__ float w_s[kTN][kKC + 1];
+struct Stage : StageRows {};
+template <>
+struct Stage<true> : StageRows {
+  int8_t mask[kTQ][kTN];
+};
+static_assert(sizeof(Stage<false>) % 16 == 0 && sizeof(Stage<true>) % 16 == 0,
+              "stages stay 16-byte aligned");
+
+int query_stride(int D) { return (D + 3) / 4 * 4; }
+
+// Shared bytes of the query tile staged whole, and whether it fits.
+template <bool kMasked>
+size_t whole_query_smem(int D) {
+  return 2 * sizeof(Stage<kMasked>) + sizeof(float) * 2 * kTQ * query_stride(D);
+}
+template <bool kMasked>
+bool query_per_stage(int D) {
+  return whole_query_smem<kMasked>(D) > (size_t)kMaxSweepSmem;
+}
+
+template <bool kMasked>
+size_t sweep_smem(int D) {
+  return query_per_stage<kMasked>(D)
+             ? 2 * sizeof(Stage<kMasked>) + sizeof(float) * 2 * kQueryChunkFloats
+             : whole_query_smem<kMasked>(D);
+}
+
+// A query of the tile as the epilogue reads it from shared memory.
+struct TileQuery {
+  float zn, t2;
+  int gold;  // maskless: the row it does not count (-1: none)
+  int ok;    // a query of the batch
+};
+
+// Copy features [k0, k0 + kn) of rows [r0, r0 + kRows) of a table of n rows
+// of ld floats into kRows staged rows of dst_ld floats; rows past n are
+// zero-filled.  One warp a row, a lane a 16-byte (vec: ld % 4 == 0, src
+// 16-byte aligned) or 4-byte column.
+template <int kRows>
+__device__ __forceinline__ void copy_rows(float* dst, int dst_ld, const float* src, int r0, int n,
+                                          int ld, int k0, int kn, bool vec, int tid) {
+  const int lane = tid & 31;
+  const int cols = vec ? (kn + 3) / 4 : kn;
+#pragma unroll 1
+  for (int r = tid >> 5; r < kRows; r += kThreads / 32) {
+    const bool ok = r0 + r < n;
+    const float* row = src + (size_t)(ok ? r0 + r : 0) * ld + k0;
+    float* out = dst + r * dst_ld;
+    for (int p = lane; p < cols; p += 32) {
+      if (vec) {
+        cp_async16(out + 4 * p, row + 4 * p, ok ? 16 : 0);
+      } else {
+        cp_async4(out + p, row + p, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// Copy features [k0, k0 + kn) of the query tile qt's rows, re then im, into
+// q (rows of qs floats).
+__device__ __forceinline__ void load_queries(const SweepArgs& a, float* q, int qs, int qt,
+                                             int k0, int kn, int tid) {
+  const int q0 = qt * kTQ;
+  copy_rows<kTQ>(q, qs, a.lhs2, q0, a.B, a.D, k0, kn, a.vec_q, tid);
+  copy_rows<kTQ>(q + kTQ * qs, qs, a.lhs2 + (size_t)a.B * a.D, q0, a.B, a.D, k0, kn, a.vec_q,
+                 tid);
+}
+
+// Start the copies of the stage at `pos` into `st` (and its query chunk into
+// q when the query tile is staged per stage).  Rows past B or Np are
+// zero-filled; their lanes never count.
+template <bool kMasked>
+__device__ __forceinline__ void load_stage(const SweepArgs& a, Stage<kMasked>& st, float* q,
+                                           StagePos pos, int tid) {
+  const int q0 = pos.qt * kTQ, j0 = pos.et * kTN;
+  const int k0 = pos.chunk * a.kc, kn = min(a.kc, a.D - k0);
+  copy_rows<kTN>(&st.w[0][0], kChunk, a.rhs, j0, a.Np, a.ld, k0, kn, a.vec_rows, tid);
+  if (a.q_per_stage) load_queries(a, q, kChunk, pos.qt, k0, kn, tid);
+  if (pos.chunk != a.n_chunks - 1) return;
+  if (tid < 2 * (kTN / 4)) {  // wn, bt: 16-byte copies, the tail zero-filled
+    const int v = tid / (kTN / 4), p = tid % (kTN / 4), j = j0 + 4 * p;
+    const int n = max(0, min(4, a.Np - j));
+    cp_async16((v == 0 ? st.wn : st.bt) + 4 * p, (v == 0 ? a.wn : a.bt) + (n > 0 ? j : 0), 4 * n);
+  }
+  if constexpr (kMasked) {
+    if (a.vec_mask) {
+      static_assert(kTQ * (kTN / 16) == kThreads, "one 16-byte mask copy a thread");
+      const int r = tid / (kTN / 16), p = tid % (kTN / 16), qq = q0 + r, j = j0 + 16 * p;
+      const bool ok = qq < a.B && j < a.Np;
+      cp_async16(&st.mask[r][16 * p], a.mask + (ok ? (size_t)qq * a.Np + j : 0), ok ? 16 : 0);
+    } else {  // a ragged row stride: plain byte loads
+#pragma unroll 1
+      for (int idx = tid; idx < kTQ * kTN; idx += kThreads) {
+        const int r = idx / kTN, e = idx % kTN, qq = q0 + r, j = j0 + e;
+        st.mask[r][e] = (qq < a.B && j < a.Np) ? a.mask[(size_t)qq * a.Np + j] : 1;
+      }
+    }
+  }
+}
+
+// acc += the staged chunk's first kn features, ascending: float4 reads of 4
+// features at a time, then the rest one by one.  (w: the stage's rows; q:
+// the query rows at the chunk's first feature, re rows then im rows, of qs
+// floats.)
+__device__ __forceinline__ void contract(float (&acc_re)[kQPT][kEPT],
+                                         float (&acc_im)[kQPT][kEPT], const float* w,
+                                         const float* q, int qs, int qbase, int lane, int kn) {
+  const float* q_re = q + qbase * qs;
+  const float* q_im = q + (kTQ + qbase) * qs;
+  const float* w_l = w + lane * kChunk;
+  int kk = 0;
+#pragma unroll 1
+  for (; kk + 4 <= kn; kk += 4) {
+    float4 wv[kEPT];
+#pragma unroll
+    for (int e = 0; e < kEPT; ++e)
+      wv[e] = *reinterpret_cast<const float4*>(w_l + 32 * e * kChunk + kk);
+#pragma unroll
+    for (int i = 0; i < kQPT; ++i) {
+      const float4 qr = *reinterpret_cast<const float4*>(q_re + i * qs + kk);
+      const float4 qi = *reinterpret_cast<const float4*>(q_im + i * qs + kk);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < kEPT; ++e)
+          chyp_accumulate(acc_re[i][e], acc_im[i][e], lane_of(qr, t), lane_of(qi, t),
+                          lane_of(wv[e], t));
+    }
+  }
+#pragma unroll 1
+  for (; kk < kn; ++kk) {
+#pragma unroll
+    for (int i = 0; i < kQPT; ++i)
+#pragma unroll
+      for (int e = 0; e < kEPT; ++e)
+        chyp_accumulate(acc_re[i][e], acc_im[i][e], q_re[i * qs + kk], q_im[i * qs + kk],
+                        w_l[32 * e * kChunk + kk]);
+  }
+}
+
+// K1 (kMasked) and K2's sweep.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, kSweepBlocks) chyp_sweep_kernel(const SweepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stage<kMasked>* st = reinterpret_cast<Stage<kMasked>*>(smem_raw);
+  float* q_rows = reinterpret_cast<float*>(smem_raw + 2 * sizeof(Stage<kMasked>));
+  __shared__ TileQuery tq[kTQ];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int qbase = (tid >> 5) * kQPT;  // this warp's first query in the tile
-  const int q0 = blockIdx.y * kTQ;
+  int item_begin, item_end;
+  rank_sweeps::block_items(a.n_items, &item_begin, &item_end);
+  if (item_begin >= item_end) return;
+  const int s_begin = item_begin * a.n_chunks, s_end = item_end * a.n_chunks;
 
-  float zn_r[kQPT], t2_r[kQPT];
-  int gold_r[kQPT], cnt[kQPT];
-  bool q_ok[kQPT];
+  float acc_re[kQPT][kEPT], acc_im[kQPT][kEPT];
+  int cnt[kQPT];
 #pragma unroll
   for (int i = 0; i < kQPT; ++i) {
-    const int q = q0 + qbase + i;
-    q_ok[i] = q < B;
-    zn_r[i] = q_ok[i] ? zn[q] : -1.0f;
-    t2_r[i] = q_ok[i] ? t2[q] : 0.0f;
-    gold_r[i] = (!kMasked && q_ok[i]) ? gold[q] : -1;
     cnt[i] = 0;
+#pragma unroll
+    for (int e = 0; e < kEPT; ++e) acc_re[i][e] = acc_im[i][e] = 0.0f;
   }
+  int cur_qt = -1;
 
-  const int n_tiles = (Np + kTN - 1) / kTN;
-  const int tile_end = min(n_tiles, (blockIdx.x + 1) * kTilesPerBlock);
-  for (int tile = blockIdx.x * kTilesPerBlock; tile < tile_end; ++tile) {
-    const int j0 = tile * kTN;
-    float acc_re[kQPT][kEPT], acc_im[kQPT][kEPT];
-#pragma unroll
-    for (int i = 0; i < kQPT; ++i)
-#pragma unroll
-      for (int e = 0; e < kEPT; ++e) acc_re[i][e] = acc_im[i][e] = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += kKC) {
-      const int kn = min(kKC, D - k0);
-      __syncthreads();  // the previous chunk's reads are done
-      for (int idx = tid; idx < kTQ * kKC; idx += kThreads) {
-        const int qq = idx / kKC, kk = idx % kKC, q = q0 + qq;
-        const bool ok = q < B && kk < kn;
-        q_re[kk][qq] = ok ? lhs2[(size_t)q * D + k0 + kk] : 0.0f;
-        q_im[kk][qq] = ok ? lhs2[(size_t)(B + q) * D + k0 + kk] : 0.0f;
-      }
-      for (int idx = tid; idx < kTN * kKC; idx += kThreads) {
-        const int e = idx / kKC, kk = idx % kKC, j = j0 + e;
-        w_s[e][kk] = (j < Np && kk < kn) ? rhs[(size_t)j * D + k0 + kk] : 0.0f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kn; ++kk) {
-        const float4 qr = *reinterpret_cast<const float4*>(&q_re[kk][qbase]);
-        const float4 qi = *reinterpret_cast<const float4*>(&q_im[kk][qbase]);
-        const float qre[kQPT] = {qr.x, qr.y, qr.z, qr.w};
-        const float qim[kQPT] = {qi.x, qi.y, qi.z, qi.w};
-#pragma unroll
-        for (int e = 0; e < kEPT; ++e) {
-          const float w = w_s[lane + 32 * e][kk];
-#pragma unroll
-          for (int i = 0; i < kQPT; ++i)
-            chyp_accumulate(acc_re[i][e], acc_im[i][e], qre[i], qim[i], w);
-        }
+  StagePos pos{item_begin / a.n_et, item_begin % a.n_et, 0};
+  load_stage<kMasked>(a, st[0], q_rows, pos, tid);
+  cp_async_commit();
+  for (int s = s_begin; s < s_end; ++s) {
+    const int buf = (s - s_begin) & 1;
+    const int chunk = pos.chunk, qt = pos.qt, j0 = pos.et * kTN;
+    // a new query tile: its rows replace the last tile's, which no thread
+    // reads after the previous iteration's closing barrier
+    if (!a.q_per_stage && qt != cur_qt) load_queries(a, q_rows, a.q_stride, qt, 0, a.D, tid);
+    cp_async_commit();
+    if (s + 1 < s_end) {  // the next stage streams in while this one computes
+      load_stage<kMasked>(a, st[buf ^ 1], q_rows + (buf ^ 1) * kQueryChunkFloats,
+                          next_pos(pos, a.n_chunks, a.n_et), tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (qt != cur_qt) {  // a new query tile: its scalars into shared memory
+      cur_qt = qt;
+      if (tid < kTQ) {
+        const int q = qt * kTQ + tid;
+        const int ok = q < a.B;
+        tq[tid] = TileQuery{ok ? a.zn[q] : -1.0f, ok ? a.t2[q] : 0.0f,
+                            (!kMasked && ok) ? a.gold[q] : -1, ok};
       }
     }
+    __syncthreads();  // this stage's copies and the tile's queries are visible
 
-#pragma unroll
-    for (int e = 0; e < kEPT; ++e) {
-      const int j = j0 + lane + 32 * e;
-      if (j >= Np) continue;
-      const float wn_j = wn[j], bt_j = bt[j];
+    const Stage<kMasked>& S = st[buf];
+    const int k0 = chunk * a.kc, kn = min(a.kc, a.D - k0);
+    const float* q = a.q_per_stage ? q_rows + buf * kQueryChunkFloats : q_rows + k0;
+    contract(acc_re, acc_im, &S.w[0][0], q, a.q_per_stage ? kChunk : a.q_stride, qbase, lane, kn);
+
+    if (chunk == a.n_chunks - 1) {
+      float zn_r[kQPT], t2_r[kQPT];
+      int gold_r[kQPT];
 #pragma unroll
       for (int i = 0; i < kQPT; ++i) {
-        if (!q_ok[i]) continue;
-        const float s = chyp_score(acc_re[i][e], acc_im[i][e], zn_r[i], wn_j,
-                                   bt_j, x_min);
-        bool keep;
-        if (kMasked) {
-          keep = mask[(size_t)(q0 + qbase + i) * Np + j] == 0;
-        } else {
-          keep = j != gold_r[i];
+        const TileQuery t = tq[qbase + i];
+        zn_r[i] = t.zn;
+        t2_r[i] = t.t2;
+        gold_r[i] = t.gold;
+      }
+#pragma unroll
+      for (int e = 0; e < kEPT; ++e) {
+        const int el = lane + 32 * e, j = j0 + el;
+        if (j < a.Np) {
+          const float wn_j = S.wn[el], bt_j = S.bt[el];
+#pragma unroll
+          for (int i = 0; i < kQPT; ++i) {
+            const float s_ij = chyp_score(acc_re[i][e], acc_im[i][e], zn_r[i], wn_j, bt_j,
+                                          a.x_min);
+            bool keep;
+            if constexpr (kMasked) {
+              keep = S.mask[qbase + i][el] == 0;
+            } else {
+              keep = j != gold_r[i];
+            }
+            cnt[i] += (keep && s_ij >= t2_r[i]) ? 1 : 0;
+          }
         }
-        cnt[i] += (keep && s >= t2_r[i]) ? 1 : 0;
+#pragma unroll
+        for (int i = 0; i < kQPT; ++i) acc_re[i][e] = acc_im[i][e] = 0.0f;
+      }
+      const bool last_of_tile = s + 1 == s_end || next_pos(pos, a.n_chunks, a.n_et).qt != qt;
+      if (last_of_tile) {
+#pragma unroll
+        for (int i = 0; i < kQPT; ++i) {
+          const unsigned c = __reduce_add_sync(0xffffffffu, (unsigned)cnt[i]);
+          if (lane == 0 && tq[qbase + i].ok && c) atomicAdd(&a.out[qt * kTQ + qbase + i], (int)c);
+          cnt[i] = 0;
+        }
       }
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kQPT; ++i) {
-    const unsigned c = __reduce_add_sync(0xffffffffu, (unsigned)cnt[i]);
-    if (lane == 0 && q_ok[i] && c) atomicAdd(&counts[q0 + qbase + i], (int)c);
+    pos = next_pos(pos, a.n_chunks, a.n_et);
+    __syncthreads();  // this buffer and the tile's queries are free again
   }
 }
 
@@ -188,7 +416,7 @@ chyp_filtered_sub_kernel(const float* __restrict__ lhs2,
                          const float* __restrict__ bt,
                          const int* __restrict__ fidx,
                          const int* __restrict__ gold, int* __restrict__ sub,
-                         int B, int Np, int D, int L, float x_min) {
+                         int B, int Np, int D, int ld, int L, float x_min) {
   __shared__ int warp_sums[kSubThreads / 32];
   const int b = blockIdx.x;
   const float* q_re = lhs2 + (size_t)b * D;
@@ -199,7 +427,7 @@ chyp_filtered_sub_kernel(const float* __restrict__ lhs2,
   for (int l = threadIdx.x; l < L; l += kSubThreads) {
     const int f = fidx[(size_t)b * L + l];
     if (f < 0 || f >= Np || f == gold_b) continue;
-    const float* w = rhs + (size_t)f * D;
+    const float* w = rhs + (size_t)f * ld;
     float acc_re = 0.0f, acc_im = 0.0f;
     for (int k = 0; k < D; ++k) chyp_accumulate(acc_re, acc_im, q_re[k], q_im[k], w[k]);
     const float s = chyp_score(acc_re, acc_im, zn_b, wn[f], bt[f], x_min);
@@ -216,49 +444,103 @@ chyp_filtered_sub_kernel(const float* __restrict__ lhs2,
   }
 }
 
-dim3 sweep_grid(int B, int Np) {
-  const int n_tiles = (Np + kTN - 1) / kTN;
-  return dim3((n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
-              (B + kTQ - 1) / kTQ);
+// ---------------------------------- launchers ----------------------------------
+
+// Resident blocks per SM of a sweep with `smem` bytes of dynamic shared
+// memory on the current device, and the device's SMs.
+template <bool kMasked>
+int sweep_blocks_per_sm(size_t smem, int* sms) {
+  static rank_sweeps::Occupancy cache;
+  return rank_sweeps::blocks_per_sm(cache, chyp_sweep_kernel<kMasked>, kThreads, smem,
+                                    kMaxSweepSmem, sms);
+}
+
+template <bool kMasked>
+int launch_sweep(SweepArgs a, cudaStream_t stream) {
+  if (a.B <= 0 || a.Np <= 0 || a.D <= 0) return 0;
+  if (a.ld < a.D || !aligned16(a.wn) || !aligned16(a.bt) ||
+      (kMasked ? a.mask == nullptr : a.gold == nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.n_chunks = (a.D + kChunk - 1) / kChunk;
+  a.kc = ((a.D + a.n_chunks - 1) / a.n_chunks + 3) / 4 * 4;  // <= kChunk
+  a.q_stride = query_stride(a.D);
+  a.q_per_stage = query_per_stage<kMasked>(a.D);
+  const size_t smem = sweep_smem<kMasked>(a.D);
+  int sms = 0;
+  const int per_sm = sweep_blocks_per_sm<kMasked>(smem, &sms);
+  if (per_sm < 0) return -per_sm;
+  a.n_et = (a.Np + kTN - 1) / kTN;
+  a.n_items = (a.B + kTQ - 1) / kTQ * a.n_et;
+  a.vec_rows = a.ld % 4 == 0 && aligned16(a.rhs);
+  a.vec_q = a.D % 4 == 0 && aligned16(a.lhs2);
+  a.vec_mask = kMasked && a.Np % 16 == 0 && aligned16(a.mask);
+  const int grid = rank_sweeps::grid_size(a.n_items, per_sm, sms);
+  chyp_sweep_kernel<kMasked><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Each launcher enqueues on `stream`,
 // does not synchronise, and returns cudaGetLastError() (0 = launched).
-// `counts` must be zeroed by the caller.
+// `counts` must be zeroed by the caller.  rhs is (Np, ld) with ld >= D, its
+// first D columns the features; wn and bt 16-byte aligned.
 extern "C" int chyp_rank_sweep_masked(const float* lhs2, const float* zn,
                                       const float* t2, const float* rhs,
                                       const float* wn, const float* bt,
                                       const int8_t* mask, int* counts, int B,
-                                      int Np, int D, float x_min,
+                                      int Np, int D, int ld, float x_min,
                                       cudaStream_t stream) {
-  if (B <= 0 || Np <= 0) return 0;
-  chyp_sweep_kernel<true><<<sweep_grid(B, Np), kThreads, 0, stream>>>(
-      lhs2, zn, t2, rhs, wn, bt, mask, nullptr, counts, B, Np, D, x_min);
-  return (int)cudaGetLastError();
+  const SweepArgs a{lhs2, zn, t2, rhs, wn, bt, mask, nullptr, counts, B, Np, D, ld, x_min};
+  return launch_sweep<true>(a, stream);
 }
 
 extern "C" int chyp_rank_sweep_nomask(const float* lhs2, const float* zn,
                                       const float* t2, const float* rhs,
                                       const float* wn, const float* bt,
                                       const int* gold, int* counts, int B,
-                                      int Np, int D, float x_min,
+                                      int Np, int D, int ld, float x_min,
                                       cudaStream_t stream) {
-  if (B <= 0 || Np <= 0) return 0;
-  chyp_sweep_kernel<false><<<sweep_grid(B, Np), kThreads, 0, stream>>>(
-      lhs2, zn, t2, rhs, wn, bt, nullptr, gold, counts, B, Np, D, x_min);
-  return (int)cudaGetLastError();
+  const SweepArgs a{lhs2, zn, t2, rhs, wn, bt, nullptr, gold, counts, B, Np, D, ld, x_min};
+  return launch_sweep<false>(a, stream);
 }
 
 extern "C" int chyp_rank_filtered_sub(const float* lhs2, const float* zn,
                                       const float* t2, const float* rhs,
                                       const float* wn, const float* bt,
                                       const int* fidx, const int* gold,
-                                      int* sub, int B, int Np, int D, int L,
+                                      int* sub, int B, int Np, int D, int ld, int L,
                                       float x_min, cudaStream_t stream) {
   if (B <= 0) return 0;
+  if (ld < D) return (int)cudaErrorInvalidValue;
   chyp_filtered_sub_kernel<<<B, kSubThreads, 0, stream>>>(
-      lhs2, zn, t2, rhs, wn, bt, fidx, gold, sub, B, Np, D, L, x_min);
+      lhs2, zn, t2, rhs, wn, bt, fidx, gold, sub, B, Np, D, ld, L, x_min);
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spill) bytes a thread, resident blocks per SM
+// and shared bytes a block of the masked or maskless sweep at feature width
+// D on the current device.
+extern "C" int chyp_rank_sweep_info(int masked, int D, int* regs, int* local_bytes,
+                                    int* blocks_per_sm, int* smem_bytes) {
+  auto info = [&](auto kernel, size_t smem, int per_sm) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *blocks_per_sm = per_sm;
+    *smem_bytes = (int)(smem + attr.sharedSizeBytes);
+    return 0;
+  };
+  if (D <= 0) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (masked) {
+    const size_t smem = sweep_smem<true>(D);
+    const int per_sm = sweep_blocks_per_sm<true>(smem, &sms);
+    return per_sm < 0 ? -per_sm : info(chyp_sweep_kernel<true>, smem, per_sm);
+  }
+  const size_t smem = sweep_smem<false>(D);
+  const int per_sm = sweep_blocks_per_sm<false>(smem, &sms);
+  return per_sm < 0 ? -per_sm : info(chyp_sweep_kernel<false>, smem, per_sm);
 }

@@ -54,8 +54,9 @@ from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.kernels._build import check_aligned
 from complexhyperbolickge_torch.kernels._build import check_tensor as _check
-from complexhyperbolickge_torch.kernels._build import launch
+from complexhyperbolickge_torch.kernels._build import kernel_info, launch
 from complexhyperbolickge_torch.kernels._ranker import ROW_TILE, FusedRanker
 from complexhyperbolickge_torch.ops.math import MIN_NORM, ball_eps, round_up
 
@@ -319,14 +320,6 @@ def _family(family: str) -> int:
         raise ValueError(f"unknown hyp_rank family {family!r}") from None
 
 
-def _check_aligned(**tensors):
-    """The sweeps copy the per-row vectors and read the radius table with
-    16-byte loads: each must start on a 16-byte boundary."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-
-
 def _check_sweep(b, np_, cid, cvals, radii, family, device):
     """cid int32 (B,), cvals float32 (n_c,), radii float32 (n_c, Np, W);
     returns n_c."""
@@ -352,7 +345,7 @@ def hyp_rank_counts(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
     b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
     n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
     _check("mask", mask, torch.int8, (b, np_), lhs.device)
-    _check_aligned(un=un, bt=bt, radii=radii)
+    check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("hyp_rank_sweep_masked", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
             mask, counts, b, np_, d, n_c, fam)
@@ -390,18 +383,9 @@ def sweep_info(family: str, device, d: int, masked: bool = True) -> dict:
     resident blocks per SM of the sweep of `family` ("poincare", "lorentz"
     or "attrh"), masked or not, at feature width d on `device`, as the CUDA
     runtime reports them."""
-    import ctypes
-
-    from complexhyperbolickge_torch.kernels._build import load_library
-
-    vals = [ctypes.c_int() for _ in range(4)]
-    with torch.cuda.device(device):
-        rc = load_library("hyp_rank").hyp_rank_sweep_info(
-            RADII_FAMILIES[family], int(masked), d, *[ctypes.byref(v) for v in vals])
-    if rc != 0:
-        raise RuntimeError(f"hyp_rank_sweep_info failed: cudaError {rc}")
-    return dict(zip(("regs_per_thread", "local_bytes", "smem_bytes", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    vals = kernel_info("hyp_rank", "hyp_rank_sweep_info", device, RADII_FAMILIES[family],
+                       int(masked), d)
+    return dict(zip(("regs_per_thread", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
 
 
 def hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
@@ -416,7 +400,7 @@ def hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
     b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
     n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
     _check("gold", gold, torch.int32, (b,), lhs.device)
-    _check_aligned(un=un, bt=bt, radii=radii)
+    check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("hyp_rank_sweep_nomask", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
             gold, counts, b, np_, d, n_c, fam)
@@ -469,7 +453,7 @@ def attrh_rank_counts(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref
     b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
     n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
     _check("mask", mask, torch.int8, (b, np_), lhs.device)
-    _check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
+    check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("attrh_rank_sweep_masked", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
             un_rot, un_ref, bt, radii, mask, counts, b, np_, d, n_c)
@@ -485,7 +469,7 @@ def attrh_rank_sweep_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, 
     b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
     n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
     _check("gold", gold, torch.int32, (b,), lhs.device)
-    _check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
+    check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("attrh_rank_sweep_nomask", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
             un_rot, un_ref, bt, radii, gold, counts, b, np_, d, n_c)

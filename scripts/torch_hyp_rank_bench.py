@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the hyp_rank kernels of the PyTorch/CUDA port (the sweeps K5-K8 and
-the radius launcher) and the fused rankers on one NVIDIA GPU, at two eval
-shapes (B = 500 queries, D = 32, 5 filtered ids a query):
+"""Times the rank sweeps of the PyTorch/CUDA port (the hyp_rank sweeps K5-K8
+and their radius launcher; with --family fft the chyp_rank sweeps K1/K2) and
+the fused rankers on one NVIDIA GPU, at two eval shapes (B = 500 queries,
+D = 32, or D = 66 for FFTRotH at rank 33; 5 filtered ids a query):
 
   wn18rr    40,943 entities padded to Np = 40,960 rows, 22 curvatures
             (11 relations with inverses, multi_c): a 14 MB Poincare table;
@@ -12,9 +13,11 @@ shapes (B = 500 queries, D = 32, 5 filtered ids a query):
 
 Inputs are drawn from --seed at the scales of chip_smoke.py's planted runs
 (entity ~ N(0, 0.05), bt ~ N(0, 0.01)); thresholds are each query's gold
-score.
+score.  The fft family takes its kernels' inputs from ChypRanker on an
+FFTRotH model of the shape's size (its table's rows padded to 68 floats).
 
-    python3 scripts/torch_hyp_rank_bench.py [--shape wn18rr yago3-10] [--seed 0] [--reps 50]
+    python3 scripts/torch_hyp_rank_bench.py [--shape wn18rr yago3-10]
+        [--family poincare lorentz attrh fft] [--seed 0] [--reps 50]
 
 Prints one JSON line per shape and family: the sweeps' op bound (as
 chip_smoke.py's kernels line counts it), registers and resident blocks of
@@ -23,8 +26,8 @@ one (must be equal) and against the plain version (within the
 near-threshold count), device times (CUDA events; interleaved masked,
 maskless, maskless, masked), the radius launcher's time, and the fused
 ranker's busy time per call on the card (torch.profiler, 5 calls, masked
-and maskless) for RotH, RotLH and AttRH models of the shape's size; then
-the card's name and power limit.
+and maskless) for a RotH, RotLH, AttRH or FFTRotH model of the shape's
+size; then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 B, D, L = 500, 32, 5
+FFT_RANK = 33  # the published WN18RR FFTRotH config: D = 66
 # shape -> (entities, padded rows, curvatures)
 SHAPES = {"wn18rr": (40_943, 40_960, 22), "yago3-10": (123_182, 123_264, 74)}
-MODELS = {"poincare": "RotH", "lorentz": "RotLH", "attrh": "AttRH"}
+MODELS = {"poincare": "RotH", "lorentz": "RotLH", "attrh": "AttRH", "fft": "FFTRotH"}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -58,6 +62,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def fft_inputs(shape: str, seed: int):
+    """K1/K2's inputs for one batch, from ChypRanker (masked and maskless
+    forms) on model_and_batch's FFTRotH."""
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
+
+    model, q, f = model_and_batch("fft", shape, seed)
+    ranker = K.ChypRanker(model)
+    t = ranker.kernel_inputs(q, f, masked=True)
+    xn = ranker.kernel_inputs(q, f, masked=False)
+    t.update(fidx=xn["fidx"], gold=xn["gold"])
+    scores = K.chyp_scores_plain(t["lhs2"], t["zn"], t["rhs"], t["wn"], t["bt"])
+    t["near"] = ((scores - t["t2"][:, None]).abs()
+                 <= (1e-5 * (1 + t["t2"].abs()))[:, None]).sum(1)
+    del scores
+    return t
 
 
 def inputs(kind: str, shape: str, seed: int):
@@ -112,9 +133,16 @@ def inputs(kind: str, shape: str, seed: int):
 
 def kernels(kind: str, t: dict):
     """(masked, maskless sweep, maskless count, plain masked count, radius
-    launcher), each a function of no arguments."""
+    launcher or None), each a function of no arguments."""
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
+    if kind == "fft":
+        pre = [t[k] for k in ("lhs2", "zn", "t2", "rhs", "wn", "bt")]
+        return (lambda: K.chyp_rank_counts(*pre, t["mask"]),
+                lambda: K.chyp_rank_sweep_nomask(*pre, t["gold"]),
+                lambda: K.chyp_rank_counts_nomask(*pre, t["fidx"], t["gold"]),
+                lambda: K.chyp_rank_counts_plain(*pre, t["mask"]), None)
     if kind == "attrh":
         pre = [t[k] for k in ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs",
                               "un_rot", "un_ref", "bt", "radii")]
@@ -135,58 +163,77 @@ def bench(kind: str, shape: str, seed: int, reps: int) -> dict:
     import torch
 
     import chip_smoke as S
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
-    t = inputs(kind, shape, seed)
+    fft = kind == "fft"
+    t = fft_inputs(shape, seed) if fft else inputs(kind, shape, seed)
     masked, sweep, maskless, plain, radii = kernels(kind, t)
     got, nomask, ref = masked(), maskless(), plain()
     torch.cuda.synchronize()
     times = {}
     for name in ("masked", "maskless_sweep", "maskless_sweep", "masked"):
         times.setdefault(name, []).append(cuda_ms(masked if name == "masked" else sweep, reps))
-    info = {"masked" if m else "maskless": H.sweep_info(kind, torch.device("cuda"), D, masked=m)
+    dev = torch.device("cuda")
+    d = int(t["lhs2" if fft else "lhs"].shape[1])
+    info = {"masked" if m else "maskless": (K.sweep_info(dev, d, masked=m) if fft
+                                            else H.sweep_info(kind, dev, d, masked=m))
             for m in (True, False)}
-    # the sweeps' op bound as chip_smoke.py's kernels line counts it: per
-    # pair the contraction's 2 D operations and the epilogue's (counted as
-    # if the radius part were computed per pair)
+    # the sweeps' op bound as chip_smoke.py's kernels line counts it: K1/K2
+    # two D-long FMA chains a pair; K5-K8 per pair the contraction's 2 D
+    # operations and the epilogue's (counted as if the radius part were
+    # computed per pair)
     f32_peak = S.peak_rates(torch.cuda.get_device_name(0))[0]
     np_ = int(t["rhs"].shape[0])
-    return {"shape": shape, "family": kind, "Np": np_,
-            "n_curvatures": int(t["cvals"].shape[0]),
-            "bound_ms": B * np_ * (2 * D + S.EPILOGUE_OPS[kind]) / f32_peak * 1e3,
-            "table_mb": t["radii"].numel() * 4 / 1e6, "sweeps": info,
+    pair_ops = 4 * d if fft else 2 * d + S.EPILOGUE_OPS[kind]
+    table = t["rhs"] if fft else t["radii"]
+    return {"shape": shape, "family": kind, "Np": np_, "D": d,
+            "n_curvatures": None if fft else int(t["cvals"].shape[0]),
+            "bound_ms": B * np_ * pair_ops / f32_peak * 1e3,
+            "table_mb": table.numel() * 4 / 1e6, "sweeps": info,
             "masked_equals_maskless": torch.equal(got, nomask),
             "max_abs_err_vs_plain": int((got - ref).abs().max()),
             "within_near_threshold": bool(((got - ref).abs() <= t["near"]).all()),
-            "ms": times, "radii_ms": cuda_ms(radii, reps)}
+            "ms": times, "radii_ms": None if radii is None else cuda_ms(radii, reps)}
 
 
-def ranker_busy(kind: str, shape: str, seed: int) -> dict:
-    """The fused ranker's busy time on the card per call of B queries
-    (masked and maskless), for a model of the shape's size with weights
-    drawn from the seed."""
+def model_and_batch(kind: str, shape: str, seed: int):
+    """A model of the family at the shape's size (rank 32, FFTRotH 33;
+    multi_c, bias learn) with entities drawn from the seed, and one batch:
+    queries q (B, 3) and filter ids f (B, L), the gold first."""
     import numpy as np
     import torch
 
-    import chip_smoke as S
-    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
     from complexhyperbolickge_torch.models import ModelConfig, get_model
 
     n, _, n_c = SHAPES[shape]
-    name = MODELS[kind]
-    cfg = ModelConfig(n_entities=n, n_relations=n_c, rank=D, bias="learn", multi_c=True,
-                      dtype="float32")
-    model = get_model(name)(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    cfg = ModelConfig(n_entities=n, n_relations=n_c, rank=FFT_RANK if kind == "fft" else D,
+                      bias="learn", multi_c=True, dtype="float32")
+    model = get_model(MODELS[kind])(cfg, device="cuda",
+                                    generator=torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     with torch.no_grad():
-        model.entity.copy_(torch.as_tensor(rng.normal(0, 0.05, (n, D)), dtype=torch.float32))
+        model.entity.copy_(torch.as_tensor(rng.normal(0, 0.05, tuple(model.entity.shape)),
+                                           dtype=torch.float32))
     q = torch.as_tensor(np.stack([rng.integers(0, n, B), rng.integers(0, n_c, B),
                                   rng.integers(0, n, B)], 1), device="cuda")
     f = torch.as_tensor(np.concatenate([q[:, 2:].cpu().numpy(),
                                         rng.integers(0, n, (B, L - 1))], 1), device="cuda")
-    out = {"model": name}
+    return model, q, f
+
+
+def ranker_busy(kind: str, shape: str, seed: int) -> dict:
+    """The fused ranker's busy time on the card per call of B queries
+    (masked and maskless), for model_and_batch's model."""
+    import chip_smoke as S
+    from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+
+    model, q, f = model_and_batch(kind, shape, seed)
+    cls = {"fft": ChypRanker, "attrh": AttRHRanker}.get(kind, HypRanker)
+    out = {"model": MODELS[kind]}
     for masked in (True, False):
-        ranker = (AttRHRanker if kind == "attrh" else HypRanker)(model, masked=masked)
+        ranker = cls(model, masked=masked)
         ranker(q, f)  # tables and warm-up
         prof = S.profile_window(lambda: [ranker(q, f) for _ in range(5)])
         out["masked" if masked else "maskless"] = {
@@ -198,6 +245,8 @@ def ranker_busy(kind: str, shape: str, seed: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--shape", nargs="+", choices=sorted(SHAPES), default=["wn18rr"])
+    p.add_argument("--family", nargs="+", choices=sorted(MODELS),
+                   default=["poincare", "lorentz", "attrh"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=50)
     a = p.parse_args(argv)
@@ -207,12 +256,14 @@ def main(argv=None) -> int:
         raise SystemExit("torch_hyp_rank_bench: needs a CUDA card")
     from complexhyperbolickge_torch.kernels import _build
 
-    _build.build_all(["hyp_rank"])
-    print(json.dumps({"ptxas": [ln.strip() for ln in _build.build_logs.get("hyp_rank", "")
-                                .splitlines() if "registers" in ln or "spill" in ln]}))
+    libs = ["chyp_rank"] * ("fft" in a.family) + ["hyp_rank"] * (a.family != ["fft"])
+    _build.build_all(libs)
+    print(json.dumps({"ptxas": {lib: [ln.strip() for ln in _build.build_logs.get(lib, "")
+                                      .splitlines() if "registers" in ln or "spill" in ln]
+                                for lib in libs}}))
     ok = True
     for shape in a.shape:
-        for kind in ("poincare", "lorentz", "attrh"):
+        for kind in a.family:
             row = bench(kind, shape, a.seed, a.reps)
             row["ranker"] = ranker_busy(kind, shape, a.seed)
             print(json.dumps(row), flush=True)

@@ -129,6 +129,28 @@ def test_plain_filtered_sub_skips_gold_pad_and_out_of_range(inputs):
     assert ((sub - (hit & ok).sum(1)).abs() <= _near(t["scores"], t["t2"])).all()
 
 
+PLAIN = {
+    "masked": (K.chyp_rank_counts_plain, ("mask",)),
+    "nomask": (K.chyp_rank_sweep_nomask_plain, ("gold",)),
+    "filtered_sub": (K.chyp_rank_filtered_sub_plain, ("fidx", "gold")),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(PLAIN))
+def test_plain_counts_equal_on_padded_table(inputs, kernel):
+    """The plain versions contract over the table's first D columns only: a
+    table whose rows are padded (D = 18 in rows of 20, with garbage in the
+    pad columns) gives the counts of the unpadded one, bit for bit."""
+    t, _ = inputs
+    fn, extra = PLAIN[kernel]
+    padded = torch.cat([t["rhs"], torch.full((NP, 2), 7.0)], 1)
+    args = [t[k] for k in ("lhs2", "zn", "t2")]
+    tail = [t["wn"], t["bt"], *[t[k] for k in extra]]
+    want = fn(*args, t["rhs"], *tail)
+    assert torch.equal(fn(*args, padded, *tail), want)
+    assert want.sum() > 0
+
+
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(inputs):
     """No fallback: a tensor on neither the CPU nor a CUDA card raises."""
     t, _ = inputs
@@ -207,6 +229,29 @@ def test_chyp_ranker_matches_dense_across_fft_models(kg_pair, name, bias):
         got = TEV.get_ranking(model, pack, 64, rank_fn=ranker)
         assert (np.abs(got - dense) <= _near_ranker(ranker, q, f).numpy()).all()
         assert abs(np.mean(1 / got) - np.mean(1 / dense)) < 1e-4
+
+
+@pytest.mark.parametrize("rank", [RANK, 33])
+def test_chyp_ranker_pads_table_rows(kg_pair, rank):
+    """The ranker's table: rows padded with zeros to a multiple of 4 floats
+    (D = 18 -> 20; the main path's D = 66 -> 68), pad rows zero, and wn
+    bit-equal to the unpadded rows' computation."""
+    tdata = kg_pair[3]
+    cfg = ModelConfig(n_entities=tdata.n_entities, n_relations=tdata.n_predicates, rank=rank,
+                      bias="learn", multi_c=True)
+    model = get_model("FFTRotH")(cfg, generator=torch.Generator().manual_seed(2))
+    rhs, bt, wn = K.ChypRanker(model)._get_tables()
+    n, d = model.entity.shape
+    np_ = -(-(n + 1) // 128) * 128
+    assert rhs.shape == (np_, -(-d // 4) * 4) and rhs.is_contiguous()
+    assert rhs.shape[1] > d and rhs.data_ptr() % 16 == 0
+    assert torch.equal(rhs[:n, :d], model.entity.detach())
+    assert not rhs[n:].any() and not rhs[:, d:].any()
+    rows = torch.zeros((np_, d))
+    rows[:n] = model.entity.detach()
+    want = (torch.sum(rows * rows, dim=-1) - 1.0).clamp(-1.0, -K._EPS)
+    assert torch.equal(wn, want)
+    assert bt.shape == (np_,) and (bt[n:] == -1e30).all()
 
 
 def test_chyp_ranker_maskless_gold_not_filtered_adds_one(kg_pair):

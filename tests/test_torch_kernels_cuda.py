@@ -37,21 +37,22 @@ def _cuda_or_skip():
     return torch.device("cuda")
 
 
-def make_inputs(b, n, d, l, seed=0):
+def make_inputs(b, n, d, l, seed=0, np_=None, ld=None):
     """Ranking inputs on the CPU: thresholds at each query's gold score,
-    filter rows holding the gold once, pad = n."""
+    filter rows holding the gold once, pad = n, Np rows (default n + 1
+    rounded up to 128) of ld >= d floats (default d), zero past d."""
     rng = np.random.default_rng(seed)
-    np_ = -(-(n + 1) // 128) * 128
+    np_ = np_ or -(-(n + 1) // 128) * 128
     lhs = torch.as_tensor(rng.normal(0, 0.15, (b, d)), dtype=torch.float32)
     r = d // 2
     lhs2 = torch.cat([lhs, torch.cat([lhs[:, r:], -lhs[:, :r]], 1)]).contiguous()
-    rhs = torch.zeros((np_, d), dtype=torch.float32)
-    rhs[:n] = torch.as_tensor(rng.normal(0, 0.15, (n, d)), dtype=torch.float32)
+    rhs = torch.zeros((np_, ld or d), dtype=torch.float32)
+    rhs[:n, :d] = torch.as_tensor(rng.normal(0, 0.15, (n, d)), dtype=torch.float32)
     bt = torch.full((np_,), -1e30, dtype=torch.float32)
     bt[:n] = torch.as_tensor(rng.normal(0, 0.3, n), dtype=torch.float32)
     eps = 4e-3
     zn = (torch.sum(lhs * lhs, -1) - 1.0).clamp(-1.0, -eps)
-    wn = (torch.sum(rhs * rhs, -1) - 1.0).clamp(-1.0, -eps)
+    wn = (torch.sum(rhs[:, :d] ** 2, -1) - 1.0).clamp(-1.0, -eps)
     gold = rng.integers(0, n, b)
     fidx = np.full((b, l), n, np.int32)
     for i in range(b):
@@ -115,7 +116,89 @@ def test_wrappers_check_inputs_and_count_launches():
                            c["wn"], c["bt"], c["mask"])
     with pytest.raises(ValueError, match="is on"):
         K.chyp_rank_counts(*[c[k] for k in BASE], t["mask"])
+    with pytest.raises(ValueError, match="fewer than"):
+        K.chyp_rank_counts(c["lhs2"], c["zn"], c["t2"], c["rhs"][:, :-1].contiguous(),
+                           c["wn"], c["bt"], c["mask"])
+    with pytest.raises(ValueError, match="16-byte"):
+        K.chyp_rank_counts(c["lhs2"], c["zn"], c["t2"], c["rhs"],
+                           torch.cat([c["wn"][:1], c["wn"]])[1:], c["bt"], c["mask"])
     assert K.launches["chyp_rank_sweep_masked"] == 1
+
+
+# (B, N, D, L, Np, ld): the main path's shape with the table's rows padded
+# to 68 floats (more (query tile, entity tile) items than resident blocks);
+# B = 5 at Np = 129 (fewer items than blocks; byte-wise mask copies);
+# unpadded rows of D = 66 (4-byte row copies); D = 70 in rows of 72 (two
+# feature chunks); D = 18 in rows of 20; D = 400 (the query tile too wide
+# to stage whole: its rows staged a chunk a stage)
+CHYP_RAGGED = [(500, 40_000, 66, 5, None, 68), (5, 128, 66, 3, 129, 68),
+               (37, 1000, 66, 9, 1005, 66), (20, 500, 70, 5, 520, 72),
+               (48, 300, 18, 6, None, 20), (37, 600, 400, 5, None, 400)]
+
+
+def _on(dev, t):
+    return {k: v.to(dev) for k, v in t.items()}
+
+
+@pytest.mark.parametrize("shape", CHYP_RAGGED)
+def test_chyp_ragged_matches_plain_and_maskless(shape):
+    """K1, K2's sweep and its subtraction at ragged B, Np and table strides,
+    with every 5th gold -1: within the near-threshold count of the plain
+    versions, and K1 == K2 sweep - subtraction exactly (a gold of -1: the
+    sweep counts the gold row and the subtraction its filter slot)."""
+    dev = _cuda_or_skip()
+    b, n, d, l, np_, ld = shape
+    t, near = make_inputs(b, n, d, l, np_=np_, ld=ld)
+    t["gold"][::5] = -1
+    c = _on(dev, t)
+    base = [c[k] for k in BASE]
+    got = {"masked": K.chyp_rank_counts(*base, c["mask"]),
+           "nomask": K.chyp_rank_sweep_nomask(*base, c["gold"]),
+           "filtered_sub": K.chyp_rank_filtered_sub(*base, c["fidx"], c["gold"])}
+    torch.cuda.synchronize()
+    plain = [t[k] for k in BASE]
+    want = {"masked": K.chyp_rank_counts_plain(*plain, t["mask"]),
+            "nomask": K.chyp_rank_sweep_nomask_plain(*plain, t["gold"]),
+            "filtered_sub": K.chyp_rank_filtered_sub_plain(*plain, t["fidx"], t["gold"])}
+    for name in got:
+        assert got[name].dtype == torch.int32 and got[name].shape == (b,)
+        assert ((got[name].cpu() - want[name]).abs() <= near).all(), name
+    assert torch.equal(got["masked"], got["nomask"] - got["filtered_sub"])
+
+
+@pytest.mark.parametrize("shape", CHYP_RAGGED)
+def test_chyp_unfiltered_golds(shape):
+    """A batch whose golds are not filtered: K1 within the near-threshold
+    count of the plain version, and K1 == K2 sweep - subtraction + the
+    gold's own count (the subtraction over the gold alone, gold -1), which
+    is what the ranker's +1 stands for."""
+    dev = _cuda_or_skip()
+    b, n, d, l, np_, ld = shape
+    t, near = make_inputs(b, n, d, l, np_=np_, ld=ld)
+    gold = t["gold"]
+    t["fidx"] = torch.where(t["fidx"] == gold[:, None], n, t["fidx"])
+    t["mask"] = torch.zeros_like(t["mask"])
+    t["mask"][:, n:] = 1
+    t["mask"].scatter_(1, t["fidx"].long(), 1)
+    c = _on(dev, t)
+    base = [c[k] for k in BASE]
+    masked = K.chyp_rank_counts(*base, c["mask"])
+    torch.cuda.synchronize()
+    want = K.chyp_rank_counts_plain(*[t[k] for k in BASE], t["mask"])
+    assert ((masked.cpu() - want).abs() <= near).all()
+    own = K.chyp_rank_filtered_sub(*base, c["gold"][:, None].contiguous(),
+                                   torch.full_like(c["gold"], -1))
+    maskless = K.chyp_rank_counts_nomask(*base, c["fidx"], c["gold"])
+    assert torch.equal(masked, maskless + own)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_chyp_sweep_info(masked):
+    """The sweeps at the main path's D = 66: resident, no spills."""
+    dev = _cuda_or_skip()
+    info = K.sweep_info(dev, 66, masked=masked)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    assert info["regs_per_thread"] > 0 and info["smem_bytes"] > 48 * 1024
 
 
 # ---------------------- hyp_rank: K5-K8 (csrc/hyp_rank.cu) ----------------------
