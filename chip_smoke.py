@@ -34,10 +34,13 @@ line:
               started together)
   3 kernels   each CUDA kernel against its plain PyTorch version at the main
               paths' shapes: the rankers K1/K2 on an eval batch (the maskless
-              count must equal the masked), the train distance K3/K4 at
-              (500, 100, 66) in the clamped-at-init and 0.4 regimes
-  4 train-step parity  3 Adam steps through K3/K4 and through the plain
-              version from the same params and negatives: params agree
+              count must equal the masked), the train distance K3/K4 in
+              the clamped-at-init and 0.4 regimes: the gathered (identity)
+              form at (500, 100, 66), and the id form of the training step,
+              500 x (1 + 100) sampler-drawn ids over a 40,943 x 66 table
+  4 train-step parity  3 Adam steps through K3/K4 (one launch of each a
+              step) and through the plain version from the same params and
+              negatives: params agree
   5 hyp-run   run dirs of RotH, RotLH and AttRH with planted test answers
               (write_run, plant): how many folds could be inverted
   6 hyp-kernels  K5 (Poincare on RotH, Lorentz on RotLH), K6, K7 and K8
@@ -57,7 +60,8 @@ line:
               autograd, no kernel in the step; validation and the final test
               through K5)
  11 launches  each path's kernel launches; a kernel of a path that never
-              launched there fails the run, K3/K4 must launch at least once
+              launched there fails the run, K3/K4 (and chyp_train_lists,
+              K4's index preparation) must launch at least once
               per training step, and each of RotH, RotLH and AttRH must
               launch its family's three kernels and the radius launcher
  12 gnn-kernels  K9 against index_add_ (rtol 1e-5, atol 1e-6) and K10 against
@@ -549,36 +553,79 @@ def train_pair(scale: float, seed: int):
             for s, shape in ((scale, (BATCH, d)), (scale, (BATCH, NEG, d)), (1.0, (BATCH, NEG)))]
 
 
+def train_ids(scale: float, seed: int):
+    """The id form's input at the training step's shape: lhs (B, D) and a
+    WN18RR-sized table (N, D) ~ N(0, scale), ids (B, 1 + NEG) of a random
+    batch's tails and the sampler's negatives, and a cotangent g, on the
+    card."""
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.train.losses import sample_negatives
+
+    r = np.random.default_rng(seed)
+    n, d = WN18RR["synthetic_entities"], 2 * RANK
+    batch = torch.as_tensor(r.integers(0, n, (BATCH, 3)), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ids = torch.cat([batch[:, 2:3], sample_negatives(gen, batch, n, NEG)], dim=1)
+    lhs, table, g = [torch.tensor(r.normal(0.0, s, shape), dtype=torch.float32, device=DEVICE)
+                     for s, shape in ((scale, (BATCH, d)), (scale, (n, d)),
+                                      (1.0, (BATCH, 1 + NEG)))]
+    return lhs, table, ids, g
+
+
 def phase_train_kernels(seed: int):
-    """K3/K4 through chyp_train_distance against chyp_train_distance_plain
-    (forward and both gradients) at (500, 100, 66), in the clamped-at-init
-    (1e-3) and the 0.4 regime."""
+    """K3/K4 against their plain version (forward and both gradients), in
+    the clamped-at-init (1e-3) and the 0.4 regime: the gathered form
+    (chyp_train_distance, the identity form) at (500, 100, 66), and the id
+    form (chyp_train_distance_ids) at the training step's ids over the
+    WN18RR table."""
     import torch
 
     from complexhyperbolickge_torch.kernels import chyp_train as CT
 
-    def value_and_grads(fn, lhs, rhs, g):
+    def value_and_grads(fn, lhs, rhs, g, *ids):
         l, r = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
-        d = fn(l, r)
+        d = fn(l, r, *ids)
         (d * g).sum().backward()
         return d.detach(), l.grad, r.grad
 
-    out = {"phase": "train-kernels", "B": BATCH, "K": NEG, "D": 2 * RANK, "regimes": {}}
+    out = {"phase": "train-kernels", "B": BATCH, "K": NEG, "D": 2 * RANK,
+           "N": WN18RR["synthetic_entities"], "regimes": {}}
     errors = dict.fromkeys(TRAIN_KERNELS, 0.0)
-    for scale in (1e-3, 0.4):
-        lhs, rhs, g = train_pair(scale, seed)
-        got = value_and_grads(CT.chyp_train_distance, lhs, rhs, g)
-        want = value_and_grads(CT.chyp_train_distance_plain, lhs, rhs, g)
-        torch.cuda.synchronize()
-        tols = (TRAIN_FWD_TOL, TRAIN_GRAD_TOL, TRAIN_GRAD_TOL)
-        ok = [bool(torch.allclose(a, b, **t)) for a, b, t in zip(got, want, tols)]
-        diff = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        out["regimes"][str(scale)] = {
-            "d_max_abs_err": diff[0], "d_lhs_max_abs_err": diff[1],
-            "d_rhs_max_abs_err": diff[2], "within_tolerance": ok,
-            "finite": all(bool(torch.isfinite(t).all()) for t in got)}
-        errors["chyp_train_fwd"] = max(errors["chyp_train_fwd"], diff[0])
-        errors["chyp_train_bwd"] = max(errors["chyp_train_bwd"], diff[1], diff[2])
+    for form in ("gathered", "ids"):
+        for scale in (1e-3, 0.4):
+            if form == "ids":
+                lhs, rhs, ids, g = train_ids(scale, seed)
+                pair = (CT.chyp_train_distance_ids, CT.chyp_train_distance_ids_plain)
+                args = (lhs, rhs, g, ids)
+            else:
+                pair = (CT.chyp_train_distance, CT.chyp_train_distance_plain)
+                args = train_pair(scale, seed)
+            got = value_and_grads(pair[0], *args)
+            want = value_and_grads(pair[1], *args)
+            torch.cuda.synchronize()
+            tols = (TRAIN_FWD_TOL, TRAIN_GRAD_TOL, TRAIN_GRAD_TOL)
+            ok = [bool(torch.allclose(a, b, **t)) for a, b, t in zip(got, want, tols)]
+            diff = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            regime = {"d_max_abs_err": diff[0], "d_lhs_max_abs_err": diff[1],
+                      "d_rhs_max_abs_err" if form == "gathered" else "d_table_max_abs_err":
+                      diff[2], "within_tolerance": ok,
+                      "finite": all(bool(torch.isfinite(t).all()) for t in got)}
+            if form == "ids":
+                # K4's index preparation against its plain version: exactly
+                flat, n = args[3].reshape(-1), rhs.shape[0]
+                _, res = CT.chyp_train_ids_forward(lhs, rhs, args[3])
+                got_l = CT.chyp_train_lists(g, flat, *res, n)
+                want_l = CT.chyp_train_lists_plain(g, flat, *res, n)
+                regime["distinct_rows"] = int(flat.unique().numel())
+                regime["lists_equal"] = bool(
+                    torch.equal(got_l[0], want_l[0])
+                    and torch.equal(got_l[1].view(torch.int32), want_l[1].view(torch.int32)))
+                ok.append(regime["lists_equal"])
+            out["regimes"][f"{form} {scale}"] = regime
+            errors["chyp_train_fwd"] = max(errors["chyp_train_fwd"], diff[0])
+            errors["chyp_train_bwd"] = max(errors["chyp_train_bwd"], diff[1], diff[2])
     emit(out)
     if not all(all(v["within_tolerance"]) and v["finite"] for v in out["regimes"].values()):
         raise AssertionError(f"K3/K4 disagree with their plain version: {out}")
@@ -628,15 +675,16 @@ def phase_train_step_parity(seed: int):
         KS.reset_launches()
         trainer.run_epoch(batches, weights, None)
         torch.cuda.synchronize()
-        counts = {k: KS.launches()[k] for k in TRAIN_KERNELS}
+        counts = {k: KS.launches()[k] for k in (*TRAIN_KERNELS, "chyp_train_lists")}
         return {k: v.detach().clone() for k, v in model.state_dict().items()}, counts
 
     kernel, kernel_launches = three_steps()
-    real, CT.chyp_train_distance = CT.chyp_train_distance, CT.chyp_train_distance_plain
+    real, CT.chyp_train_distance_ids = (CT.chyp_train_distance_ids,
+                                        CT.chyp_train_distance_ids_plain)
     try:
         plain, plain_launches = three_steps()
     finally:
-        CT.chyp_train_distance = real
+        CT.chyp_train_distance_ids = real
     out = {"phase": "train-step parity", "steps": 3, "tolerance": PARITY_TOL,
            "kernel_launches": kernel_launches, "plain_launches": plain_launches,
            "max_moved": {k: float((kernel[k] - init[k]).abs().max()) for k in init},
@@ -644,10 +692,10 @@ def phase_train_step_parity(seed: int):
            "within_tolerance": {k: bool(torch.allclose(kernel[k], plain[k], **PARITY_TOL))
                                 for k in init}}
     emit(out)
-    # a step scores the positive (K = 1) and the negatives (K = NEG): two
-    # launches of each kernel
+    # a step scores the positive and the negatives as one (B, 1 + NEG) id
+    # block: one launch of each kernel and of K4's pair lists
     if (not all(out["within_tolerance"].values()) or set(plain_launches.values()) != {0}
-            or set(kernel_launches.values()) != {2 * 3}):
+            or set(kernel_launches.values()) != {3}):
         raise AssertionError(f"kernel and plain training steps disagree: {out}")
 
 
@@ -926,6 +974,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     time per call (busy_ms).  Train distance: step_ms is one whole training
     step's device time (phase_profile)."""
     import numpy as np
+    import torch
 
     from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import chyp_train as CT
@@ -960,21 +1009,35 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
                                    4 * (2 * b * d + 2 * b + n_rows * (d + 2))
                                    + 4 * b * l + 8 * b),
     }
-    # the train distance at the published init scale.  K3: per pair three
-    # fp64 dots of D FMAs and ~16 fp32 epilogue operations; reads lhs, rhs,
-    # writes d, sr, si, wn, x, zn.  K4: per pair ~20 fp32 operations for the
-    # coefficients, 5 per element of d_rhs, two fp64 FMAs per element for
-    # m_a, m_b; reads g, the residuals, lhs, rhs, writes d_rhs, d_lhs.
-    lhs, rhs, g = train_pair(1e-3, seed)
-    _, res = CT.chyp_train_forward(lhs, rhs)
-    tb, tk, td = BATCH, NEG, 2 * RANK
-    work["chyp_train_fwd"] = (CT.chyp_train_forward, CT.chyp_train_forward_plain,
-                              [lhs, rhs], 16 * tb * tk, 6 * tb * tk * td,
-                              4 * (tb * td + tb * tk * td + 5 * tb * tk + tb))
-    work["chyp_train_bwd"] = (CT.chyp_train_backward, CT.chyp_train_backward_plain,
-                              [g, lhs, rhs, *res], 20 * tb * tk + 5 * tb * tk * td,
-                              4 * tb * tk * td,
-                              4 * (5 * tb * tk + tb + 2 * tb * td + 2 * tb * tk * td))
+    # the train distance in the id form of the training step, at the
+    # published init scale: B x (1 + NEG) ids over the N x D table.  K3:
+    # per pair three fp64 dots of D FMAs and ~16 fp32 epilogue operations;
+    # reads lhs, the ids and each distinct row once, writes d, sr, si, wn,
+    # x, zn.  K4: per pair ~20 fp32 operations for the coefficients and 5
+    # per column of its table term, per column two fp64 FMAs for m_a, m_b
+    # and one fp64 add into its row; reads g, the residuals, lhs, the ids
+    # and the distinct rows, writes d_lhs and the dense (N, D) gradient.
+    # K4's time includes its index preparation chyp_train_lists (the ids'
+    # counting sort with each pair's table-side coefficients; lists_ms
+    # alone).  identity_ms: the gathered form at (500, 100, 66).
+    lhs, table, ids, g = train_ids(1e-3, seed)
+    _, res = CT.chyp_train_ids_forward(lhs, table, ids)
+    tb, tp, td = BATCH, ids.numel(), 2 * RANK
+    tn, distinct = table.shape[0], int(ids.unique().numel())
+    work["chyp_train_fwd"] = (CT.chyp_train_ids_forward, CT.chyp_train_ids_forward_plain,
+                              [lhs, table, ids], 16 * tp, 6 * tp * td,
+                              4 * (tb * td + distinct * td + 5 * tp + tb) + 8 * tp)
+    work["chyp_train_bwd"] = (CT.chyp_train_ids_backward, CT.chyp_train_ids_backward_plain,
+                              [g, lhs, table, ids, *res], 20 * tp + 5 * tp * td,
+                              5 * tp * td,
+                              4 * (5 * tp + tb + 2 * tb * td + distinct * td + tn * td)
+                              + 8 * tp)
+    gl, gr, gg = train_pair(1e-3, seed)
+    gt = gr.reshape(-1, td)
+    _, gres = CT.chyp_train_ids_forward(gl, gt, None)
+    identity = {"chyp_train_fwd": lambda: CT.chyp_train_ids_forward(gl, gt, None),
+                "chyp_train_bwd": lambda: CT.chyp_train_ids_backward(gg, gl, gt, None, *gres)}
+    lists_ms = cuda_ms(lambda: CT.chyp_train_lists(g, ids.reshape(-1), *res, tn), reps=50)
     rows = []
     for kname, (kernel, plain, args, f32_ops, f64_ops, nbytes) in work.items():
         t_ops = (f32_ops / f32_peak + f64_ops / f64_peak) * 1e3
@@ -991,7 +1054,12 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
             "library_ms": None, "card": smi,
         }
         if kname in TRAIN_KERNELS:
-            row.update(step_ms=step_ms, shape={"B": tb, "K": tk, "D": td})
+            row.update(step_ms=step_ms, shape={"B": tb, "K": ids.shape[1], "N": tn, "D": td,
+                                               "distinct_rows": distinct},
+                       identity_ms=cuda_ms(identity[kname], reps=50),
+                       identity_shape={"B": BATCH, "K": NEG, "D": td})
+            if kname == "chyp_train_bwd":
+                row.update(lists_ms=lists_ms, lists_launches=launches["chyp_train_lists"])
         else:
             row.update(dense_ms=dense_ms, ranker_ms=ranker_ms[kname == "chyp_rank_sweep_masked"],
                        shape={"B": b, "Np": np_, "D": d, "ld": ld, "L": l})
@@ -1616,10 +1684,10 @@ def main(argv=None) -> int:
         if not all(serve_launches[k] for k in RANK_KERNELS):
             raise AssertionError(f"a ranking kernel never launched: {serve_launches}")
         steps = sum(h["steps"] for h in history)
-        if (min(train_launches[k] for k in TRAIN_KERNELS) < steps
+        if (min(train_launches[k] for k in (*TRAIN_KERNELS, "chyp_train_lists")) < steps
                 or not train_launches["chyp_rank_sweep_masked"]):
-            raise AssertionError(f"K3/K4 launched fewer times than the {steps} "
-                                 f"training steps, or K1 never: {train_launches}")
+            raise AssertionError(f"K3/K4 (or K4's lists) launched fewer times than the "
+                                 f"{steps} training steps, or K1 never: {train_launches}")
         want = {"RotH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
                 "RotLH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
                 "AttRH": (*ATTRH_KERNELS, "hyp_rank_radii"),
@@ -1628,7 +1696,7 @@ def main(argv=None) -> int:
         if any(missing.values()):
             raise AssertionError(f"real-hyperbolic kernels that never launched: {missing}")
         launches = {**{k: serve_launches[k] for k in RANK_KERNELS},
-                    **{k: train_launches[k] for k in TRAIN_KERNELS}}
+                    **{k: train_launches[k] for k in (*TRAIN_KERNELS, "chyp_train_lists")}}
 
         # the GNN path: kernels and parity first, at full width
         gnn_models = {m: gnn_model(a.seed, m, dataset) for m in GNN_MODELS}

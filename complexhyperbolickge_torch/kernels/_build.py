@@ -39,8 +39,10 @@ SIGNATURES = {
         "chyp_rank_sweep_info": [_I] * 2 + [_IP] * 4,
     },
     "chyp_train": {
-        "chyp_train_fwd": [_P] * 8 + [_I, _I, _I, _F, _F, _P],
-        "chyp_train_bwd": [_P] * 10 + [_I, _I, _I, _F, _P],
+        "chyp_train_fwd": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
+        "chyp_train_bwd": [_P] * 13 + [_I] * 4 + [_F, _P],
+        "chyp_train_lists": [_P] * 12 + [_I] * 4 + [_F, _P],
+        "chyp_train_lists_blocks": [_IP],
     },
     "hyp_rank": {
         "hyp_rank_sweep_masked": [_P] * 11 + [_I] * 5 + [_P],

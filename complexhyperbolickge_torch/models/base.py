@@ -180,12 +180,18 @@ class KGModel(nn.Module):
             return s + self.cfg.gamma
         return s
 
+    def score_ids(self, lhs_pack, lhs_bias, ids):
+        """Scores of get_queries' (lhs_pack, lhs_bias) against the candidate
+        tails ids (B, K) -> (B, K): the training losses' hook.  Gathers the
+        candidate rows and runs sim; a model may score the ids without the
+        gather (FFTUnitBall)."""
+        rhs_e, rhs_b = self.get_rhs(ids)
+        s = self.sim(lhs_pack, rhs_e, all_pairs=False)
+        return self._apply_bias(s, lhs_bias, rhs_b, all_pairs=False)
+
     def score(self, queries, tails):
         """Scores of (B,) queries against (B, K) candidate tails -> (B, K)."""
-        lhs, lhs_b = self.get_queries(queries)
-        rhs_e, rhs_b = self.get_rhs(tails)
-        s = self.sim(lhs, rhs_e, all_pairs=False)
-        return self._apply_bias(s, lhs_b, rhs_b, all_pairs=False)
+        return self.score_ids(*self.get_queries(queries), tails)
 
     def score_all(self, queries):
         """Scores of (B,) queries against all N entities -> (B, N)."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.kernels import chyp_train as CT
 from complexhyperbolickge_torch.models.base import KGModel
 from complexhyperbolickge_torch.ops import chyperbolic as CH
 from complexhyperbolickge_torch.ops.euclidean import (
@@ -55,6 +56,16 @@ class FFTUnitBall(KGModel):
         if all_pairs:
             return -CH.chyp_distance_all(lhs_e, rhs_e) ** 2
         return -CH.chyp_distance(lhs_e[:, None, :], rhs_e) ** 2
+
+    def score_ids(self, lhs_pack, lhs_bias, ids):
+        """A float32 pair on the card scores the entity rows ids through
+        K3/K4 without gathering them (kernels/chyp_train.py); any other
+        pair (CPU, float64, bfloat16) scores the gathered rows."""
+        (lhs_e,) = lhs_pack
+        if not CH.use_train_kernel(lhs_e, self.entity):
+            return super().score_ids(lhs_pack, lhs_bias, ids)
+        s = -CT.chyp_train_distance_ids(lhs_e, self.entity, ids) ** 2
+        return self._apply_bias(s, lhs_bias, self.bt[ids], all_pairs=False)
 
 
 class FFTRotH(FFTUnitBall):

@@ -183,7 +183,7 @@ class GNNModel(KGModel):
 
 class BoundGNN:
     """A GNN model with its encoder output bound: the losses call
-    get_queries / get_rhs / sim / score on it as on any KGModel."""
+    get_queries / score_ids / score on it as on any KGModel."""
 
     def __init__(self, model: GNNModel, cache):
         self.model = model
@@ -203,6 +203,9 @@ class BoundGNN:
 
     def _apply_bias(self, s, lhs_bias, rhs_bias, all_pairs: bool):
         return self.model._apply_bias(s, lhs_bias, rhs_bias, all_pairs)
+
+    def score_ids(self, lhs_pack, lhs_bias, ids):
+        return KGModel.score_ids(self, lhs_pack, lhs_bias, ids)
 
     def score(self, queries, tails):
         return self.model.score(queries, tails, cache=self.cache)

@@ -13,12 +13,14 @@ with <z,z>, <w,w> clamped into [-1, -eps] and x clamped to >= 1 + eps.
 Gradients follow the reference's Distance.backward: the analytic unclamped
 gradient at the clamped values, with each side's denominator clamped to at
 most -eps.  `chyp_distance` dispatches on shape:
-  * train shape (B, 1, D) x (B, K, D): a float32 CUDA pair goes to the CUDA
-    kernels K3/K4 (kernels/chyp_train.py), any other pair to
-    ChypDistanceCore; both carry the analytic backward.  The JAX package
-    takes its fused Pallas scorer only on a TPU with
-    TrainConfig.fused_scorer set; here the kernel is the CUDA path whatever
-    that field says (it stays in the config for parity).
+  * train shape (B, 1, D) x (B, K, D): a float32 CUDA pair
+    (`use_train_kernel`) goes to the CUDA kernels K3/K4 in their identity
+    form (kernels/chyp_train.py), any other pair to ChypDistanceCore; both
+    carry the analytic backward.  The FFT models' training scores take the
+    kernels' id form instead (models/chyperbolic.py, FFTUnitBall.score_ids),
+    with no gathered block.  The JAX package takes its fused Pallas scorer
+    only on a TPU with TrainConfig.fused_scorer set; here the kernel is the
+    CUDA path whatever that field says (it stays in the config for parity).
   * any other broadcast shape: autograd with straight-through clamps.
 `chyp_distance_all` (B, D) x (N, D) carries the same backward in matmul form.
 """
@@ -133,7 +135,7 @@ def chyp_core_residuals(lhs, rhs):
     return sr, si, wn, x, zn
 
 
-def _clamped_coefficients(g, sr, si, zn, wn, x):
+def clamped_coefficients(g, sr, si, zn, wn, x):
     """The six coefficients of the analytic backward (JAX `_chyp_core_bwd`):
     the reference divides each side's gradient by p = sqrt(x^2 - 1) *
     norm_self^2 * norm_other clamped to at most -eps, which bounds |1/p| by
@@ -151,7 +153,7 @@ def _clamped_coefficients(g, sr, si, zn, wn, x):
 def chyp_core_grads(g, lhs, rhs, sr, si, wn, x, zn):
     """(d_lhs (B, D), d_rhs (B, K, D)) of the train-shape distance for the
     cotangent g (B, K), from the residuals of chyp_core_residuals."""
-    ca_z, cb_z, cz, ca_w, cb_w, cw = _clamped_coefficients(g, sr, si, zn, wn, x)
+    ca_z, cb_z, cz, ca_w, cb_w, cw = clamped_coefficients(g, sr, si, zn, wn, x)
     d_rhs = (ca_w[..., None] * lhs[:, None, :]
              + cb_w[..., None] * swap_neg(lhs)[:, None, :]
              + cw[..., None] * rhs)
@@ -181,18 +183,24 @@ class ChypDistanceCore(torch.autograd.Function):
         return chyp_core_grads(g, *ctx.saved_tensors)
 
 
+def use_train_kernel(lhs, rhs) -> bool:
+    """Whether a train-shape pair runs the CUDA kernels K3/K4: a float32
+    pair on the card (JAX's `lhs.dtype == float32` test)."""
+    return (lhs.device.type == "cuda" and lhs.dtype == torch.float32
+            and rhs.dtype == torch.float32)
+
+
 def chyp_distance(lhs, rhs):
     """Broadcast complex-hyperbolic distance on packed-real inputs.
 
     lhs, rhs: (..., 2R) with broadcasting across leading dims, e.g.
     (B, 1, 2R) vs (B, K, 2R) in training or (B, 2R) vs (B, 2R) for the
     gold-tail distance of the rankers.  See the module docstring for the
-    dispatch (the float32 CUDA test mirrors JAX's `lhs.dtype == float32`).
+    dispatch.
     """
     if (lhs.dim() == 3 and rhs.dim() == 3 and lhs.shape[1] == 1
             and lhs.shape[0] == rhs.shape[0]):
-        if (lhs.device.type == "cuda" and lhs.dtype == torch.float32
-                and rhs.dtype == torch.float32):
+        if use_train_kernel(lhs, rhs):
             from complexhyperbolickge_torch.kernels import chyp_train
 
             return chyp_train.chyp_train_distance(lhs[:, 0, :], rhs)
@@ -220,7 +228,7 @@ class _ChypDistanceAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         lhs, rhs, sr, si, zn, wn, x = ctx.saved_tensors
-        ca_z, cb_z, cz, ca_w, cb_w, cw = _clamped_coefficients(g, sr, si, zn, wn, x)
+        ca_z, cb_z, cz, ca_w, cb_w, cw = clamped_coefficients(g, sr, si, zn, wn, x)
         d_lhs = (ca_z @ rhs - swap_neg(cb_z @ rhs)
                  + torch.sum(cz, dim=1, keepdim=True) * lhs)
         d_rhs = (ca_w.T @ lhs + cb_w.T @ swap_neg(lhs)

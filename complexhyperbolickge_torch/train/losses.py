@@ -40,16 +40,12 @@ def neg_sampling_loss(model, batch, weights, generator, n_entities: int,
     queries, tails = batch[:, :2], batch[:, 2:3]
     factors = model.get_factors(queries, tails)
 
-    # one get_queries chain serves the positive and the negative scores
+    # one get_queries chain and one (B, 1 + k) block of candidate ids, the
+    # positive first, serve the positive and the negative scores
     lhs, lhs_b = model.get_queries(queries)
-
-    def score_with(t_ids):
-        rhs_e, rhs_b = model.get_rhs(t_ids)
-        return model._apply_bias(model.sim(lhs, rhs_e, all_pairs=False),
-                                 lhs_b, rhs_b, all_pairs=False)
-
-    pos = score_with(tails)  # (B, 1)
-    neg_s = score_with(sampler(generator, batch, n_entities, k))  # (B, k)
+    ids = torch.cat([tails, sampler(generator, batch, n_entities, k)], dim=1)
+    s = model.score_ids(lhs, lhs_b, ids)
+    pos, neg_s = s[:, :1], s[:, 1:]  # (B, 1), (B, k)
 
     w = weights[:, None]
     num = torch.sum(w * F.logsigmoid(pos)) + torch.sum(w * F.logsigmoid(-neg_s))

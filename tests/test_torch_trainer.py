@@ -156,6 +156,60 @@ def test_neg_sampling_loss_equals_jax(double_neg):
     assert len(factors) == 3 and factors[2].shape == (B, 1, 2 * RANK)
 
 
+@pytest.mark.parametrize("double_neg", [False, True])
+def test_fft_ids_route_f32_loss_and_grads_equal_jax_fused_scorer(double_neg, monkeypatch):
+    """FFTRotH in float32 with the training scores forced onto the id form
+    of K3/K4 (ops.chyperbolic.use_train_kernel patched to accept CPU
+    tensors, so chyp_train_distance_ids runs its plain version) against the
+    JAX Trainer's loss and gradients through its fused Pallas scorer
+    (set_fused_train_scorer(True), the kernels in interpret mode), within
+    the train-distance kernels' gradient tolerance."""
+    from complexhyperbolickge_torch.kernels import chyp_train as CT
+    from complexhyperbolickge_torch.ops import chyperbolic as CH
+    from complexhyperbolickge_tpu.kernels import chyp_train as jax_ct
+    from complexhyperbolickge_tpu.ops.chyperbolic import set_fused_train_scorer
+
+    grad_tol = dict(rtol=1e-4, atol=1e-6)  # tests/test_torch_chyp_train.py GRAD_TOL
+    cfg32 = dict(CFG, dtype="float32")
+    params = {k: v.astype(np.float32) for k, v in make_params().items()}
+    batches, weights = make_batches(1)
+    batch, w = batches[0], weights[0]
+    key = jax.random.PRNGKey(12)
+    jt = JaxTrainer(jax_get_model("FFTRotH")(JaxConfig(**cfg32)),
+                    JaxTrainConfig(neg_sample_size=K, double_neg=double_neg), N_ENT, N_REL)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    monkeypatch.setattr(jax_ct, "INTERPRET", True)
+    set_fused_train_scorer(True)
+    try:
+        want_loss, want_grad = jax.value_and_grad(
+            lambda p: jt._loss(p, jnp.asarray(batch), jnp.asarray(w), None, key))(jp)
+    finally:
+        set_fused_train_scorer(False)
+    ks = jax.random.split(key, 2)
+    negs = [np.asarray(JL.sample_negatives(ks[0], jnp.asarray(batch), N_ENT, K))]
+    if double_neg:
+        negs.append(np.asarray(JL.sample_negatives(ks[1], jnp.asarray(batch[:, [2, 1, 0]]),
+                                                   N_ENT, K)))
+
+    calls = []
+    real = CT.chyp_train_distance_ids
+    monkeypatch.setattr(CH, "use_train_kernel", lambda lhs, rhs: lhs.dtype == torch.float32)
+    monkeypatch.setattr(CT, "chyp_train_distance_ids",
+                        lambda *a: calls.append(a[2].shape) or real(*a))
+    model = get_model("FFTRotH")(ModelConfig(**cfg32))
+    model.load_state_dict(params_from_jax(params, "cpu"))
+    pt = Trainer(model, TrainConfig(neg_sample_size=K, double_neg=double_neg), N_ENT, N_REL,
+                 sampler=replay(negs))
+    loss = pt._loss(torch.as_tensor(batch, dtype=torch.int64), torch.as_tensor(w), None)
+    loss.backward()
+    # one (B, 1 + K) id block for the tails, and (B, K) for the heads
+    assert calls == [(B, 1 + K)] + [(B, K)] * double_neg
+    np.testing.assert_allclose(loss.item(), float(want_loss), **grad_tol)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_grad[name]),
+                                   err_msg=name, **grad_tol)
+
+
 def test_sample_negatives_excludes_gold_and_stays_in_range():
     batch = torch.as_tensor(np.random.default_rng(0).integers(0, 7, (200, 3)))
     neg = TL.sample_negatives(torch.Generator().manual_seed(0), batch, 7, 50)
