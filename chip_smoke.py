@@ -16,10 +16,13 @@ script and were not checked against a copy of the file (this repo has
 none).  RotLH (the Lorentz epilogue) and AttRH (the two-half ranker) run at
 the same width in the kernel and kge-test phases.
 
-Four paths of the port are driven, each with the kernels' launch counts
+The paths of the port are driven each with the kernels' launch counts
 set to 0 just before it and read just after: FFT serving and evaluation
 (kge-test, predict, HTTP), FFT training (cli.run.train at the published
 WN18RR config: Adam lr 3e-4, N3 reg 0, 100 per-query negatives, 2 epochs),
+FFT training at that config with each other loss, negative mode and
+optimizer (the all-entity cross-entropy, BCE with label smoothing 0.1
+through the label packs, shared negatives, a pool of 512, SparseAdam),
 the real-hyperbolic path (kge-test of RotH, RotLH and AttRH, RotH
 serving, 2 epochs of RotH training), and the GNN path at the JAX package's
 full-graph CompGCN configuration (benchmarks/gnn_train_bench.py): rank 32,
@@ -55,6 +58,18 @@ line:
               argmax of the dense score_all, and one POST /predict over HTTP
   9 train     cli.run.train(): the loss finite and falling from epoch 1 to 2,
               final test metrics through K1; triples/s and ms/step per epoch
+  9a ce-train, bce-train, neg-modes-train-shared, neg-modes-train-pool,
+              sparse-adam-train  phase 9 with --neg_sample_size 0 and
+              --loss crossentropy; --loss binarycrossentropy --smoothing 0.1;
+              --neg_mode shared; --neg_mode pool --neg_pool_size 512;
+              --optimizer SparseAdam.  loss-launches: K1 in each, K3/K4
+              and chyp_train_lists at least once a SparseAdam step
+  9b ce-step parity  one CE and one BCE loss and gradient on the card in
+              float32 against the CPU in float64 (CE_PARITY_TOL)
+  9c euc-train-RotE, euc-train-ComplEx, euc-kge-test  RotE and ComplEx
+              through cli.run.train at the RotH config, 2 epochs; kge-test
+              of planted run dirs of the nine Euclidean and complex models
+              through the dense ranker (MRR >= 0.25)
  10 hyp-kge-test, hyp-serve, hyp-train  phases 7-9 on the real-hyperbolic
               path: kge-test per model, RotH serving, RotH training (eager
               autograd, no kernel in the step; validation and the final test
@@ -81,9 +96,9 @@ line:
               cached encoding), CompGCN serving; gnn-launches: K9/K10 at
               least once per training step and in every kge-test
  16 profile   torch.profiler over one whole-split ranking per ranker (FFTRotH
-              and RotH) and over 20 training steps of each and of CompGCN:
-              wall time, device busy time and idle share, top kernels and
-              host ops
+              and RotH) and over 20 training steps of each, of CompGCN and
+              of FFTRotH's CE and BCE steps: wall time, device busy time and
+              idle share, kernels a step, top kernels and host ops
  17 the kernels line: launches, and the times of kernel, plain version and
               library call beside the kernel's bound (and the rankers' busy
               time per call and the training step's device time; the sweeps'
@@ -165,6 +180,38 @@ HYP_TRAIN_FLAGS = ["--model", "RotH", "--regularizer", "N3", "--reg", "0.0",
 TRAIN_CONFIGS = {"FFTRotH": dict(optimizer="Adam", learning_rate=3e-4, neg_sample_size=NEG),
                  "RotH": dict(optimizer="Adam", learning_rate=5e-4, neg_sample_size=HYP_NEG,
                               double_neg=True)}
+# the FFT training phases of the all-entity losses, the negative modes and
+# SparseAdam: TRAIN_FLAGS with the later flags overriding (argparse keeps
+# the last occurrence)
+LOSS_TRAIN_FLAGS = {
+    "ce-train": [*TRAIN_FLAGS, "--neg_sample_size", "0", "--loss", "crossentropy"],
+    "bce-train": [*TRAIN_FLAGS, "--neg_sample_size", "0", "--loss", "binarycrossentropy",
+                  "--smoothing", "0.1"],
+    "neg-modes-train-shared": [*TRAIN_FLAGS, "--neg_mode", "shared"],
+    "neg-modes-train-pool": [*TRAIN_FLAGS, "--neg_mode", "pool", "--neg_pool_size", "512"],
+    "sparse-adam-train": [*TRAIN_FLAGS, "--optimizer", "SparseAdam"],
+}
+TRAIN_CONFIGS.update({
+    "FFTRotH CE": dict(optimizer="Adam", learning_rate=3e-4, neg_sample_size=0,
+                       loss="crossentropy"),
+    "FFTRotH BCE": dict(optimizer="Adam", learning_rate=3e-4, neg_sample_size=0,
+                        loss="binarycrossentropy", smoothing=0.1)})
+# the all-entity step on the card in float32 against the CPU in float64, at
+# params well inside the ball (entity ~ N(0, 0.05): the f32 and f64 ball
+# clamps differ, 4e-3 against 1e-5): loss relative error, and each gradient's
+# max error over its largest entry (floored at 1e-2 of the largest entry of
+# all gradients: CE's bh gradient is zero in exact arithmetic, so its own
+# scale is float32 noise).  Exact fp32 gives ~1e-6 (a CPU probe at 6,000
+# entities); a TF32 contraction ~1e-3
+CE_PARITY_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-4}
+# the Euclidean and complex families: RotE and ComplEx train at the RotH
+# phase's config (HYP_TRAIN_FLAGS); all nine rank densely from planted run
+# dirs.  The dot-product scorers' planted rows are their query points scaled
+# to norm DOT_PLANT_NORM, which dominates every other row's inner product
+EUC_MODELS = ("TransE", "CP", "MurE", "RotE", "RefE", "AttE", "ComplEx", "RotatE", "Fourier")
+DOT_MODELS = ("CP", "ComplEx", "RotatE", "Fourier")
+EUC_TRAIN = ("RotE", "ComplEx")
+DOT_PLANT_NORM = 10.0
 HYP_RANK_KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_sub")
 ATTRH_KERNELS = ("attrh_rank_sweep_masked", "attrh_rank_sweep_nomask",
                  "attrh_rank_filtered_sub")
@@ -288,13 +335,18 @@ def plant(name: str, pack):
       RotLH: radius sinh(sqrt_c |v|) / sqrt_c, so |v| = asinh(sqrt_c |x|) /
              sqrt_c, always;
       AttRH: one tanh a half, |v_h| = artanh(sqrt_c |x_h|) / sqrt_c, below
-             the distance's artanh clamp 1 - 1e-5."""
+             the distance's artanh clamp 1 - 1e-5.
+    The Euclidean distance models (TransE ... AttE) score the raw row: the
+    query point; the dot-product ones (CP and the complex family) take the
+    query's direction at norm DOT_PLANT_NORM."""
     import torch
 
     from complexhyperbolickge_torch.kernels.hyp_rank import ONE_MINUS_EPS
 
     x = pack[0].double()
     ok = torch.ones(len(x), dtype=torch.bool)
+    if name in DOT_MODELS:
+        return (x / x.norm(dim=-1, keepdim=True) * DOT_PLANT_NORM).float(), ok
     if name not in HYP_MODELS:
         return pack[0], ok
     sc = pack[1].double().expand(len(x), 1).sqrt()
@@ -317,7 +369,9 @@ def write_run(seed: int, name: str = "FFTRotH"):
     `name`'s weights drawn from `seed` (entity ~ N(0, 0.1) keeps the points
     well inside the ball and the scores distinct; the real-hyperbolic
     models take N(0, 0.05), so that their query folds stay invertible, and
-    bt ~ N(0, 0.01), below their smaller distances).  Random
+    bt ~ N(0, 0.01), below their smaller distances; the Euclidean and
+    complex models bt ~ N(0, 0.01) as well, below the nearest unplanted
+    row's distance or inner-product gap).  Random
     weights rank the gold near N/2, so the test answers are planted: each
     test tail's row is set so that the gold lies at distance ~0 from its
     (head, rel) query point (plant), wherever the head's own row was not
@@ -332,7 +386,8 @@ def write_run(seed: int, name: str = "FFTRotH"):
 
     hyp = name in HYP_MODELS
     args = dict(dataset="synthetic", synthetic_seed=seed, data_path="data",
-                debug=False, model=name, rank=HYP_RANK if hyp else RANK, init_size=1e-3,
+                debug=False, model=name, rank=RANK if name == "FFTRotH" else HYP_RANK,
+                init_size=1e-3,
                 bias="learn", gamma=0.0, multi_c=True, dtype="float32",
                 dropout=0.0, eval_batch_size=BATCH, eval_backend="auto",
                 eval_precision="highest", **WN18RR)
@@ -340,12 +395,15 @@ def write_run(seed: int, name: str = "FFTRotH"):
     dataset = load_dataset(ns)
     model = build_model(ns, dataset, "cpu")
     rng = np.random.default_rng(seed)
-    spread = {"entity": 0.1, "rel": 0.1, "bh": 0.1, "bt": 0.1, "c": 0.05, "weights": 0.1}
+    spread = {"entity": 0.1, "rel": 0.1, "bh": 0.1, "bt": 0.1, "c": 0.05, "weights": 0.1,
+              "context_vec": 0.1}
     if hyp:
         spread.update(entity=0.05, rel=0.05, bt=0.01)
+    elif name in EUC_MODELS:
+        spread.update(bt=0.01)
     params = {}
     for k, v in model.state_dict().items():
-        if k == "rel_diag":
+        if k in ("rel_diag", "ref", "rot"):
             x = rng.uniform(-1.0, 1.0, v.shape)
         else:
             x = rng.normal(0.0, spread[k], v.shape) + (1.0 if k == "c" else 0.0)
@@ -359,7 +417,7 @@ def write_run(seed: int, name: str = "FFTRotH"):
     with torch.no_grad():
         rows, ok = plant(name, model.get_queries(test[:, :2])[0])
     params["entity"][test[ok, 2]] = rows[ok]
-    work = WORK / name if hyp else WORK
+    work = WORK if name == "FFTRotH" else WORK / name
     work.mkdir(parents=True, exist_ok=True)
     save_checkpoint(str(work), params, config={"args": args})
     return str(work), int((~ok).sum())
@@ -841,21 +899,136 @@ def phase_train(seed: int, flags=TRAIN_FLAGS, label="train"):
     return res["history"]
 
 
-def train_window(dataset, seed: int, name: str = "FFTRotH"):
-    """A trainer at `name`'s training config on a fresh WN18RR-width model,
-    with the batches of one epoch uploaded: what the training profile and
-    the step time run."""
+def phase_loss_training(seed: int) -> dict:
+    """The FFT training phases of LOSS_TRAIN_FLAGS (ce-train, bce-train,
+    neg-modes-train shared and pool, sparse-adam-train), each through
+    cli.run.train with the kernels' launch counts set to 0 just before it
+    and read just after.  K1 must launch in each (validation and the final
+    test); K3, K4 and chyp_train_lists at least once a step of the
+    per-query SparseAdam training.  Returns each phase's steps and
+    launches."""
+    import complexhyperbolickge_torch.kernels as KS
+
+    out = {}
+    for label, flags in LOSS_TRAIN_FLAGS.items():
+        KS.reset_launches()
+        history = phase_train(seed, flags, label=label)
+        launches = {k: v for k, v in KS.launches().items() if v}
+        out[label] = {"steps": sum(h["steps"] for h in history), "launches": launches}
+    emit({"phase": "loss-launches", **out})
+    no_k1 = [k for k, v in out.items() if not v["launches"].get("chyp_rank_sweep_masked")]
+    sa = out["sparse-adam-train"]
+    if no_k1 or min(sa["launches"].get(k, 0)
+                    for k in (*TRAIN_KERNELS, "chyp_train_lists")) < sa["steps"]:
+        raise AssertionError(f"K1 never launched in {no_k1}, or K3/K4 (or K4's lists) "
+                             f"launched fewer times than the SparseAdam steps: {out}")
+    return out
+
+
+def phase_ce_step_parity(dataset, seed: int):
+    """One cross-entropy and one BCE (smoothing 0.1, the train label pack)
+    loss and gradient of a WN18RR-width FFTRotH on a batch of BATCH train
+    rows: on the card in float32 against the same params and batch on the
+    CPU in float64, held to CE_PARITY_TOL (a TF32 contraction or a lost
+    mask shows here)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.train import losses as L
+
+    card = wn18rr_model(seed)
+    rng = np.random.default_rng(seed)
+    spread = {"entity": 0.05, "rel": 0.05, "bh": 0.1, "bt": 0.1, "c": 0.05}
+    card.load_state_dict({
+        k: torch.as_tensor(rng.uniform(-1.0, 1.0, v.shape) if k == "rel_diag"
+                           else rng.normal(0.0, spread[k], v.shape) + (1.0 if k == "c" else 0.0))
+        for k, v in card.state_dict().items()})
+    cpu = type(card)(dataclasses.replace(card.cfg, dtype="float64"))
+    cpu.load_state_dict({k: v.double().cpu() for k, v in card.state_dict().items()})
+    rows, labels = dataset.label_pack("train")
+    idx = rng.choice(len(rows), BATCH, replace=False)
+    n = dataset.n_entities
+    fns = {"ce": lambda m, b, w, lab: L.cross_entropy_loss(m, b, w, None, n),
+           "bce": lambda m, b, w, lab: L.bce_loss(m, b, w, lab, n, 0.1)}
+    out = {"phase": "ce-step parity", "batch": BATCH, "entities": n,
+           "tolerance": CE_PARITY_TOL, "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    for name, fn in fns.items():
+        res = {}
+        for m in (card, cpu):
+            p0 = next(m.parameters())
+            m.zero_grad(set_to_none=True)
+            loss = fn(m, torch.as_tensor(rows[idx], dtype=torch.int64, device=p0.device),
+                      torch.ones(BATCH, dtype=p0.dtype, device=p0.device),
+                      torch.as_tensor(labels[idx], dtype=torch.int64, device=p0.device))[0]
+            loss.backward()
+            res[p0.dtype] = (loss.item(), {k: p.grad.double().cpu()
+                                           for k, p in m.named_parameters()})
+        (l32, g32), (l64, g64) = res[torch.float32], res[torch.float64]
+        floor = 1e-2 * max(float(g.abs().max()) for g in g64.values())
+        grad_rel = {k: float((g32[k] - g).abs().max()) / max(float(g.abs().max()), floor)
+                    for k, g in g64.items()}
+        loss_rel = abs(l32 - l64) / abs(l64)
+        out[name] = {"loss_f32_card": l32, "loss_f64_cpu": l64, "loss_rel_err": loss_rel,
+                     "grad_rel_err": grad_rel, "max_grad_rel_err": max(grad_rel.values())}
+    emit(out)
+    tol = CE_PARITY_TOL
+    if out["allow_tf32"] or not all(
+            np.isfinite(out[k]["loss_f32_card"]) and out[k]["loss_rel_err"] <= tol["loss_rel"]
+            and out[k]["max_grad_rel_err"] <= tol["grad_rel"] for k in fns):
+        raise AssertionError(f"the card's all-entity step disagrees with float64: {out}")
+
+
+def phase_euc(seed: int) -> dict:
+    """The Euclidean and complex families.  euc-train: RotE and ComplEx
+    through cli.run.train at the RotH phase's config (HYP_TRAIN_FLAGS, the
+    model overridden), 2 epochs each, dense validation.  euc-kge-test:
+    kge-test of a planted run dir (write_run) of each of the nine models
+    through the dense ranker; tail prediction finds the planted golds, so
+    the MRR of both directions must reach 0.25 (chance is ~2e-4).  Returns
+    the kge-test metrics by model."""
+    import numpy as np
+
+    from complexhyperbolickge_torch.cli.test import test
+
+    for m in EUC_TRAIN:
+        phase_train(seed, [*HYP_TRAIN_FLAGS, "--model", m], label=f"euc-train-{m}")
+    out = {}
+    for m in EUC_MODELS:
+        d, _ = write_run(seed, m)
+        t0 = time.perf_counter()
+        res = test(d, device="cuda", eval_backend="auto")
+        out[m] = {"MRR": res["MRR"], "MR": res["MR"], "hits@[1,3,10]": res["hits@[1,3,10]"],
+                  "cli_seconds": time.perf_counter() - t0}
+    emit({"phase": "euc-kge-test", "ranker": "dense", "split": "test", "models": out})
+    bad = {m: v["MRR"] for m, v in out.items()
+           if not (np.isfinite(v["MRR"]) and 0.25 <= v["MRR"] <= 1.0)}
+    if bad:
+        raise AssertionError(f"the planted test answers were not found: {bad}")
+    return out
+
+
+def train_window(dataset, seed: int, name: str = "FFTRotH", config: str | None = None):
+    """A trainer at the training config TRAIN_CONFIGS[config or name] on a
+    fresh WN18RR-width `name`, with one epoch's batches (and, for BCE, its
+    label batches): what the training profile and the step time run.
+    Returns (trainer, batches, weights, generator, label batches or None)."""
     import numpy as np
     import torch
 
     from complexhyperbolickge_torch.data.dataset import epoch_batches
     from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
 
+    cfg = TrainConfig(**TRAIN_CONFIGS[config or name])
     model = wn18rr_model(seed, name)
-    trainer = Trainer(model, TrainConfig(**TRAIN_CONFIGS[name]),
-                      model.cfg.n_entities, model.cfg.n_relations)
-    b, w = epoch_batches(dataset.get_examples("train"), BATCH, np.random.default_rng(seed))
-    return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed)
+    trainer = Trainer(model, cfg, model.cfg.n_entities, model.cfg.n_relations)
+    labels = None
+    if cfg.neg_sample_size <= 0 and cfg.loss == "binarycrossentropy":
+        _, labels = dataset.label_pack("train")
+    b, w, lab = epoch_batches(dataset.get_examples("train"), BATCH,
+                              np.random.default_rng(seed), labels)
+    return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed), lab
 
 
 def profile_window(fn, shapes: bool = False) -> dict:
@@ -934,10 +1107,11 @@ def profile_rankers(model, dataset) -> dict:
 
 def profile_steps(window, shapes: bool = False) -> dict:
     """PROFILE_STEPS training steps of a train_window, profiled."""
-    trainer, b, w, gen = window
-    trainer.run_epoch(b[:3], w[:3], gen)  # warm-up
+    trainer, b, w, gen, lab = window
+    trainer.run_epoch(b[:3], w[:3], gen, None if lab is None else lab[:3])  # warm-up
     steps = slice(3, 3 + PROFILE_STEPS)
-    prof = profile_window(lambda: trainer.run_epoch(b[steps], w[steps], gen), shapes)
+    prof = profile_window(lambda: trainer.run_epoch(
+        b[steps], w[steps], gen, None if lab is None else lab[steps]), shapes)
     busy = prof["device_busy_ms"]
     prof["device_busy_ms_per_step"] = (busy / PROFILE_STEPS if isinstance(busy, float)
                                        else "not measured")
@@ -946,12 +1120,13 @@ def profile_steps(window, shapes: bool = False) -> dict:
     return {"steps": PROFILE_STEPS, **prof}
 
 
-def phase_profile(fft, roth, gnn_window):
+def phase_profile(fft, roth, gnn_window, loss_windows: dict):
     """Where the time goes: one whole-split ranking per ranker and
     PROFILE_STEPS training steps, of FFTRotH and of RotH (each a (model,
-    dataset, train_window) triple), and PROFILE_STEPS CompGCN training steps
-    (gnn_window) with their K9/K10 launches.  Returns the FFT training
-    step's device time (busy ms per step)."""
+    dataset, train_window) triple), PROFILE_STEPS CompGCN training steps
+    (gnn_window) with their K9/K10 launches, and PROFILE_STEPS steps of each
+    of loss_windows (label -> train_window: the FFT CE and BCE steps).
+    Returns the FFT training step's device time (busy ms per step)."""
     import complexhyperbolickge_torch.kernels as KS
 
     before = KS.launches()
@@ -961,7 +1136,7 @@ def phase_profile(fft, roth, gnn_window):
     out = {"phase": "profile", "split": "test", "batch": BATCH,
            "rankers": profile_rankers(*fft[:2]), "train": profile_steps(fft[2]),
            "hyp_rankers": profile_rankers(*roth[:2]), "hyp_train": profile_steps(roth[2]),
-           "gnn_train": gnn}
+           "gnn_train": gnn, **{k: profile_steps(w) for k, w in loss_windows.items()}}
     emit(out)
     return out["train"]["device_busy_ms_per_step"]
 
@@ -1329,8 +1504,8 @@ def phase_gnn_bf16_train(dataset, seed: int):
     model = gnn_model(seed, "CompGCN", dataset, dtype="bfloat16")
     trainer = Trainer(model, TrainConfig(**GNN_TRAIN_CONFIG), model.cfg.n_entities,
                       model.cfg.n_relations)
-    b, w = epoch_batches(dataset.get_examples("train"), GNN_BATCH, np.random.default_rng(seed))
-    b, w = trainer._upload(b[:1], w[:1])
+    b, w, _ = epoch_batches(dataset.get_examples("train"), GNN_BATCH, np.random.default_rng(seed))
+    b, w, _ = trainer._upload(b[:1], w[:1])
     losses = []
     KS.reset_launches()  # the bfloat16 GNN path starts here
     torch.cuda.synchronize()
@@ -1557,7 +1732,8 @@ def phase_gnn_kge_test(dirs: dict):
 
 def gnn_train_window(dataset, seed: int, name: str = "CompGCN"):
     """A trainer at the GNN training config on a fresh `name`, with one
-    epoch's batches: what the GNN profile and step windows run."""
+    epoch's batches: what the GNN profile and step windows run (the
+    train_window tuple, no labels)."""
     import numpy as np
     import torch
 
@@ -1567,8 +1743,9 @@ def gnn_train_window(dataset, seed: int, name: str = "CompGCN"):
     model = gnn_model(seed, name, dataset)
     trainer = Trainer(model, TrainConfig(**GNN_TRAIN_CONFIG),
                       model.cfg.n_entities, model.cfg.n_relations)
-    b, w = epoch_batches(dataset.get_examples("train"), GNN_BATCH, np.random.default_rng(seed))
-    return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed)
+    b, w, lab = epoch_batches(dataset.get_examples("train"), GNN_BATCH,
+                              np.random.default_rng(seed))
+    return trainer, b, w, torch.Generator(device=DEVICE).manual_seed(seed), lab
 
 
 def phase_gnn_step_window(dataset, seed: int, name: str = "PoincareGCN"):
@@ -1580,7 +1757,7 @@ def phase_gnn_step_window(dataset, seed: int, name: str = "PoincareGCN"):
 
     import complexhyperbolickge_torch.kernels as KS
 
-    trainer, b, w, gen = gnn_train_window(dataset, seed, name)
+    trainer, b, w, gen, _ = gnn_train_window(dataset, seed, name)
     trainer.run_epoch(b[:2], w[:2], gen)  # warm-up
     before = KS.launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1667,6 +1844,12 @@ def main(argv=None) -> int:
         KS.reset_launches()  # the FFT training path starts here
         history = phase_train(a.seed)
         train_launches = KS.launches()  # ... and ends here
+        # the all-entity losses, the negative modes, SparseAdam (each phase
+        # resets and reads the counts itself), then the Euclidean and
+        # complex families
+        phase_loss_training(a.seed)
+        phase_ce_step_parity(dataset, a.seed)
+        phase_euc(a.seed)
         KS.reset_launches()  # the real-hyperbolic path starts here
         by_model = {}
         for m, d in hyp_dirs.items():
@@ -1724,7 +1907,9 @@ def main(argv=None) -> int:
         step_ms = phase_profile(
             (model, dataset, train_window(dataset, a.seed)),
             (*hyp["RotH"], train_window(hyp["RotH"][1], a.seed, "RotH")),
-            gnn_train_window(dataset, a.seed))
+            gnn_train_window(dataset, a.seed),
+            {"ce_train": train_window(dataset, a.seed, config="FFTRotH CE"),
+             "bce_train": train_window(dataset, a.seed, config="FFTRotH BCE")})
         rows = phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
         rows += hyp_kernel_rows(hyp, hyp_batches, hyp_launches, hyp_errors, smi, name)
         rows += gnn_kernel_rows(gnn_meas, gnn_launches, smi, name)

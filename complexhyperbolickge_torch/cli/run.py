@@ -21,6 +21,13 @@ converted (train/checkpoint.py::opt_state_from_jax).  Shuffles and
 negatives derive from (seed, epoch), so a resumed run repeats a continuous
 one.
 
+The loss follows the flags as in JAX: per-query, shared (--neg_mode
+shared) or pooled (--neg_mode pool) negatives when --neg_sample_size > 0;
+otherwise the all-entity cross-entropy (--loss crossentropy) or, for --loss
+binarycrossentropy, BCE against the label packs (KGData.label_pack: train
+facts for the train batches, train and valid facts for the validation
+loss), which epoch_batches permutes with the triples.
+
 GNN models (CompGCN, PoincareGCN, PoincareGAT, LorentzGCN) train on the
 full graph through the same loop; their flags are --hidden_dim, --layers,
 --edge_dropout, --dropout, --opn, --interaction, --basis and
@@ -165,8 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--neg_sample_size", default=50, type=int)
     p.add_argument("--neg_mode", default="per_query",
                    choices=["per_query", "shared", "pool"],
-                   help="per_query = the reference sampler (the only one "
-                        "ported; shared and pool are ROADMAP item 10)")
+                   help="per_query = the reference sampler; shared = one "
+                        "negative set a batch; pool = per-query windows of a "
+                        "per-step pool of --neg_pool_size")
     p.add_argument("--neg_pool_size", default=512, type=int)
     p.add_argument("--loss", default="crossentropy",
                    choices=["crossentropy", "binarycrossentropy"])
@@ -283,6 +291,11 @@ def train(args) -> dict:
     logging.info("Total number of parameters %d", count_params(model))
 
     train_examples = dataset.get_examples("train")
+    labels, valid_labels = None, None
+    if tcfg.neg_sample_size <= 0 and tcfg.loss == "binarycrossentropy":
+        # BCE labels: train facts for train, train + valid facts for valid
+        _, labels = dataset.label_pack("train")
+        _, valid_labels = dataset.label_pack("valid")
     start_epoch, best_mrr, best_epoch, counter = 1, None, None, 0
     if args.resume:
         st = _resume(save_dir, model, trainer)
@@ -294,7 +307,8 @@ def train(args) -> dict:
 
     rank_fn = make_best_ranker(model, args.eval_batch_size, args.eval_backend,
                                precision=args.eval_precision)
-    vb, vw = epoch_batches(dataset.get_examples("valid"), args.batch_size, None)
+    vb, vw, vlab = epoch_batches(dataset.get_examples("valid"), args.batch_size, None,
+                                 valid_labels)
 
     def save(filename="state.pkl", **kw):
         save_checkpoint(save_dir, model.state_dict(), trainer.opt_state(), epoch,
@@ -317,14 +331,15 @@ def train(args) -> dict:
         for epoch in range(start_epoch, args.max_epochs + 1):
             t0 = time.perf_counter()
             rng = np.random.default_rng([args.seed, epoch])
-            batches, weights = epoch_batches(train_examples, args.batch_size, rng)
+            batches, weights, lab_b = epoch_batches(train_examples, args.batch_size, rng,
+                                                    labels)
             train_loss = trainer.run_epoch(batches, weights,
-                                           epoch_generator(args.seed, 2 * epoch, dev))
+                                           epoch_generator(args.seed, 2 * epoch, dev), lab_b)
             dt = time.perf_counter() - t0
             logging.info("\t Epoch %d | average train loss: %.4f | %.0f triples/s",
                          epoch, train_loss, len(train_examples) / dt)
             valid_loss = trainer.valid_loss(vb, vw,
-                                            epoch_generator(args.seed, 2 * epoch + 1, dev))
+                                            epoch_generator(args.seed, 2 * epoch + 1, dev), vlab)
             logging.info("\t Epoch %d | average valid loss: %.4f", epoch, valid_loss)
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "valid_loss": valid_loss, "seconds": dt,

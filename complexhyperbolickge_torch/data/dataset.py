@@ -6,9 +6,11 @@ port never imports the JAX package:
     with inverse triples (swap head/tail, rel += n_relations/2).
   * eval packs: per direction, queries [n, 3] plus a padded filter index
     array [n, Lmax] (pad value = n_entities), deduplicated per row.
+  * BCE label packs: padded true-tail index lists per (head, rel) query
+    (`label_pack`, pad value n_entities).
   * epoch batches: a shuffled epoch packed into static-shape batches with
-    a weight mask (`epoch_batches`).
-The BCE label packs wait for the BCE loss (ROADMAP Queue 1 item 10).
+    a weight mask, and the label rows under the same permutation
+    (`epoch_batches`).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class KGData:
         self.data = {s: np.asarray(v, dtype=np.int64) for s, v in splits.items()}
         self.to_skip = filters
         self._eval_cache: dict = {}
+        self._label_cache: dict = {}
         mx = np.max(self.data["train"], axis=0)
         self.n_entities = int(max(mx[0], mx[2]) + 1)
         # doubled relation count (with inverses)
@@ -131,6 +134,43 @@ class KGData:
         self._eval_cache[ck] = pack
         return pack
 
+    def label_pack(self, split: str):
+        """(rows int32 [n, 3], labels int32 [n, L]): the split's examples
+        (train with inverses, as get_examples gives them) and, per row, all
+        true tails of its (h, r) query, padded with n_entities.
+
+        Label sources are the reference KGDataset2's: train facts for
+        'train', train and valid facts for 'valid'; each fact (h, r, t)
+        gives key (h, r) -> t and inverse key (t, r + n_rel) -> h.  The
+        sources are never debug-truncated (only the rows are), or rows would
+        lose even their gold tail.  Vectorized (sort + searchsorted group
+        lookup) and cached per split.
+        """
+        if split in self._label_cache:
+            return self._label_cache[split]
+        sources = {"train": ("train",), "valid": ("train", "valid")}[split]
+        n_rel = self.n_predicates // 2
+        ex_src = np.concatenate([self.data[s] for s in sources], axis=0)
+        bwd = np.stack([ex_src[:, 2], ex_src[:, 1] + n_rel, ex_src[:, 0]], axis=1)
+        pairs = np.concatenate([ex_src, bwd], axis=0).astype(np.int64)
+        key_lab = np.unique(  # dedup (query, label) pairs, sorted by key
+            np.stack([pairs[:, 0] * self.n_predicates + pairs[:, 1], pairs[:, 2]], axis=1),
+            axis=0)
+        keys, labels = key_lab[:, 0], key_lab[:, 1]
+
+        rows = self.get_examples(split).astype(np.int64)
+        qkeys = rows[:, 0] * self.n_predicates + rows[:, 1]
+        starts = np.searchsorted(keys, qkeys, side="left")
+        lens = np.searchsorted(keys, qkeys, side="right") - starts
+        lmax = int(lens.max()) if len(lens) else 1
+        cols = np.arange(lmax)
+        take = np.minimum(starts[:, None] + cols[None, :], len(labels) - 1)
+        lab = np.where(cols[None, :] < lens[:, None], labels[take],
+                       self.n_entities).astype(np.int32)
+        out = (rows.astype(np.int32), lab)
+        self._label_cache[split] = out
+        return out
+
 
 def synthetic_kg(n_entities: int = 200, n_relations: int = 11,
                  n_train: int = 2000, n_valid: int = 200, n_test: int = 200,
@@ -155,22 +195,34 @@ def synthetic_kg(n_entities: int = 200, n_relations: int = 11,
 
 
 def epoch_batches(examples: np.ndarray, batch_size: int,
-                  rng: np.random.Generator | None):
+                  rng: np.random.Generator | None, labels: np.ndarray | None = None):
     """Shuffle and pack one epoch into static-shape batches + weight mask.
 
-    Returns (batches [nb, B, 3] int32, weights [nb, B] float32).  The final
-    partial batch is padded with copies of row 0 at weight 0.  rng=None
-    skips the shuffle (validation-loss passes); the trainer's rng is
-    np.random.default_rng([seed, epoch]), as in the JAX package, so both
-    packages see the same batches in the same order.
+    Returns (batches [nb, B, 3] int32, weights [nb, B] float32, label
+    batches [nb, B, L] int32 or None).  The final partial batch is padded
+    with copies of row 0 (and of labels[0]) at weight 0; the labels take the
+    triples' permutation.  rng=None skips the shuffle (validation-loss
+    passes); the trainer's rng is np.random.default_rng([seed, epoch]), as
+    in the JAX package, so both packages see the same batches in the same
+    order.
     """
     n = examples.shape[0]
-    ex = examples if rng is None else examples[rng.permutation(n)]
+    ex = examples
+    if rng is not None:
+        perm = rng.permutation(n)
+        ex = examples[perm]
+        if labels is not None:
+            labels = labels[perm]
     nb = -(-n // batch_size)
     pad = nb * batch_size - n
     weights = np.ones(nb * batch_size, dtype=np.float32)
     if pad:
         ex = np.concatenate([ex, np.broadcast_to(ex[:1], (pad, 3))], axis=0)
+        if labels is not None:
+            labels = np.concatenate(
+                [labels, np.broadcast_to(labels[:1], (pad, labels.shape[1]))], axis=0)
         weights[n:] = 0.0
+    lab_b = (None if labels is None
+             else labels.reshape(nb, batch_size, labels.shape[1]).astype(np.int32))
     return (ex.reshape(nb, batch_size, 3).astype(np.int32),
-            weights.reshape(nb, batch_size))
+            weights.reshape(nb, batch_size), lab_b)

@@ -1,9 +1,8 @@
 """Model registry (counterpart of complexhyperbolickge_tpu/models/__init__.py).
 
-Ported: the four CHYP (FFT) names, the eight real-hyperbolic ones
-(Poincare ball and Lorentz) and the four GNN encoders.  The other 9
-registered JAX models (Euclidean and complex families) are queued in
-ROADMAP.md Queue 1 item 11b.  A GNN class takes (cfg, args, dataset): its
+All 25 JAX models: the Euclidean family, the eight real-hyperbolic ones
+(Poincare ball and Lorentz), the complex family, the four CHYP (FFT) names
+and the four GNN encoders.  A GNN class takes (cfg, args, dataset): its
 graph is the dataset's train split.
 """
 
@@ -17,6 +16,23 @@ from complexhyperbolickge_torch.models.chyperbolic import (  # noqa: F401
     FFTRefH,
     FFTRotH,
     FFTUnitBall,
+)
+from complexhyperbolickge_torch.models.complexm import (  # noqa: F401
+    COMPLEX_MODELS,
+    BaseC,
+    ComplEx,
+    Fourier,
+    RotatE,
+)
+from complexhyperbolickge_torch.models.euclidean import (  # noqa: F401
+    EUC_MODELS,
+    CP,
+    AttE,
+    BaseE,
+    MurE,
+    RefE,
+    RotE,
+    TransE,
 )
 from complexhyperbolickge_torch.models.gnn import (  # noqa: F401
     GNN_MODELS,
@@ -39,26 +55,9 @@ from complexhyperbolickge_torch.models.hyperbolic import (  # noqa: F401
     RotLH,
 )
 
-all_models = CHYP_MODELS + HYP_MODELS + GNN_MODELS
+all_models = EUC_MODELS + HYP_MODELS + COMPLEX_MODELS + CHYP_MODELS + GNN_MODELS
 
-_REGISTRY = {
-    "FFTRotH": FFTRotH,
-    "FFTRefH": FFTRefH,
-    "FFTAttH": FFTAttH,
-    "FFTIsoH": FFTIsoH,
-    "RotH": RotH,
-    "RefH": RefH,
-    "AttH": AttH,
-    "AttRH": AttRH,
-    "IFFTH": IFFTH,
-    "IsoH": IsoH,
-    "RotLH": RotLH,
-    "HyboNet": HyboNet,
-    "CompGCN": CompGCN,
-    "PoincareGCN": PoincareGCN,
-    "PoincareGAT": PoincareGAT,
-    "LorentzGCN": LorentzGCN,
-}
+_REGISTRY = {name: globals()[name] for name in all_models}
 
 
 def get_model(name: str):
@@ -66,7 +65,4 @@ def get_model(name: str):
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (ROADMAP.md Queue 1, "
-            f"item 11b); ported: {sorted(_REGISTRY)}"
-        ) from None
+        raise ValueError(f"unknown model {name!r}; available: {sorted(all_models)}") from None

@@ -76,6 +76,11 @@ def real_mobius_add(x, y, c):
     return num / denom.clamp_min(MIN_NORM)
 
 
+def mobius_add_complex(x, y):
+    """Complex Mobius addition on the unit disk: (x + y) / (1 + conj(x) y)."""
+    return (x + y) / (1 + torch.conj(x) * y)
+
+
 # ------------------------- packed-real complex helpers -----------------------
 
 

@@ -1,8 +1,9 @@
-"""Euclidean ops: Givens-block transforms and row gathers.
+"""Euclidean ops: distances, Givens-block transforms, norm clamping and
+row gathers.
 
-Port of complexhyperbolickge_tpu/ops/euclidean.py (the parts the FFT family
-uses).  Shapes are polymorphic over leading batch dims; the trailing
-feature axis holds d/2 consecutive pairs.
+Port of complexhyperbolickge_tpu/ops/euclidean.py.  Shapes are polymorphic
+over leading batch dims; the trailing feature axis holds d/2 consecutive
+pairs.
 """
 
 from __future__ import annotations
@@ -10,6 +11,15 @@ from __future__ import annotations
 import torch
 
 from complexhyperbolickge_torch.ops.math import safe_norm
+
+
+def euc_sqdistance(x, y):
+    """Squared Euclidean distance along the last axis with broadcasting,
+    as |x|^2 + |y|^2 - 2 <x, y> (keepdim)."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    y2 = torch.sum(y * y, dim=-1, keepdim=True)
+    xy = torch.sum(x * y, dim=-1, keepdim=True)
+    return x2 + y2 - 2 * xy
 
 
 def _pairs(v):
@@ -94,6 +104,35 @@ def givens_unitary(a, b, angle, z, lift: bool = False):
     det = torch.conj(torch.prod(eit, dim=-1, keepdim=True))
     det = det / torch.abs(det)
     return out, det
+
+
+def givens_isometry(unitary, z, abelian=None, nilpotent=None, lift: bool = False):
+    """PU(2,1) isometry by the KAN (Iwasawa) decomposition: K the 2x2
+    unitary blocks of `unitary` ((..., 3d): a | b | angle), applied after
+    (when abelian and nilpotent are both given) A = diag(e^t, e^-t) and the
+    upper-triangular nilpotent N on the complex pairs of z."""
+    d3 = unitary.shape[-1] // 3
+    a, b, angle = unitary[..., :d3], unitary[..., d3:2 * d3], unitary[..., 2 * d3:]
+    if nilpotent is not None and abelian is not None:
+        h = nilpotent.shape[-1] // 2
+        zn_r, zn_i = nilpotent[..., :h], nilpotent[..., h:]
+        zn_sq = zn_r**2 + zn_i**2
+        zn = torch.complex(zn_r, zn_i)
+        e_t = torch.exp(abelian)
+        zp = z.reshape(*z.shape[:-1], -1, 2)
+        o0 = e_t * (zp[..., 0] + zn * zp[..., 1] + 0.5 * zn_sq)
+        o1 = (1 / e_t) * (zp[..., 1] + torch.conj(zn))
+        z = torch.stack([o0, o1], dim=-1).reshape(z.shape)
+    return givens_unitary(a, b, angle, z, lift=lift)
+
+
+def norm_clamp(source, min=None, max=None, dim: int = -1):
+    """Rescale vectors so their L2 norm lies in [min (1 + 1e-3), max (1 -
+    1e-3)]; either bound may be None."""
+    norms = torch.linalg.vector_norm(source, dim=dim, keepdim=True)
+    lo = None if min is None else min * (1 + 1e-3)
+    hi = None if max is None else max * (1 - 1e-3)
+    return source / norms * torch.clamp(norms, lo, hi)
 
 
 def multi_index_select(source, indices):

@@ -124,16 +124,22 @@ def _stub_nodes(tree):
 
 def opt_state_from_jax(opt_state) -> dict:
     """The optax state of a JAX checkpoint (inject_hyperparams around Adam,
-    the torch-rule Adagrad or SGD, as load_checkpoint's stubs give it) ->
-    the port's opt_state: mu -> exp_avg, nu -> exp_avg_sq, count -> step,
-    sum_of_squares -> sum, and the injected learning rate; nested (GNN)
-    trees are keyed by their dotted names."""
+    SparseAdam, the torch-rule Adagrad or SGD, as load_checkpoint's stubs
+    give it) -> the port's opt_state: mu -> exp_avg, nu -> exp_avg_sq,
+    count (SparseAdam: its global step) -> step, sum_of_squares -> sum, and
+    the injected learning rate; nested (GNN) trees are keyed by their
+    dotted names."""
     nodes = list(_stub_nodes(opt_state))
     lr = next(n["learning_rate"] for n in nodes
               if isinstance(n, dict) and "learning_rate" in n)
     by_name = {type(n).__name__: n for n in nodes if isinstance(n, PickledStub)}
     if "ScaleByAdamState" in by_name:
         count, mu, nu = by_name["ScaleByAdamState"]
+        mu, nu = flatten(mu), flatten(nu)
+        state = {k: {"step": np.asarray(count, dtype=np.float32),
+                     "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}
+    elif "SparseAdamState" in by_name:
+        mu, nu, count = by_name["SparseAdamState"]
         mu, nu = flatten(mu), flatten(nu)
         state = {k: {"step": np.asarray(count, dtype=np.float32),
                      "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}

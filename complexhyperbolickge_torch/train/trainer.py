@@ -6,12 +6,13 @@ static-shape batches, uploaded once, with one host sync per epoch (the mean
 loss).  Parameters live in the model, optimizer state in a torch.optim
 optimizer.
 
-Optimizers (torch.optim, the reference's own): Adam (betas 0.9/0.999, eps
-1e-8), Adagrad (initial accumulator 0, eps 1e-10; the rule the JAX package
-re-implemented to match torch) and SGD.  SparseAdam is ROADMAP Queue 1
-item 10.  For bfloat16 params the optimizer keeps its state and update
-arithmetic in float32 and adds the update, cast to bfloat16, to the param,
-as the JAX trainer's _f32_state_for_bf16 does (F32StateForBF16).
+Optimizers: torch.optim's Adam (betas 0.9/0.999, eps 1e-8), Adagrad
+(initial accumulator 0, eps 1e-10; the rule the JAX package re-implemented
+to match torch) and SGD, and train/sparse_adam.py's lazy row-sparse Adam
+(SparseAdam) over the dense gradients.  For bfloat16 params the optimizer
+keeps its state and update arithmetic in float32 and adds the update, cast
+to bfloat16, to the param, as the JAX trainer's _f32_state_for_bf16 does
+(F32StateForBF16).
 
 Gradient accumulation (`update_steps`): gradients are summed over k batches
 (.backward() accumulates by sum) and applied on every k-th batch and on the
@@ -19,8 +20,12 @@ last batch of the epoch.
 
 Randomness comes from the torch.Generator the caller passes per epoch (the
 CLI derives it from (seed, epoch), so --resume reproduces a continuous
-run).  Per-query negative sampling is the only loss so far; the shared and
-pooled negative modes and the all-entity losses are item 10.
+run).  The loss is chosen as in JAX: with neg_sample_size > 0 per-query,
+shared or pooled negatives (neg_mode); otherwise the all-entity
+cross-entropy, or for loss binarycrossentropy the BCE against label packs
+when the batches carry them and the signed-logsigmoid CE when not.  The
+regularizer is added once on every branch (the reference adds it twice on
+the binarycrossentropy branch; every published config has reg 0).
 
 GNN models encode the full graph once per training step, with edge and
 feature dropout drawn from the step's generator, and score through a
@@ -38,6 +43,7 @@ import torch
 
 from complexhyperbolickge_torch.train import losses as L
 from complexhyperbolickge_torch.train.regularizers import get_regularizer
+from complexhyperbolickge_torch.train.sparse_adam import SparseAdam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,8 +129,7 @@ def _torch_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
     if name == "SGD":  # not in the reference's choices; used by parity tests
         return torch.optim.SGD(params, lr=lr)
     if name == "SparseAdam":
-        raise NotImplementedError("SparseAdam has no PyTorch port yet "
-                                  "(ROADMAP.md Queue 1 item 10); use Adam")
+        return SparseAdam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     raise ValueError(f"unknown optimizer {name!r}")
 
 
@@ -147,34 +152,32 @@ def reduce_lr(optimizer: torch.optim.Optimizer, factor: float = 0.8):
 class Trainer:
     """Train and validation-loss loops over a fixed model and config.
 
-    sampler: the negative sampler, losses.sample_negatives unless a test
-    injects another with its signature."""
+    sampler: the per-query negative sampler, losses.sample_negatives; draw:
+    the shared and pooled modes' uniform draws, losses.uniform_ids.  Tests
+    inject others with their signatures."""
 
     def __init__(self, model, cfg: TrainConfig, n_entities: int,
-                 n_relations: int, sampler=L.sample_negatives):
+                 n_relations: int, sampler=L.sample_negatives, draw=L.uniform_ids):
         self.is_gnn = getattr(model, "is_gnn", False)
         if self.is_gnn and cfg.neg_mode in ("shared", "pool"):
             raise ValueError(f"neg_mode={cfg.neg_mode!r} is not supported for GNN models")
-        if cfg.neg_sample_size <= 0:
-            raise NotImplementedError(
-                f"the {cfg.loss} loss (neg_sample_size <= 0) has no PyTorch "
-                "port yet (ROADMAP.md Queue 1 item 10)")
-        if cfg.neg_mode != "per_query":
-            raise NotImplementedError(
-                f"neg_mode={cfg.neg_mode!r} has no PyTorch port yet "
-                "(ROADMAP.md Queue 1 item 10); use per_query")
+        if cfg.neg_mode not in ("per_query", "shared", "pool"):
+            raise ValueError(f"unknown neg_mode {cfg.neg_mode!r}")
+        if cfg.neg_sample_size <= 0 and cfg.loss not in ("crossentropy", "binarycrossentropy"):
+            raise ValueError(f"unknown loss {cfg.loss!r}")
         self.model = model
         self.cfg = cfg
         self.n_entities = n_entities
         self.n_relations = n_relations
         self.sampler = sampler
+        self.draw = draw
         self.reg_fn = get_regularizer(cfg.regularizer)
         self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate,
                                         model.parameters())
 
     # ------------------------------- loss core -------------------------------
 
-    def _loss(self, batch, weights, generator, training: bool = True):
+    def _loss(self, batch, weights, generator, training: bool = True, labels=None):
         cfg = self.cfg
         model = self.model
         if self.is_gnn:
@@ -185,10 +188,23 @@ class Trainer:
             cache = (model.encode(generator, training=True) if training
                      else model.cached_encode())
             model = BoundGNN(model, cache)
-        loss, factors = L.neg_sampling_loss(
-            model, batch, weights, generator, self.n_entities,
-            cfg.neg_sample_size, cfg.double_neg, self.n_relations,
-            sampler=self.sampler)
+        neg = (model, batch, weights, generator, self.n_entities, cfg.neg_sample_size,
+               cfg.double_neg, self.n_relations)
+        if cfg.neg_sample_size > 0 and cfg.neg_mode == "shared":
+            loss, factors = L.neg_sampling_loss_shared(*neg, draw=self.draw)
+        elif cfg.neg_sample_size > 0 and cfg.neg_mode == "pool":
+            loss, factors = L.neg_sampling_loss_pooled(*neg, cfg.neg_pool_size, draw=self.draw)
+        elif cfg.neg_sample_size > 0:
+            loss, factors = L.neg_sampling_loss(*neg, sampler=self.sampler)
+        elif cfg.loss == "crossentropy":
+            loss, factors = L.cross_entropy_loss(model, batch, weights, cfg.smoothing,
+                                                 n_entities=self.n_entities)
+        elif labels is not None:
+            loss, factors = L.bce_loss(model, batch, weights, labels, self.n_entities,
+                                       cfg.smoothing)
+        else:
+            loss, factors = L.signed_logsigmoid_ce_loss(model, batch, weights,
+                                                        n_entities=self.n_entities)
         if not cfg.reg:
             # reg weight 0 (every published config): no factor gathers
             return loss
@@ -198,10 +214,16 @@ class Trainer:
             return loss + self.reg_fn(factors, cfg.reg, factors[0].shape[0])
         return loss + self.reg_fn(factors, cfg.reg, torch.sum(weights), weights)
 
-    def _upload(self, batches, weights):
+    def _upload(self, batches, weights, labels=None):
+        """The epoch's arrays on the model's device: int64 batches and
+        labels, weights in the param dtype; labels None stays None."""
         p = next(self.model.parameters())
-        return (torch.as_tensor(np.asarray(batches), dtype=torch.int64, device=p.device),
-                torch.as_tensor(np.asarray(weights), dtype=p.dtype, device=p.device))
+
+        def ids(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=p.device)
+
+        return (ids(batches), torch.as_tensor(np.asarray(weights), dtype=p.dtype, device=p.device),
+                None if labels is None else ids(labels))
 
     # -------------------------------- public ---------------------------------
 
@@ -211,35 +233,41 @@ class Trainer:
         self.optimizer = make_optimizer(self.cfg.optimizer, self.cfg.learning_rate,
                                         self.model.parameters())
 
-    def train_step(self, batch, weights, generator, apply: bool = True):
+    def train_step(self, batch, weights, generator, apply: bool = True, labels=None):
         """Loss and backward of one batch (gradients add to those already
         accumulated); with apply, one optimizer step and cleared gradients.
-        Returns the loss as a device scalar."""
-        loss = self._loss(batch, weights, generator)
+        labels: the batch's label rows (B, L) for BCE, else None.  Returns
+        the loss as a device scalar."""
+        loss = self._loss(batch, weights, generator, labels=labels)
         loss.backward()
         if apply:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
-    def run_epoch(self, batches, weights, generator) -> float:
-        """One epoch over batches (nb, B, 3) with weights (nb, B) (numpy, as
-        data/dataset.py::epoch_batches gives them); returns the mean loss."""
-        b, w = self._upload(batches, weights)
+    def run_epoch(self, batches, weights, generator, labels=None) -> float:
+        """One epoch over batches (nb, B, 3) with weights (nb, B) and, for
+        BCE, label batches (nb, B, L) (numpy, as data/dataset.py::
+        epoch_batches gives them); returns the mean loss."""
+        b, w, lab = self._upload(batches, weights, labels)
         k_acc = max(1, self.cfg.update_steps)
         nb = b.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
         losses = [self.train_step(b[i], w[i], generator,
-                                  apply=(i + 1) % k_acc == 0 or i == nb - 1)
+                                  apply=(i + 1) % k_acc == 0 or i == nb - 1,
+                                  labels=None if lab is None else lab[i])
                   for i in range(nb)]
         return float(torch.stack(losses).mean())
 
     @torch.no_grad()
-    def valid_loss(self, batches, weights, generator) -> float:
-        """Mean loss over validation batches, without autograd."""
-        b, w = self._upload(batches, weights)
-        return float(torch.stack([self._loss(b[i], w[i], generator, training=False)
-                                  for i in range(b.shape[0])]).mean())
+    def valid_loss(self, batches, weights, generator, labels=None) -> float:
+        """Mean loss over validation batches (and their label batches),
+        without autograd."""
+        b, w, lab = self._upload(batches, weights, labels)
+        return float(torch.stack([
+            self._loss(b[i], w[i], generator, training=False,
+                       labels=None if lab is None else lab[i])
+            for i in range(b.shape[0])]).mean())
 
     # ---------------------------- optimizer state ----------------------------
 

@@ -84,7 +84,7 @@ def main(argv=None) -> int:
     from complexhyperbolickge_torch.train.losses import sample_negatives
 
     _, dataset = load_serving_state(S.write_run(a.seed)[0], "cuda")
-    trainer, b, w, gen = S.train_window(dataset, a.seed)
+    trainer, b, w, gen, _ = S.train_window(dataset, a.seed)
     trainer.run_epoch(b[:3], w[:3], gen)  # warm-up
     steps = slice(3, 3 + a.steps)
     step = kernel_profile(lambda: trainer.run_epoch(b[steps], w[steps], gen), 1)

@@ -93,7 +93,7 @@ def test_port_checkpoint_evaluates_in_both_packages(continuous):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x2"], ["--subgraph"], ["--profile_dir", "p"],
-                                  ["--debug_nans"], ["--neg_mode", "pool"]])
+                                  ["--debug_nans"], ["--distributed"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(tmp_path, "--max_epochs", "1", *flag)

@@ -88,8 +88,14 @@ def test_fftisoh_needs_even_rank():
 
 @pytest.mark.parametrize("name", ["RotE", "TransE", "ComplEx", "RefE", "nope"])
 def test_unported_models_raise_with_roadmap_pointer(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(name)
+    """Every JAX model is ported now (the names here once raised with a
+    ROADMAP pointer): each resolves to the class of its JAX name, and a
+    name JAX does not know raises ValueError as in JAX."""
+    if name == "nope":
+        with pytest.raises(ValueError, match="unknown model"):
+            get_model(name)
+    else:
+        assert get_model(name).__name__ == jax_get_model(name).__name__ == name
 
 
 def test_forward_is_score_all_or_score():

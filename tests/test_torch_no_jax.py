@@ -47,6 +47,20 @@ def test_port_sources_import_no_jax():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_port_scripts_import_no_jax():
+    """The port's scripts (scripts/torch_*.py, the rehearsal leg among
+    them) stand alone too, as do the modules of the losses, SparseAdam and
+    the Euclidean and complex families."""
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_rehearsal_leg.py" in scripts
+    pkg = ROOT / "complexhyperbolickge_torch"
+    new = [pkg / p for p in ("train/sparse_adam.py", "train/losses.py", "models/euclidean.py",
+                             "models/complexm.py", "data/preprocess.py")]
+    bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
+           for f in scripts + new}
+    assert not {k: v for k, v in bad.items() if v}
+
+
 def test_jax_checkpoint_loads_and_ranks_without_jax(tmp_path):
     rng = np.random.default_rng(0)
     n, nr, rank = 60, 22, 5

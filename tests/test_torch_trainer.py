@@ -60,7 +60,7 @@ def make_batches(n_batches, n_pad=5, seed=1):
     ex = np.stack([r.integers(0, N_ENT, n_batches * B - n_pad),
                    r.integers(0, N_REL, n_batches * B - n_pad),
                    r.integers(0, N_ENT, n_batches * B - n_pad)], axis=1).astype(np.int32)
-    return epoch_batches(ex, B, np.random.default_rng(seed))
+    return epoch_batches(ex, B, np.random.default_rng(seed))[:2]
 
 
 def jax_negatives(key, batches, double_neg=False):
@@ -236,12 +236,17 @@ def test_regularizers_equal_jax(name, tails):
 
 
 def test_unported_losses_and_modes_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TL.cross_entropy_loss()
+    """No loss, negative mode or optimizer of the JAX Trainer is left
+    unported: each config that raised NotImplementedError before the
+    all-entity losses, the shared and pooled modes and SparseAdam were
+    ported now builds a Trainer; a loss JAX does not know raises."""
     model = port_model(make_params())
-    for kw in (dict(neg_mode="pool"), dict(neg_sample_size=0), dict(optimizer="SparseAdam")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Trainer(model, TrainConfig(**kw), N_ENT, N_REL)
+    for kw in (dict(neg_mode="pool"), dict(neg_mode="shared"), dict(neg_sample_size=0),
+               dict(neg_sample_size=0, loss="binarycrossentropy"),
+               dict(optimizer="SparseAdam")):
+        Trainer(model, TrainConfig(**kw), N_ENT, N_REL)
+    with pytest.raises(ValueError, match="unknown loss"):
+        Trainer(model, TrainConfig(neg_sample_size=0, loss="mse"), N_ENT, N_REL)
 
 
 # --------------------------------- trainer ------------------------------------
@@ -405,7 +410,7 @@ def test_gnn_sgd_trajectory_matches_jax(name, reg):
     init = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")  # JAX donates jp
     tm = get_model(name)(ModelConfig(**cfg), args, data)
     tm.load_state_dict(init)
-    batches, weights = epoch_batches(data.get_examples("train")[:4 * B - 3], B,
+    batches, weights, _ = epoch_batches(data.get_examples("train")[:4 * B - 3], B,
                                      np.random.default_rng(1))
     tcfg = dict(optimizer="SGD", learning_rate=0.125, neg_sample_size=K, regularizer="N3", reg=reg)
     jt = JaxTrainer(jm, JaxTrainConfig(**tcfg), n_ent, n_rel)
@@ -433,3 +438,117 @@ def test_gnn_trainer_rejects_shared_and_pooled_negatives():
     for mode in ("shared", "pool"):
         with pytest.raises(ValueError, match="GNN"):
             Trainer(model, TrainConfig(neg_mode=mode), N_ENT, 6)
+
+
+# ------------------------ all-entity losses and SparseAdam ------------------------
+
+
+def label_batches(n_batches, seed=1):
+    """n_batches of B train rows of a graph with N_ENT entities and N_REL
+    relations (the last batch padded by 5 rows) with their label rows."""
+    data = synthetic_kg(n_entities=N_ENT, n_relations=N_REL // 2, n_train=300, seed=seed)
+    rows, labels = data.label_pack("train")
+    n = n_batches * B - 5
+    return epoch_batches(rows[:n], B, np.random.default_rng(seed), labels[:n])
+
+
+@pytest.mark.parametrize("loss,smoothing", [("crossentropy", None), ("crossentropy", 0.1),
+                                            ("binarycrossentropy", 0.1),
+                                            ("binarycrossentropy", None)])
+def test_sgd_trajectory_all_entity_losses_match_jax(loss, smoothing):
+    """5 SGD steps with an all-entity loss (BCE through its label batches,
+    and without them the signed-logsigmoid CE for smoothing None), an N3
+    term added once, then the validation loss."""
+    params = make_params()
+    batches, weights, labels = label_batches(5)
+    lab = labels if smoothing is not None or loss == "crossentropy" else None
+    cfg = dict(optimizer="SGD", learning_rate=0.5, neg_sample_size=0, loss=loss,
+               smoothing=smoothing, regularizer="N3", reg=0.05)
+    jt = JaxTrainer(jax_get_model("FFTRotH")(JaxConfig(**CFG)), JaxTrainConfig(**cfg),
+                    N_ENT, N_REL)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    key = jax.random.PRNGKey(3)
+    jp, _, jloss = jt.run_epoch(jp, jt.tx.init(jp), batches, weights, key,
+                                labels=None if lab is None else lab)
+    pt = Trainer(port_model(params), TrainConfig(**cfg), N_ENT, N_REL)
+    ploss = pt.run_epoch(batches, weights, None, labels=lab)
+    np.testing.assert_allclose(ploss, jloss, **TOL)
+    assert_params_close(pt.model, jp)
+    moved = max(np.abs(p.detach().numpy() - params[n]).max()
+                for n, p in pt.model.named_parameters())
+    assert moved > 1e-3
+    want = jt.valid_loss(jp, batches[:2], weights[:2], key,
+                         labels=None if lab is None else lab[:2])
+    got = pt.valid_loss(batches[:2], weights[:2], None,
+                        labels=None if lab is None else lab[:2])
+    assert got == pytest.approx(want, rel=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["shared", "pool"])
+def test_sgd_trajectory_shared_and_pooled_match_jax(mode):
+    """3 SGD steps with shared or pooled negatives and double_neg, the
+    draws JAX's step keys give (each step key split in 2 or 3) replayed
+    through the Trainer's draw."""
+    params = make_params()
+    batches, weights = make_batches(3)
+    cfg = dict(optimizer="SGD", learning_rate=0.5, neg_sample_size=K, neg_mode=mode,
+               neg_pool_size=12, double_neg=True)
+    jt = JaxTrainer(jax_get_model("FFTRotH")(JaxConfig(**CFG)), JaxTrainConfig(**cfg),
+                    N_ENT, N_REL)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    key = jax.random.PRNGKey(4)
+    draws = []
+    for sk in jax.random.split(key, len(batches)):
+        if mode == "shared":
+            draws += [jax.random.randint(k, (K,), 0, N_ENT) for k in jax.random.split(sk, 2)]
+        else:
+            k0, k1, k2 = jax.random.split(sk, 3)
+            draws += [jax.random.randint(k0, (12,), 0, N_ENT),
+                      *[jax.random.randint(k, (B, 1), 0, 12) for k in (k1, k2)]]
+    it = iter(draws)
+    pt = Trainer(port_model(params), TrainConfig(**cfg), N_ENT, N_REL,
+                 draw=lambda g, high, shape, dev: torch.as_tensor(np.array(next(it)),
+                                                                  dtype=torch.int64))
+    jp, _, jloss = jt.run_epoch(jp, jt.tx.init(jp), batches, weights, key)
+    ploss = pt.run_epoch(batches, weights, None)
+    np.testing.assert_allclose(ploss, jloss, **TOL)
+    assert_params_close(pt.model, jp)
+
+
+def test_opt_state_from_jax_resumes_a_jax_sparse_adam_run(tmp_path):
+    """2 SparseAdam steps in JAX, its checkpoint through the jax-free
+    loader and opt_state_from_jax into the port, then a third step in
+    both: the global step count carries over."""
+    params = make_params()
+    batches, weights = make_batches(3)
+    cfg = dict(optimizer="SparseAdam", learning_rate=LR)
+    jt = JaxTrainer(jax_get_model("FFTRotH")(JaxConfig(**CFG)),
+                    JaxTrainConfig(neg_sample_size=K, **cfg), N_ENT, N_REL)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jp, jo, _ = jt.run_epoch(jp, jt.tx.init(jp), batches[:2], weights[:2],
+                             jax.random.PRNGKey(5))
+    jax_ckpt.save_checkpoint(str(tmp_path), jp, jo, epoch=1)
+    state = load_checkpoint(str(tmp_path))
+    converted = opt_state_from_jax(state["opt_state"])
+    sa = jo.inner_state
+    assert converted["lr"] == LR
+    for name in params:
+        st = converted["state"][name]
+        assert float(st["step"]) == 2.0
+        np.testing.assert_array_equal(st["exp_avg"], np.asarray(sa.mu[name]))
+        np.testing.assert_array_equal(st["exp_avg_sq"], np.asarray(sa.nu[name]))
+    key3 = jax.random.PRNGKey(6)
+    pt = Trainer(port_model(state["params"]), TrainConfig(neg_sample_size=K, **cfg),
+                 N_ENT, N_REL, sampler=replay(jax_negatives(key3, batches[2:])))
+    pt.load_opt_state(converted)
+    jp, _, _ = jt.run_epoch(jp, jo, batches[2:], weights[2:], key3)
+    pt.run_epoch(batches[2:], weights[2:], None)
+    # inject_hyperparams holds b1, b2 and eps in float32 (0.999 -> 0.99900001,
+    # 1e-5 relative in 1 - b2), where the port keeps torch's exact float64
+    # defaults: ~2e-6 of the third step's update, itself at most lr = 7.8e-3
+    assert_params_close(pt.model, jp, rtol=1e-4, atol=1e-7)
+    # untouched entity rows kept their values in both
+    touched = np.zeros(N_ENT, bool)
+    for b in batches:
+        touched[b[:, [0, 2]].ravel()] = True
+    assert not touched.all()
