@@ -29,7 +29,12 @@ full-graph CompGCN configuration (benchmarks/gnn_train_bench.py): rank 32,
 hidden 200, 2 layers, opn mult, distmult, Adam lr 1e-3, batch 1000, 50
 negatives, edge dropout 0.3, the encoder re-run over all 173,670 edges
 every step (2 epochs of CompGCN training, 20 PoincareGCN steps, kge-test of
-CompGCN, PoincareGCN, LorentzGCN and PoincareGAT, CompGCN serving).
+CompGCN, PoincareGCN, LorentzGCN and PoincareGAT, CompGCN serving), and the
+subgraph path at the JAX package's subgraph configuration
+(benchmarks/subgraph_bench.py:17-45): CompGCN at that width with edge
+dropout 0.1 and dropout 0.1, trained on subgraphs sampled around batches of
+500 seed edges by the C++ sampler (fanouts 20/20, at most 4,096 nodes and
+32,768 edges), the all-node cross-entropy, 348 steps an epoch.
 Phases, one JSON line each; any failure exits non-zero without the final
 line:
   1 device    the card (torch.cuda), then nvidia-smi's name and power limit
@@ -69,7 +74,8 @@ line:
   9c euc-train-RotE, euc-train-ComplEx, euc-kge-test  RotE and ComplEx
               through cli.run.train at the RotH config, 2 epochs; kge-test
               of planted run dirs of the nine Euclidean and complex models
-              through the dense ranker (MRR >= 0.25)
+              through the dense ranker (MRR >= 0.25); profile-dir: the
+              ComplEx run with --profile_dir writes one trace (epoch 2)
  10 hyp-kge-test, hyp-serve, hyp-train  phases 7-9 on the real-hyperbolic
               path: kge-test per model, RotH serving, RotH training (eager
               autograd, no kernel in the step; validation and the final test
@@ -95,6 +101,21 @@ line:
               steps, kge-test of the four models (dense ranker over the
               cached encoding), CompGCN serving; gnn-launches: K9/K10 at
               least once per training step and in every kge-test
+ 15a subgraph-train  the subgraph path: cli.run.train --subgraph at the
+              JAX package's subgraph configuration (benchmarks/
+              subgraph_bench.py:17-45; below), 2 epochs of 348 steps: the C++
+              sampler, the loss finite and falling, triples/s and ms a step,
+              peak device memory, and a 20-step profiler window (busy ms,
+              idle share, launches a step); subgraph-launches: K9/K10 in
+              its full-graph validation
+ 15b subgraph-bce  40 steps of that model with BCE, smoothing 0.1 and
+              update_steps 2: the loss finite and falling
+ 15c subgraph-step parity  one subgraph step of CompGCN and of PoincareGCN
+              (dropout 0) on the card in float32 against the CPU in float64
+              (CE_PARITY_TOL)
+ 15d export-import  cli.export of the FFT run dir equals its checkpoint; a
+              reference-style config.json + model.pt of its weights through
+              cli.import_ref; kge-test of the import gives the same metrics
  16 profile   torch.profiler over one whole-split ranking per ranker (FFTRotH
               and RotH) and over 20 training steps of each, of CompGCN and
               of FFTRotH's CE and BCE steps: wall time, device busy time and
@@ -112,6 +133,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -257,6 +279,24 @@ PROFILE_GNN_STEPS = 20
 # relative) where the float32 sums straddle a rounding boundary
 GNN_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
 BF16_STEPS = 12  # Adam steps of the bfloat16 CompGCN phase
+# the subgraph path: the JAX package's published subgraph configuration
+# (benchmarks/subgraph_bench.py:17-45): CompGCN, rank 32, hidden 200, 2
+# layers, opn mult, distmult, edge dropout 0.1, dropout 0.1, Adam lr 1e-3,
+# batches of 500 seed edges, the all-node cross-entropy, float32; the
+# sampler at SubgraphTrainer's defaults (fanouts 20/20, max_nodes 4,096,
+# max_edges 32,768).  Every directed train edge seeds once an epoch:
+# 173,670 / 500 -> 348 steps, the last one padded
+SUBGRAPH_ARGS = dict(GNN_ARGS, edge_dropout=0.1, dropout=0.1)
+SUBGRAPH_TRAIN_FLAGS = ["--model", "CompGCN", "--regularizer", "N3", "--reg", "0.0",
+                        "--optimizer", "Adam", "--rank", str(GNN_RANK), "--batch_size",
+                        str(BATCH), "--neg_sample_size", "0", "--loss", "crossentropy",
+                        "--learning_rate", "1e-3", "--multi_c", "--bias", "learn",
+                        "--dtype", "float32", "--subgraph",
+                        *[str(x) for k, v in SUBGRAPH_ARGS.items() for x in (f"--{k}", v)]]
+SUBGRAPH_CONFIG = dict(optimizer="Adam", learning_rate=1e-3, batch_size=BATCH,
+                       neg_sample_size=0, loss="crossentropy")
+SUBGRAPH_STEPS = 348
+SUBGRAPH_BCE_WINDOW = 20  # subgraph-bce: two windows of 20 steps (update_steps 2)
 # fp32 operations of one pair's epilogue after the contraction, counted in
 # csrc/hyp_rank.cu (pair_score) with every +, -, *, /, sqrt, clamp and
 # transcendental call as one: a floor, since a tanhf or log1pf is ~20
@@ -993,7 +1033,18 @@ def phase_euc(seed: int) -> dict:
     from complexhyperbolickge_torch.cli.test import test
 
     for m in EUC_TRAIN:
-        phase_train(seed, [*HYP_TRAIN_FLAGS, "--model", m], label=f"euc-train-{m}")
+        # --profile_dir on the ComplEx run: epoch 2 is traced
+        prof = WORK / f"profile-{m}"
+        shutil.rmtree(prof, ignore_errors=True)  # a trace of an earlier run
+        flags = ["--profile_dir", str(prof)] if m == "ComplEx" else []
+        phase_train(seed, [*HYP_TRAIN_FLAGS, "--model", m, *flags], label=f"euc-train-{m}")
+        if flags:
+            traces = sorted(prof.glob("*.pt.trace.json"))
+            emit({"phase": "profile-dir", "run": f"euc-train-{m}", "traced_epoch": 2,
+                  "traces": [t.name for t in traces],
+                  "bytes": [t.stat().st_size for t in traces]})
+            if len(traces) != 1 or not traces[0].stat().st_size:
+                raise AssertionError(f"--profile_dir wrote no single trace into {prof}")
     out = {}
     for m in EUC_MODELS:
         d, _ = write_run(seed, m)
@@ -1777,6 +1828,203 @@ def phase_gnn_step_window(dataset, seed: int, name: str = "PoincareGCN"):
         raise AssertionError(f"{name} training window failed: {out}")
 
 
+# ----------------------------- the subgraph path --------------------------------
+
+
+def subgraph_trainer(seed: int, dataset, name: str = "CompGCN", config=None, **over):
+    """A SubgraphTrainer at the subgraph path's width on a fresh `name` on
+    the card (config: SUBGRAPH_CONFIG's overrides; over: the model's)."""
+    from complexhyperbolickge_torch.train.subgraph import SubgraphTrainer
+    from complexhyperbolickge_torch.train.trainer import TrainConfig
+
+    model = gnn_model(seed, name, dataset, **{**SUBGRAPH_ARGS, **over})
+    return SubgraphTrainer(model, TrainConfig(**{**SUBGRAPH_CONFIG, **(config or {})}),
+                           dataset)
+
+
+def phase_subgraph_train(seed: int, dataset):
+    """subgraph-train: cli.run.train --subgraph at the published subgraph
+    configuration, 2 epochs (validation and the final test on the full
+    graph, through K9/K10 and the dense ranker): the sampler backend must be
+    the C++ one, an epoch 348 steps, the loss finite and falling.  Then a
+    PROFILE_STEPS window of the same trainer (3 warm-up steps first):
+    device busy ms, idle share and launches a step, and the peak device
+    memory of subgraph training alone.  Returns the phase's line."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+
+    torch.cuda.reset_peak_memory_stats()
+    history = phase_train(seed, SUBGRAPH_TRAIN_FLAGS, label="subgraph-train")
+    run_peak = torch.cuda.max_memory_allocated()
+    trainer = subgraph_trainer(seed, dataset)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    trainer.run_epoch(BATCH, np.random.default_rng(seed), gen, max_steps=3)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = KS.launches()
+    prof = profile_window(lambda: trainer.run_epoch(
+        BATCH, np.random.default_rng(seed + 1), gen, epoch_id=1, max_steps=PROFILE_STEPS))
+    busy = prof["device_busy_ms"]
+    e2 = dict(history[1], ms_per_step=1e3 * history[1]["seconds"] / history[1]["steps"])
+    out = {"phase": "subgraph-train-window", "sampler_backend": trainer.sampler.backend,
+           "steps_per_epoch": [h["steps"] for h in history],
+           "train_loss": [h["train_loss"] for h in history],
+           "epoch2_triples_per_s": e2["triples_per_s"], "epoch2_ms_per_step": e2["ms_per_step"],
+           "peak_memory_gb_run": run_peak / 1e9,
+           "peak_memory_gb_window": torch.cuda.max_memory_allocated() / 1e9,
+           "window_steps": PROFILE_STEPS,
+           "window_wall_ms_per_step": prof["wall_ms"] / PROFILE_STEPS,
+           "window_device_busy_ms_per_step": (busy / PROFILE_STEPS if isinstance(busy, float)
+                                              else busy),
+           "window_device_idle_share": prof["device_idle_share"],
+           "window_kernels_per_step": prof["device_kernels"] / PROFILE_STEPS,
+           "window_k9_k10_launches": {k: KS.launches()[k] - before[k] for k in GNN_KERNELS},
+           "window_top_kernels_ms": prof["top_kernels_ms"],
+           "window_top_host_ops_self_ms": prof["top_host_ops_self_ms"]}
+    emit(out)
+    if (out["sampler_backend"] != "cpp" or out["steps_per_epoch"] != [SUBGRAPH_STEPS] * 2
+            or not isinstance(busy, float)):
+        raise AssertionError(f"subgraph training did not run as configured: {out}")
+    return out
+
+
+def phase_subgraph_bce(seed: int, dataset):
+    """subgraph-bce: 2 x SUBGRAPH_BCE_WINDOW steps of the subgraph path's
+    model through SubgraphTrainer with BCE, label smoothing 0.1 and
+    update_steps 2: each window's mean loss finite, the second below the
+    first."""
+    import numpy as np
+    import torch
+
+    trainer = subgraph_trainer(seed, dataset, config=dict(
+        loss="binarycrossentropy", smoothing=0.1, update_steps=2))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    t0 = time.perf_counter()
+    losses = [trainer.run_epoch(BATCH, np.random.default_rng([seed, e]), gen, epoch_id=e,
+                                max_steps=SUBGRAPH_BCE_WINDOW) for e in (0, 1)]
+    out = {"phase": "subgraph-bce", "steps": 2 * SUBGRAPH_BCE_WINDOW, "update_steps": 2,
+           "window_mean_loss": losses, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not (np.isfinite(losses).all() and losses[1] < losses[0]):
+        raise AssertionError(f"the subgraph BCE loss is not finite and falling: {out}")
+
+
+def subgraph_step_errors(card, cpu, prepped, params: dict) -> dict:
+    """One subgraph step (loss and gradients) of the same batch from the
+    same params (float64 tensors by name) on the card in float32 and on the
+    CPU in float64: the loss's relative error and each gradient's max
+    error over its largest entry (floored at 1e-2 of the largest entry of
+    all gradients, as phase_ce_step_parity)."""
+    import torch
+
+    res = {}
+    for t in (card, cpu):
+        p0 = next(t.model.parameters())
+        t.model.load_state_dict({k: v.to(p0.device, p0.dtype) for k, v in params.items()})
+        t.model.zero_grad(set_to_none=True)
+        loss = t._loss(*t._to_device(t._host_tensors(prepped)))
+        loss.backward()
+        res[t is card] = (loss.item(), {k: torch.zeros(p.shape, dtype=torch.float64)
+                                        if p.grad is None else p.grad.double().cpu()
+                                        for k, p in t.model.named_parameters()})
+    (l32, g32), (l64, g64) = res[True], res[False]
+    floor = 1e-2 * max(float(g.abs().max()) for g in g64.values())
+    grad_rel = {k: float((g32[k] - g).abs().max()) / max(float(g.abs().max()), floor)
+                for k, g in g64.items()}
+    return {"loss_f32_card": l32, "loss_f64_cpu": l64, "loss_rel_err": abs(l32 - l64) / abs(l64),
+            "max_grad_rel_err": max(grad_rel.values()),
+            "worst_grads": dict(sorted(grad_rel.items(), key=lambda kv: -kv[1])[:4])}
+
+
+def phase_subgraph_step_parity(seed: int, dataset):
+    """subgraph-step-parity: one subgraph step (the CE loss and its
+    gradients) of CompGCN and of PoincareGCN (method 1) at the subgraph
+    path's width, dropout 0, on one sampled subgraph: on the card in
+    float32 against the same params and batch on the CPU in float64, held
+    to CE_PARITY_TOL.  CompGCN is held at its init.  PoincareGCN's init puts
+    its relation stream at the edge of the ball (the layers' w_rel map the
+    relation tables to points whose expmap0 is within ~1e-5 of the
+    boundary, where float32 keeps ~2 of its digits: a CPU probe gave loss
+    1e-5 and gradients 8e-4 at hidden 32), so it is held with the layers'
+    w_rel scaled by 0.1, well inside the ball; its errors at init are
+    reported beside them, as phase_ce_step_parity holds FFTRotH inside the
+    ball."""
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.cli.run import build_model
+
+    out = {"phase": "subgraph-step parity", "batch": BATCH, "tolerance": CE_PARITY_TOL,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "models": {}}
+    failed = []
+    for name in ("CompGCN", "PoincareGCN"):
+        card = subgraph_trainer(seed, dataset, name, edge_dropout=0.0, dropout=0.0)
+        ns = argparse.Namespace(**{**gnn_args(seed, name), **SUBGRAPH_ARGS, "edge_dropout": 0.0,
+                                   "dropout": 0.0, "dtype": "float64"})
+        cpu = type(card)(build_model(ns, dataset, "cpu"), card.cfg, dataset)
+        sub = next(card.sampler.epoch(BATCH, np.random.default_rng(seed), seed_base=0))
+        prepped = card._prep_host(sub)
+        init = {k: v.double().cpu() for k, v in card.model.state_dict().items()}
+        held = init
+        r = {"n_nodes": sub.n_nodes, "n_edges": sub.n_edges, "overflow": sub.overflow}
+        if name == "PoincareGCN":
+            r["at_init_not_held"] = subgraph_step_errors(card, cpu, prepped, init)
+            held = {k: v * 0.1 if ".w_rel." in k else v for k, v in init.items()}
+            r["held_at"] = "the layers' w_rel scaled by 0.1"
+        r.update(subgraph_step_errors(card, cpu, prepped, held))
+        out["models"][name] = r
+        if not (np.isfinite(r["loss_f32_card"]) and r["loss_rel_err"] <= CE_PARITY_TOL["loss_rel"]
+                and r["max_grad_rel_err"] <= CE_PARITY_TOL["grad_rel"]):
+            failed.append(name)
+        del card, cpu
+    emit(out)
+    if failed or out["allow_tf32"]:
+        raise AssertionError(f"the card's subgraph step disagrees with float64: {failed}")
+
+
+def phase_export_import(model_dir: str, dataset):
+    """export-import: cli.export of the FFT run dir (every array equal to
+    the checkpoint's, the config embedded); a reference-style run dir
+    (config.json with `sizes`, model.pt of <param>.weight tables) made of
+    that run's weights through cli.import_ref; kge-test of the imported dir
+    gives the source dir's MRR."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.cli.export import export
+    from complexhyperbolickge_torch.cli.import_ref import import_reference
+    from complexhyperbolickge_torch.cli.test import test
+    from complexhyperbolickge_torch.train.checkpoint import flatten, load_checkpoint
+
+    st = load_checkpoint(model_dir)
+    params = flatten(st["params"])
+    path = export(model_dir, str(WORK / "export" / "embeddings"))
+    with np.load(path) as z:
+        exported_equal = (sorted(z.keys()) == sorted([*params, "__config__"])
+                          and all(np.array_equal(z[k], v) and z[k].dtype == v.dtype
+                                  for k, v in params.items())
+                          and json.loads(z["__config__"].tobytes()) == st["config"]["args"])
+    ref = WORK / "reference-run"
+    ref.mkdir(parents=True, exist_ok=True)
+    torch.save({f"{k}.weight": torch.from_numpy(np.array(v)) for k, v in params.items()},
+               ref / "model.pt")
+    (ref / "config.json").write_text(json.dumps(
+        {**st["config"]["args"], "sizes": list(dataset.get_shape())}))
+    imported = WORK / "imported"
+    import_reference(str(ref), str(imported))
+    src, dst = test(model_dir, device="cuda"), test(str(imported), device="cuda")
+    out = {"phase": "export-import", "npz": path, "arrays": len(params),
+           "exported_equal_checkpoint": exported_equal, "source_mrr": src["MRR"],
+           "imported_mrr": dst["MRR"], "imported_metrics_equal": src == dst}
+    emit(out)
+    if not (exported_equal and src == dst and 0.0 < src["MRR"] <= 1.0):
+        raise AssertionError(f"export or import changed the model: {out}")
+
+
 def gnn_kernel_rows(meas, launches, smi, name):
     """The kernels line's K9 and K10 rows at the encoder's hidden width (H =
     200), with the H = 1 and H = 32 measurements beside them.  Bound: bytes,
@@ -1903,6 +2151,20 @@ def main(argv=None) -> int:
         if min(gnn_train_launches[k] for k in GNN_KERNELS) < gnn_steps:
             raise AssertionError(f"K9/K10 launched fewer times than the {gnn_steps} CompGCN "
                                  f"training steps: {gnn_train_launches}")
+
+        # the subgraph path: its steps encode with the unsorted sums and
+        # gathers of the masked convs; its validation and test encode the
+        # full graph through K9/K10
+        KS.reset_launches()  # the subgraph path starts here
+        phase_subgraph_train(a.seed, dataset)
+        sub_launches = KS.launches()  # ... and ends here
+        emit({"phase": "subgraph-launches", "path": {k: v for k, v in sub_launches.items() if v}})
+        if not all(sub_launches[k] for k in GNN_KERNELS):
+            raise AssertionError(f"the subgraph path's full-graph validation launched no "
+                                 f"K9/K10: {sub_launches}")
+        phase_subgraph_bce(a.seed, dataset)
+        phase_subgraph_step_parity(a.seed, dataset)
+        phase_export_import(model_dir, dataset)
 
         step_ms = phase_profile(
             (model, dataset, train_window(dataset, a.seed)),

@@ -31,9 +31,15 @@ loss), which epoch_batches permutes with the triples.
 GNN models (CompGCN, PoincareGCN, PoincareGAT, LorentzGCN) train on the
 full graph through the same loop; their flags are --hidden_dim, --layers,
 --edge_dropout, --dropout, --opn, --interaction, --basis and
---gnn_agg_method.  Runs on the card unless --device cpu.  Flags of parts
-not ported yet (--mesh, --distributed, --subgraph, --profile_dir,
---debug_nans) are accepted and raise when set, naming their ROADMAP.md item.
+--gnn_agg_method.  With --subgraph a GNN trains on sampled subgraphs
+instead (train/subgraph.py: batches of --batch_size seed edges, CE or BCE
+over each subgraph's nodes, --neg_sample_size 0); the validation loss and
+validation stay on the full graph.  --profile_dir writes a torch.profiler
+trace of the second epoch (the first when it is the only one);
+--debug_nans checks every training step and raises FloatingPointError at
+the first non-finite loss or NaN gradient (utils/profiling.py).  Runs on
+the card unless --device cpu.  --mesh and --distributed are accepted and
+raise when set: multi-device runs are ROADMAP.md Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -69,11 +75,11 @@ from complexhyperbolickge_torch.train.evaluate import (
 )
 from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
 from complexhyperbolickge_torch.utils.platform import resolve_device
+from complexhyperbolickge_torch.utils.profiling import trace
 
 DATASETS = ["FB15K", "WN", "WN18RR", "FB237", "YAGO3-10", "synthetic"]
 # flags of parts not ported yet: flag -> ROADMAP.md Queue 1 item
-_UNPORTED = {"mesh": 15, "distributed": 15, "subgraph": 14, "profile_dir": 16,
-             "debug_nans": 16}
+_UNPORTED = {"mesh": 15, "distributed": 15}
 # the GNN flags and their defaults
 _GNN_DEFAULTS = {"hidden_dim": 200, "edge_dropout": 0.3, "layers": 2,
                  "opn": "mult", "interaction": "distmult", "basis": 0,
@@ -288,6 +294,16 @@ def train(args) -> dict:
         loss=args.loss, smoothing=args.smoothing, double_neg=args.double_neg,
     )
     trainer = Trainer(model, tcfg, sizes[0], sizes[1])
+    trainer.debug_nans = args.debug_nans
+    sub_trainer = None
+    if args.subgraph:
+        from complexhyperbolickge_torch.train.subgraph import SubgraphTrainer
+
+        # one optimizer: the checkpoint and --resume code read trainer's
+        sub_trainer = SubgraphTrainer(model, tcfg, dataset, optimizer=trainer.optimizer)
+        sub_trainer.debug_nans = args.debug_nans
+        logging.info("Subgraph training: %s sampler, %d steps an epoch",
+                     sub_trainer.sampler.backend, sub_trainer.steps(args.batch_size))
     logging.info("Total number of parameters %d", count_params(model))
 
     train_examples = dataset.get_examples("train")
@@ -328,13 +344,24 @@ def train(args) -> dict:
     try:
         logging.info("\t Start training")
         epoch = start_epoch - 1
+        # the second epoch is traced (the first pays the warm-up), or the
+        # first when it is the only one
+        profile_epoch = start_epoch + 1 if args.max_epochs > start_epoch else start_epoch
         for epoch in range(start_epoch, args.max_epochs + 1):
             t0 = time.perf_counter()
             rng = np.random.default_rng([args.seed, epoch])
-            batches, weights, lab_b = epoch_batches(train_examples, args.batch_size, rng,
-                                                    labels)
-            train_loss = trainer.run_epoch(batches, weights,
-                                           epoch_generator(args.seed, 2 * epoch, dev), lab_b)
+            gen = epoch_generator(args.seed, 2 * epoch, dev)
+            with trace(args.profile_dir if epoch == profile_epoch else None):
+                if sub_trainer is not None:
+                    steps = sub_trainer.steps(args.batch_size)
+                    train_loss = sub_trainer.run_epoch(args.batch_size, rng, gen,
+                                                       epoch_id=epoch)
+                else:
+                    batches, weights, lab_b = epoch_batches(train_examples, args.batch_size,
+                                                            rng, labels)
+                    steps = len(batches)
+                    train_loss = trainer.run_epoch(batches, weights, gen, lab_b,
+                                                   epoch_id=epoch)
             dt = time.perf_counter() - t0
             logging.info("\t Epoch %d | average train loss: %.4f | %.0f triples/s",
                          epoch, train_loss, len(train_examples) / dt)
@@ -343,7 +370,7 @@ def train(args) -> dict:
             logging.info("\t Epoch %d | average valid loss: %.4f", epoch, valid_loss)
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "valid_loss": valid_loss, "seconds": dt,
-                            "steps": len(batches),
+                            "steps": steps,
                             "triples_per_s": len(train_examples) / dt})
 
             stopped_early = False

@@ -1,13 +1,22 @@
 """Graph convolution layers: CompGCN, Poincare, Lorentz, Poincare GAT.
 
-Port of complexhyperbolickge_tpu/models/gnn/convs.py, the full-graph
-`apply` of each conv (the subgraph `apply_masked` variants wait for the
-subgraph trainer, ROADMAP.md Queue 1 item 14).  Each conv is an nn.Module
-whose parameters carry the JAX names (w_loop, w_in, ..., w_rel.w,
-mlp_curvature.<i>.w), so a JAX layer dict loads one to one; forward(x,
-graph, rel_pack, edge_w, generator) is JAX's apply(p, x, edges, rel_pack,
-edge_w, key) over a message.FullGraph.  The edge gathers x[tail[half]] run
-through K10 and every sum over the receiving-node halves through K9.
+Port of complexhyperbolickge_tpu/models/gnn/convs.py.  Each conv is an
+nn.Module whose parameters carry the JAX names (w_loop, w_in, ..., w_rel.w,
+mlp_curvature.<i>.w), so a JAX layer dict loads one to one, and has two
+forwards:
+  * forward(x, graph, rel_pack, edge_w, generator) is JAX's apply(p, x,
+    edges, rel_pack, edge_w, key) over a message.FullGraph: the edge gathers
+    x[tail[half]] run through K10 and every sum over the receiving-node
+    halves through K9;
+  * forward_masked(x, (head, tail, etype), rel_pack, edge_w, dir_w, node_w,
+    generator) is JAX's apply_masked over a sampled subgraph: the edges are
+    unsorted, dir_w is 1 for a forward edge and selects the in / out
+    weights per edge, node_w masks padded node rows (CompGCN's batch norm).
+    Its gathers are plain indexing and its sums the unsorted
+    message.segment_sum (index_add_), as JAX's masked forms use
+    jax.ops.segment_sum.
+The message and mixing math is shared; only the index forms handed to the
+sums differ.
 
 The JAX code's documented quirks are kept:
   * PoincareConv uses the softplused curvature for both b_rel Mobius adds.
@@ -92,32 +101,56 @@ class CompGCNConv(_Conv):
     def _compose(self, x, r):
         return x - r if self.opn == "add" else x * r
 
-    def _bn(self, out):
-        mean = torch.mean(out, dim=0, keepdim=True)
-        var = torch.var(out, dim=0, keepdim=True, unbiased=False)
+    def _bn(self, out, node_w=None):
+        """Batch norm with batch statistics; node_w (N,) keeps padded rows
+        out of them."""
+        if node_w is None:
+            mean = torch.mean(out, dim=0, keepdim=True)
+            var = torch.var(out, dim=0, keepdim=True, unbiased=False)
+        else:
+            w = node_w[:, None]
+            n = torch.clamp_min(torch.sum(w), 1.0)
+            mean = torch.sum(out * w, dim=0, keepdim=True) / n
+            var = torch.sum(w * (out - mean) ** 2, dim=0, keepdim=True) / n
         return (out - mean) / torch.sqrt(var + 1e-5) * self.bn_scale + self.bn_bias
+
+    @staticmethod
+    def _direction(comp, seg, w_edge, w_mat, n_ent):
+        """The degree-normalized sum of comp over one direction's edges
+        (seg: their receiving-node index form), times w_mat.  The matmul
+        comes after the sum: the sum is linear and w_mat the same for every
+        edge."""
+        norm = M.compute_norm(seg, w_edge, n_ent)
+        return torch.matmul(M.segment_sum(norm[:, None] * comp, seg, n_ent), w_mat)
+
+    def _finish(self, agg_in, agg_out, x, rel, generator, node_w=None):
+        loop = torch.matmul(self._compose(x, self.loop_rel), self.w_loop)
+        if generator is not None and self.dropout > 0:
+            agg_in = M.dropout(generator, agg_in, self.dropout)
+            agg_out = M.dropout(generator, agg_out, self.dropout)
+        out = self._bn((agg_in + agg_out + loop) / 3.0, node_w)
+        if self.act is not None:
+            out = self.act(out)
+        return out, torch.matmul(rel, self.w_rel)
 
     def forward(self, x, graph, rel, edge_w, generator=None):
         n_ent = x.shape[0]
 
         def direction(i, w):
-            sl, seg = graph.half_slice(i), graph.heads.halves[i]
+            sl = graph.half_slice(i)
             comp = self._compose(graph.tail_gathers[i](x), rel[graph.etype[sl]])
-            # matmul after aggregation: the sum is linear and w is the same
-            # for every edge
-            norm = M.compute_norm(seg, edge_w[sl], n_ent)
-            return torch.matmul(seg(norm[:, None] * comp), w)
+            return self._direction(comp, graph.heads.halves[i], edge_w[sl], w, n_ent)
 
-        agg_in = direction(0, self.w_in)
-        agg_out = direction(1, self.w_out)
-        loop = torch.matmul(self._compose(x, self.loop_rel), self.w_loop)
-        if generator is not None and self.dropout > 0:
-            agg_in = M.dropout(generator, agg_in, self.dropout)
-            agg_out = M.dropout(generator, agg_out, self.dropout)
-        out = self._bn((agg_in + agg_out + loop) / 3.0)
-        if self.act is not None:
-            out = self.act(out)
-        return out, torch.matmul(rel, self.w_rel)
+        return self._finish(direction(0, self.w_in), direction(1, self.w_out), x, rel,
+                            generator)
+
+    def forward_masked(self, x, edges, rel, edge_w, dir_w, node_w, generator=None):
+        head, tail, etype = edges
+        n_ent = x.shape[0]
+        comp = self._compose(x[tail], rel[etype])
+        agg_in = self._direction(comp, head, edge_w * dir_w, self.w_in, n_ent)
+        agg_out = self._direction(comp, head, edge_w * (1.0 - dir_w), self.w_out, n_ent)
+        return self._finish(agg_in, agg_out, x, rel, generator, node_w)
 
     def regularizable(self):
         return [self.w_loop, self.w_in, self.w_out, self.w_rel]
@@ -135,6 +168,10 @@ class PoincareConv(_Conv):
       2: gyromidpoint over [edges; self-loops] jointly;
       3: per-direction 1/deg tangent means, 1/3 mix with the self loop.
     Relation and curvature update by a learned linear map and MLP."""
+
+    # forward_masked messages with each edge's own relation type; LorentzConv
+    # and PoincareGATConv swap it (_swapped_etype), as their forward does
+    swapped_types = False
 
     def __init__(self, d_in, d_out, d_in_r, d_out_r, act, dropout=0.0,
                  agg_method: int = 1, dtype=None, device=None):
@@ -195,12 +232,39 @@ class PoincareConv(_Conv):
         rel, curv_raw = rel_pack  # (Nr, >= 3 d_in), (Nr, 1) before softplus
         out_rel, c_out, c_out_raw = self._update_rel(rel, curv_raw)
         out = self._propagate(x, graph, out_rel, c_out, edge_w)
+        return self._finish(out, out_rel, c_out_raw, generator)
+
+    def forward_masked(self, x, edges, rel_pack, edge_w, dir_w, node_w, generator=None):
+        """node_w is unused: no statistic of this conv crosses rows."""
+        rel, curv_raw = rel_pack
+        out_rel, c_out, c_out_raw = self._update_rel(rel, curv_raw)
+        out = self._propagate_masked(x, edges, out_rel, c_out, edge_w, dir_w)
+        return self._finish(out, out_rel, c_out_raw, generator)
+
+    def _finish(self, out, out_rel, c_out_raw, generator):
         if self.act is not None:
             out = self.act(out)
         if generator is not None and self.dropout > 0:
             out = M.dropout(generator, out, self.dropout)
             out_rel = M.dropout(generator, out_rel, self.dropout)
         return out, (out_rel, c_out_raw)
+
+    def _masked_messages(self, x, edges, rel, curv, dir_w):
+        """Each edge's message in the masked layout: both directions'
+        messages of every edge, blended by dir_w (exactly one of them, as
+        dir_w is 0 or 1); and the self-loop message.  The swapped-type convs
+        message with _swapped_etype's types."""
+        _, tail, etype = edges
+        n_rel = rel.shape[0]
+        x_t = x[tail]
+
+        def types(mode):
+            return _swapped_etype(etype, dir_w, n_rel, mode) if self.swapped_types else etype
+
+        m_in = self._message(x_t, types("in"), rel, curv, "in")
+        m_out = self._message(x_t, types("out"), rel, curv, "out")
+        d = dir_w.reshape(-1, *[1] * (m_in.dim() - 1))
+        return d * m_in + (1.0 - d) * m_out, self._message(x, None, None, None, "loop")
 
     def _propagate(self, x, graph, rel, curv, edge_w):
         h = graph.half
@@ -213,8 +277,23 @@ class PoincareConv(_Conv):
         if self.agg_method == 2:
             return self._aggregate_gyromidpoint(msgs, msg_loop, graph.head, edge_w, n_ent, lc)
         if self.agg_method == 3:
-            return self._aggregate_thirds(msgs, msg_loop, graph, edge_w, n_ent)
-        return self._aggregate_and_mix(msgs, msg_loop, graph, edge_w, n_ent, lc)
+            parts = [(graph.heads.halves[i], edge_w[graph.half_slice(i)],
+                      msgs[graph.half_slice(i)]) for i in (0, 1)]
+            return self._aggregate_thirds(parts, msg_loop, n_ent)
+        return self._aggregate_and_mix(msgs, msg_loop, graph.heads, graph.tail, edge_w, n_ent,
+                                       lc)
+
+    def _propagate_masked(self, x, edges, rel, curv, edge_w, dir_w):
+        head, tail, _ = edges
+        msgs, msg_loop = self._masked_messages(x, edges, rel, curv, dir_w)
+        lc = _softplus(self.loop_curvature)
+        n_ent = x.shape[0]
+        if self.agg_method == 2:
+            return self._aggregate_gyromidpoint(msgs, msg_loop, head, edge_w, n_ent, lc)
+        if self.agg_method == 3:
+            parts = [(head, edge_w * dir_w, msgs), (head, edge_w * (1.0 - dir_w), msgs)]
+            return self._aggregate_thirds(parts, msg_loop, n_ent)
+        return self._aggregate_and_mix(msgs, msg_loop, head, tail, edge_w, n_ent, lc)
 
     def _gyromidpoint_update(self, out, edge_norm, idx, lc, n_ent):
         """Weighted gyro-midpoint of hyperbolic points, back to the tangent
@@ -238,25 +317,24 @@ class PoincareConv(_Conv):
         return self._gyromidpoint_update(torch.cat([msgs, msg_loop], dim=0), norm, idx, lc,
                                          n_ent)
 
-    def _aggregate_thirds(self, msgs, msg_loop, graph, edge_w, n_ent):
+    def _aggregate_thirds(self, parts, msg_loop, n_ent):
         """Method 3: per-direction 1/deg tangent means, mixed 1/3 each with
-        the self-loop message."""
+        the self-loop message.  parts: (receiving-node index form, edge
+        weights, messages) of the in and the out direction."""
 
-        def half_mean(i):
-            sl, seg = graph.half_slice(i), graph.heads.halves[i]
-            n = M.compute_norm(seg, edge_w[sl], n_ent)
-            return seg(n[:, None] * msgs[sl])
+        def mean(seg, w, msgs):
+            return M.segment_sum(M.compute_norm(seg, w, n_ent)[:, None] * msgs, seg, n_ent)
 
-        return (half_mean(0) + half_mean(1) + msg_loop) / 3.0
+        return (mean(*parts[0]) + mean(*parts[1]) + msg_loop) / 3.0
 
-    def _aggregate_and_mix(self, msgs, msg_loop, graph, edge_w, n_ent, lc):
+    def _aggregate_and_mix(self, msgs, msg_loop, heads, tail, edge_w, n_ent, lc):
         """Method 1: symmetric-normalized sum, then the gyro-barycenter of
         (aggregate, self-loop) with the learned loop weight; nodes without
-        edges keep the self-loop message."""
-        heads = graph.heads
-        norm = M.compute_symmetric_norm(heads, graph.tail, edge_w, n_ent)
-        agg = heads(norm[:, None] * msgs)
-        degs = heads(edge_w)
+        edges keep the self-loop message.  heads: the receiving-node index
+        in any index form."""
+        norm = M.compute_symmetric_norm(heads, tail, edge_w, n_ent)
+        agg = M.segment_sum(norm[:, None] * msgs, heads, n_ent)
+        degs = M.segment_sum(edge_w, heads, n_ent)
         lw = torch.sigmoid(self.loop_weight)
         hb = H.expmap0(agg, lc)
         hl = H.expmap0(msg_loop, lc)
@@ -275,10 +353,23 @@ class PoincareConv(_Conv):
 # ------------------------------- LorentzConv ---------------------------------
 
 
+def _swapped_etype(etype, dir_w, n_rel: int, mode: str):
+    """The swapped relation type of the masked layout (LorentzConv,
+    PoincareGATConv): for 'in', a forward edge's type + n_rel/2; for 'out',
+    an inverse edge's type - n_rel/2; otherwise the edge's own."""
+    half = n_rel // 2
+    fwd = dir_w > 0.5
+    if mode == "in":
+        return torch.where(fwd, etype + half, etype)
+    return torch.where(fwd, etype, etype - half)
+
+
 class LorentzConv(PoincareConv):
     """Hyperboloid conv: boost-based relation transform, 1/deg tangent
     aggregation, Lorentz-centroid mixing with the self-loop message (one
     aggregation method only)."""
+
+    swapped_types = True
 
     def __init__(self, *args, **kwargs):
         if kwargs.get("agg_method", 1) != 1:
@@ -315,13 +406,12 @@ class LorentzConv(PoincareConv):
                                 rel, curv, "out")
         msg_loop = self._message(x, None, None, None, "loop")
         msgs = torch.cat([msg_in, msg_out], dim=0)
-        return self._aggregate_and_mix(msgs, msg_loop, graph, edge_w, x.shape[0],
-                                       _softplus(self.loop_curvature))
+        return self._aggregate_and_mix(msgs, msg_loop, graph.heads, graph.tail, edge_w,
+                                       x.shape[0], _softplus(self.loop_curvature))
 
-    def _aggregate_and_mix(self, msgs, msg_loop, graph, edge_w, n_ent, lc):
-        heads = graph.heads
+    def _aggregate_and_mix(self, msgs, msg_loop, heads, tail, edge_w, n_ent, lc):
         norm = M.compute_norm(heads, edge_w, n_ent)
-        agg = heads(norm[:, None] * msgs)
+        agg = M.segment_sum(norm[:, None] * msgs, heads, n_ent)
         lw = torch.sigmoid(self.loop_weight)
         hb = H.explicit_lorentz(H.expmap0_lorentz(agg, lc), lc)
         hl = H.explicit_lorentz(H.expmap0_lorentz(msg_loop, lc), lc)
@@ -341,6 +431,8 @@ class PoincareGATConv(PoincareConv):
     with a softmax over [edges; self-loops] per receiving node; a
     gyromidpoint update per head; head gather by mean or concat.  The
     relation stream is PoincareConv's."""
+
+    swapped_types = True
 
     def __init__(self, d_in, d_out, d_in_r, d_out_r, act, dropout=0.0, gather="mean",
                  heads=4, agg_method: int = 1, dtype=None, device=None):
@@ -391,6 +483,13 @@ class PoincareGATConv(PoincareConv):
         msgs = torch.cat([msg_in, msg_out], dim=0)  # (E, K, d)
         return self._attend_and_update(msgs, msg_loop, graph.head, graph.etype, relh, edge_w,
                                        x.shape[0], _softplus(self.loop_curvature))
+
+    def _propagate_masked(self, x, edges, rel, curv, edge_w, dir_w):
+        head, _, etype = edges
+        relh = torch.einsum("nd,kde->nke", rel, self.w_k_r)
+        msgs, msg_loop = self._masked_messages(x, edges, relh, curv, dir_w)
+        return self._attend_and_update(msgs, msg_loop, head, etype, relh, edge_w, x.shape[0],
+                                       _softplus(self.loop_curvature))
 
     def _attend_and_update(self, msgs, msg_loop, head, etype, relh, edge_w, n_ent, lc):
         """Scatter-softmax attention, per-head gyromidpoint update, head

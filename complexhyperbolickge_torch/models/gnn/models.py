@@ -10,6 +10,11 @@ nn.ModuleList `gnn`, so state_dict keys read gnn.<layer>.<name>[.<i>].<leaf>
 as the JAX params["gnn"][layer][name][i][leaf].  The graph tensors are not
 buffers: build the model on the device it runs on.
 
+`encode_subgraph` is the encoder over a sampled, padded subgraph
+(data/sampler.py) through each conv's forward_masked: the subgraph's rows
+of the entity table, its unsorted edges with dir_w = 1 for a forward
+edge, and node_w (or None) masking the padded node rows.
+
 Scoring takes the encoder output as `cache` (x, rel_pack); without one it
 encodes first.  `cached_encode` keeps the eval-mode encoding per params
 version (the parameters and their `_version` counters), so evaluation and
@@ -127,6 +132,36 @@ class GNNModel(KGModel):
         last = len(self.gnn) - 1
         for i, layer in enumerate(self.gnn):
             x, rel_pack = layer(x, self.graph, rel_pack, edge_w, generator=generator)
+            if i != last:
+                if self.drop_in_between and self.feat_dropout > 0 and generator is not None:
+                    x = M.dropout(generator, x, self.feat_dropout)
+                rel_pack = self._act_r(rel_pack)
+        return self.finish_cache(x, rel_pack)
+
+    def encode_subgraph(self, node_ids, edges, edge_w, node_w,
+                        generator: torch.Generator | None = None, training: bool = False):
+        """The encoder over a sampled subgraph: node_ids (M,) global ids of
+        its rows, edges (E, 3) (local head, type, local tail), edge_w (E,)
+        masking padded (and non-train) edges, node_w (M,) masking padded
+        rows (None: every row is real).  Edge dropout multiplies edge_w,
+        then the layer stack with its dropouts; both draw from `generator`
+        in training only."""
+        if not training:
+            generator = None
+        x = self.entity[node_ids]
+        rel_pack = self.get_r()
+        head, etype, tail = edges[:, 0], edges[:, 1], edges[:, 2]
+        dir_w = (etype < self.cfg.n_relations // 2).to(x.dtype)
+        edge_w = edge_w.to(x.dtype)
+        if node_w is not None:
+            node_w = node_w.to(x.dtype)
+        if generator is not None:
+            edge_w = edge_w * M.edge_dropout_mask(generator, edge_w.shape[0], self.edge_dropout,
+                                                  dtype=x.dtype, device=x.device)
+        last = len(self.gnn) - 1
+        for i, layer in enumerate(self.gnn):
+            x, rel_pack = layer.forward_masked(x, (head, tail, etype), rel_pack, edge_w, dir_w,
+                                               node_w, generator=generator)
             if i != last:
                 if self.drop_in_between and self.feat_dropout > 0 and generator is not None:
                     x = M.dropout(generator, x, self.feat_dropout)

@@ -30,7 +30,13 @@ the binarycrossentropy branch; every published config has reg 0).
 GNN models encode the full graph once per training step, with edge and
 feature dropout drawn from the step's generator, and score through a
 BoundGNN; the validation loss scores against the eval-mode encoding, cached
-per params version (GNNModel.cached_encode).
+per params version (GNNModel.cached_encode).  Sampled-subgraph training of
+a GNN is train/subgraph.py's SubgraphTrainer.
+
+With `debug_nans` set (--debug_nans), an epoch runs under
+utils/profiling.py's NanCheck: each step's loss is checked before its
+backward, which runs in anomaly mode, and the first non-finite value raises
+FloatingPointError naming the epoch and the step.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from complexhyperbolickge_torch.train import losses as L
 from complexhyperbolickge_torch.train.regularizers import get_regularizer
 from complexhyperbolickge_torch.train.sparse_adam import SparseAdam
+from complexhyperbolickge_torch.utils.profiling import nan_check
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +163,8 @@ class Trainer:
     the shared and pooled modes' uniform draws, losses.uniform_ids.  Tests
     inject others with their signatures."""
 
+    debug_nans = False  # --debug_nans: check every step (utils/profiling.py)
+
     def __init__(self, model, cfg: TrainConfig, n_entities: int,
                  n_relations: int, sampler=L.sample_negatives, draw=L.uniform_ids):
         self.is_gnn = getattr(model, "is_gnn", False)
@@ -233,30 +242,37 @@ class Trainer:
         self.optimizer = make_optimizer(self.cfg.optimizer, self.cfg.learning_rate,
                                         self.model.parameters())
 
-    def train_step(self, batch, weights, generator, apply: bool = True, labels=None):
+    def train_step(self, batch, weights, generator, apply: bool = True, labels=None,
+                   check=None):
         """Loss and backward of one batch (gradients add to those already
         accumulated); with apply, one optimizer step and cleared gradients.
-        labels: the batch's label rows (B, L) for BCE, else None.  Returns
-        the loss as a device scalar."""
+        labels: the batch's label rows (B, L) for BCE, else None; check: a
+        NanCheck, whose backward then runs in place of loss.backward().
+        Returns the loss as a device scalar."""
         loss = self._loss(batch, weights, generator, labels=labels)
-        loss.backward()
+        if check is None:
+            loss.backward()
+        else:
+            check.backward(loss)
         if apply:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
-    def run_epoch(self, batches, weights, generator, labels=None) -> float:
+    def run_epoch(self, batches, weights, generator, labels=None, epoch_id: int = 0) -> float:
         """One epoch over batches (nb, B, 3) with weights (nb, B) and, for
         BCE, label batches (nb, B, L) (numpy, as data/dataset.py::
-        epoch_batches gives them); returns the mean loss."""
+        epoch_batches gives them); returns the mean loss.  epoch_id names
+        the epoch in a --debug_nans error."""
         b, w, lab = self._upload(batches, weights, labels)
         k_acc = max(1, self.cfg.update_steps)
         nb = b.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
-        losses = [self.train_step(b[i], w[i], generator,
-                                  apply=(i + 1) % k_acc == 0 or i == nb - 1,
-                                  labels=None if lab is None else lab[i])
-                  for i in range(nb)]
+        with nan_check(self.debug_nans, epoch_id) as check:
+            losses = [self.train_step(b[i], w[i], generator,
+                                      apply=(i + 1) % k_acc == 0 or i == nb - 1,
+                                      labels=None if lab is None else lab[i], check=check)
+                      for i in range(nb)]
         return float(torch.stack(losses).mean())
 
     @torch.no_grad()

@@ -42,9 +42,9 @@ def test_cli_trains_with_each_new_loss(case, tmp_path, monkeypatch):
     seen = []
     real = R.Trainer.run_epoch
 
-    def spy(self, batches, weights, generator, labels=None):
+    def spy(self, batches, weights, generator, labels=None, **kw):
         seen.append(labels)
-        return real(self, batches, weights, generator, labels)
+        return real(self, batches, weights, generator, labels, **kw)
 
     monkeypatch.setattr(R.Trainer, "run_epoch", spy)
     out = R.train(R.build_parser().parse_args(TINY + CASES[case] + ["--save_dir",

@@ -7,7 +7,10 @@ finishes the epoch and writes latest.pkl; the port-trained checkpoint
 evaluates through the port's kge-test and the JAX package's, which agree
 within 1e-4 in MRR (the port ranks with K1's plain version, JAX with its
 dense ranker).  The same for the GNN path: a CompGCN run trains and
-resumes, and GNN run dirs cross between the packages both ways.
+resumes, and GNN run dirs cross between the packages both ways; with
+--subgraph a CompGCN trains on sampled subgraphs and resumes.
+--profile_dir writes a trace, --debug_nans stops at the first NaN step,
+and only the multi-device flags are left unported.
 """
 
 import os
@@ -92,11 +95,77 @@ def test_port_checkpoint_evaluates_in_both_packages(continuous):
     assert abs(got["MRR"] - want["MRR"]) < 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x2"], ["--subgraph"], ["--profile_dir", "p"],
-                                  ["--debug_nans"], ["--distributed"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2x2"], ["--distributed"]])
 def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
         run(tmp_path, "--max_epochs", "1", *flag)
+
+
+def test_only_the_multi_device_flags_are_unported():
+    assert R._UNPORTED == {"mesh": 15, "distributed": 15}
+
+
+@pytest.mark.parametrize("epochs", [1, 2])
+def test_profile_dir_traces_one_epoch(tmp_path, epochs):
+    """--profile_dir writes one torch.profiler trace: of epoch 2, or of
+    epoch 1 when it is the only one."""
+    import json
+
+    out = run(tmp_path / "run", "--max_epochs", str(epochs), "--profile_dir",
+              str(tmp_path / "prof"))
+    assert len(out["history"]) == epochs
+    traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
+@pytest.mark.parametrize("mode", ["full", "subgraph"])
+def test_debug_nans_raises_at_the_first_nan_step(tmp_path, monkeypatch, mode):
+    """A NaN injected into the third step's loss: --debug_nans raises
+    FloatingPointError naming epoch 1, step 3, in the full-graph loop and in
+    the subgraph one."""
+    from complexhyperbolickge_torch.train.subgraph import SubgraphTrainer
+
+    cls = R.Trainer if mode == "full" else SubgraphTrainer
+    real, calls = cls._loss, []
+
+    def nan_at_third(self, *a, **kw):
+        calls.append(1)
+        loss = real(self, *a, **kw)
+        return loss * float("nan") if len(calls) == 3 else loss
+
+    monkeypatch.setattr(cls, "_loss", nan_at_third)
+    argv = TINY if mode == "full" else SUBGRAPH
+    with pytest.raises(FloatingPointError, match="epoch 1, step 3"):
+        R.train(R.build_parser().parse_args(argv + ["--save_dir", str(tmp_path),
+                                                    "--max_epochs", "1", "--debug_nans"]))
+    assert len(calls) == 3
+
+
+def test_step_timer_discards_warmup():
+    from complexhyperbolickge_torch.utils.profiling import StepTimer
+
+    t = StepTimer(warmup=1)
+    with t:
+        pass
+    assert len(t.times) == 1 and t.times[0] >= 0.0
+    t.times = [1.0, 0.25, 0.25]  # the first (warm-up) step is left out
+    assert t.rate(100) == pytest.approx(400.0) and t.mean_ms == pytest.approx(250.0)
+
+
+def test_nan_check_turns_a_nan_gradient_into_floating_point_error():
+    import torch
+
+    from complexhyperbolickge_torch.utils.profiling import NanCheck
+
+    x = torch.zeros(3, dtype=torch.float64, requires_grad=True)
+    with NanCheck(epoch=4) as check:  # an infinite gradient is not a NaN (as in JAX)
+        check.backward((torch.sqrt(x) * 2.0).sum())
+    assert torch.isinf(x.grad).all()
+    with pytest.raises(FloatingPointError, match="epoch 4, step 1"):
+        with NanCheck(epoch=4) as check:
+            check.backward((torch.sqrt(x) * 0.0).sum())  # 0 * inf: NaN in the backward
 
 
 def test_module_entry_point_trains_on_cpu(tmp_path):
@@ -273,3 +342,63 @@ def test_kge_test_and_serve_of_jax_gnn_checkpoint(jax_gnn_dir):
     conv = opt_state_from_jax(st["opt_state"])
     assert "gnn.0.w_in" in conv["state"] and "entity" in conv["state"]
     assert conv["state"]["gnn.1.bn_scale"]["exp_avg"].shape == (8,)
+
+
+# --------------------------- GNN: --subgraph training ---------------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def sampler_lib(tmp_path_factory):
+    """The port's sampler library, built from source for this module, so
+    no test here loads a copy another process may be writing."""
+    from complexhyperbolickge_torch.data import sampler as S
+
+    built = S.load_library(S.build_library(tmp_path_factory.mktemp("native")))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(S, "_LIB", built)
+        yield built
+
+
+SUBGRAPH = GNN + ["--subgraph", "--neg_sample_size", "0", "--loss", "crossentropy",
+                  "--dropout", "0.1"]
+
+
+@pytest.fixture(scope="module")
+def subgraph_run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("compgcn_subgraph")
+    return d, R.train(R.build_parser().parse_args(SUBGRAPH + ["--save_dir", str(d),
+                                                              "--max_epochs", "2"]))
+
+
+def test_subgraph_compgcn_trains_and_evaluates_on_cpu(subgraph_run):
+    """--subgraph trains CompGCN on sampled subgraphs (edge dropout 0.3,
+    dropout 0.1): every directed train edge seeds once an epoch (4,000
+    edges in batches of 256: 16 steps), the loss falls, validation and
+    kge-test rank over the full-graph encoding."""
+    d, out = subgraph_run
+    assert [h["steps"] for h in out["history"]] == [16, 16]
+    losses = [h["train_loss"] for h in out["history"]]
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    assert 0.0 < out["test"]["MRR"] <= 1.0
+    assert torch_test(str(d), device="cpu") == out["test"]
+    assert "Subgraph training: cpp sampler, 16 steps an epoch" in (d / "train.log").read_text()
+
+
+def test_subgraph_resume_equals_continuous_run(subgraph_run, tmp_path):
+    """The sampler's seeds, the shuffle and the dropout derive from (seed,
+    epoch), and the optimizer state rides in the checkpoint."""
+    _, out = subgraph_run
+    R.train(R.build_parser().parse_args(SUBGRAPH + ["--save_dir", str(tmp_path),
+                                                    "--max_epochs", "1"]))
+    resumed = R.train(R.build_parser().parse_args(
+        SUBGRAPH + ["--save_dir", str(tmp_path), "--max_epochs", "2", "--resume"]))
+    assert resumed["history"][0]["train_loss"] == out["history"][1]["train_loss"]
+    assert resumed["test"] == out["test"]
+
+
+def test_subgraph_refuses_negatives_and_shallow_models(tmp_path):
+    with pytest.raises(ValueError, match="neg_sample_size 0"):
+        R.train(R.build_parser().parse_args(
+            GNN + ["--subgraph", "--save_dir", str(tmp_path), "--max_epochs", "1"]))
+    with pytest.raises(ValueError, match="GNN-only"):
+        run(tmp_path, "--subgraph", "--neg_sample_size", "0", "--max_epochs", "1")
