@@ -80,6 +80,12 @@ line:
               path: kge-test per model, RotH serving, RotH training (eager
               autograd, no kernel in the step; validation and the final test
               through K5)
+ 10a bf16-kernels  --eval_precision default: the bf16 tensor-core
+              instances of K1, K2's sweep and subtraction (FFTRotH, D 66 in
+              bf16 rows of 80) and of K5-K8's sweeps and subtractions (RotH,
+              RotLH, AttRH, D 32) against their plain default versions on
+              each model's first test batch (inputs from the default
+              rankers' kernel_inputs); maskless == masked exactly
  11 launches  each path's kernel launches; a kernel of a path that never
               launched there fails the run, K3/K4 (and chyp_train_lists,
               K4's index preparation) must launch at least once
@@ -101,6 +107,13 @@ line:
               steps, kge-test of the four models (dense ranker over the
               cached encoding), CompGCN serving; gnn-launches: K9/K10 at
               least once per training step and in every kge-test
+ 15' default-kge-test  the --eval_precision default path: kge-test of the
+              FFTRotH, RotH, RotLH and AttRH runs with the masked and the
+              maskless fused rankers and of the CompGCN run (dense), beside
+              the same at highest (MRR delta within 1e-3), each default
+              fused ranker's whole-split queries/s, every bf16 instance
+              launched on this path, and one batch of CompGCN's dense
+              default scores against their rounded-operand definition
  15a subgraph-train  the subgraph path: cli.run.train --subgraph at the
               JAX package's subgraph configuration (benchmarks/
               subgraph_bench.py:17-45; below), 2 epochs of 348 steps: the C++
@@ -124,7 +137,11 @@ line:
               library call beside the kernel's bound (and the rankers' busy
               time per call and the training step's device time; the sweeps'
               registers, blocks per SM, shared and local bytes; K9/K10's
-              bfloat16 instances under "bfloat16")
+              bfloat16 instances under "bfloat16"; the rows of the rankers'
+              bf16 instances, `<name>_bf16`, with their exact instance's
+              time (exact_ms), the contraction's torch.mm time as
+              library_ms, and the Lorentz K5/K6 instantiation under
+              "lorentz")
  18 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
@@ -140,6 +157,7 @@ import threading
 import time
 import traceback
 import urllib.request
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -163,10 +181,12 @@ TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 PARITY_TOL = dict(rtol=1e-5, atol=1e-7)
 
 # peak rates by card, from NVIDIA's data sheets (dense, no sparsity): fp32
-# outside the tensor cores (the kernels are exact fp32), memory bandwidth,
-# and fp64 outside the tensor cores (K3/K4 accumulate their dots in fp64)
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 25.6e12), "H100 NVL": (60.0e12, 3.9e12, 30.0e12),
-         "H100": (67.0e12, 3.35e12, 34.0e12), "H200": (67.0e12, 4.8e12, 34.0e12)}
+# outside the tensor cores (the exact kernels), memory bandwidth, fp64
+# outside the tensor cores (K3/K4 accumulate their dots in fp64), and bf16
+# on the tensor cores (the bf16 instances of --eval_precision default)
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 25.6e12, 756e12),
+         "H100 NVL": (60.0e12, 3.9e12, 30.0e12, 835e12),
+         "H100": (67.0e12, 3.35e12, 34.0e12, 989e12), "H200": (67.0e12, 4.8e12, 34.0e12, 989e12)}
 
 KERNEL_META = {
     "chyp_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/chyp_rank.py:147",
@@ -297,6 +317,12 @@ SUBGRAPH_CONFIG = dict(optimizer="Adam", learning_rate=1e-3, batch_size=BATCH,
                        neg_sample_size=0, loss="crossentropy")
 SUBGRAPH_STEPS = 348
 SUBGRAPH_BCE_WINDOW = 20  # subgraph-bce: two windows of 20 steps (update_steps 2)
+# the bf16 tensor-core instances (--eval_precision default)
+BF16_KERNELS = tuple(f"{k}_bf16" for k in (*RANK_KERNELS, *HYP_RANK_KERNELS, *ATTRH_KERNELS))
+# an epilogue's transcendental calls, IEEE divisions and square roots a pair
+# after the contraction, with the radius tables' part precomputed
+# (csrc/chyp_rank.cu chyp_score, csrc/hyp_rank.cu score_from_radii)
+SFU_PER_PAIR = {"chyp": 3, "poincare": 7, "lorentz": 4, "attrh": 14}
 # fp32 operations of one pair's epilogue after the contraction, counted in
 # csrc/hyp_rank.cu (pair_score) with every +, -, *, /, sqrt, clamp and
 # transcendental call as one: a floor, since a tanhf or log1pf is ~20
@@ -520,12 +546,12 @@ def phase_kernels(model, dataset):
     return (q, f, xm, xn), errors
 
 
-def hyp_family(family: str):
-    """A real-hyperbolic family's kernels: (the subtractions' leading input
-    names, plain all-entity scores of an input dict, kernel name ->
-    (wrapper, plain version, input names in wrapper order), the maskless
-    count of an input dict, the radius table of an input dict through the
-    kernel and the plain version)."""
+def hyp_family(family: str, precision: str = "highest"):
+    """A real-hyperbolic family's kernels at `precision`: (the subtractions'
+    leading input names, plain all-entity scores of an input dict, kernel
+    name -> (wrapper, plain version, input names in wrapper order), the
+    maskless count of an input dict, the radius table of an input dict
+    through the kernel and the plain version)."""
     from functools import partial
 
     from complexhyperbolickge_torch.kernels import hyp_rank as H
@@ -538,20 +564,24 @@ def hyp_family(family: str):
         return fn(x["cvals"], x[un[0]], family, *(x[k] for k in un[1:]))
 
     tables = (partial(radii, fn=H.hyp_rank_radii), partial(radii, fn=H.hyp_rank_radii_plain))
-    fam = {} if g == "attrh" else dict(family=family)
+    fam = dict(precision=precision) if g == "attrh" else dict(family=family,
+                                                              precision=precision)
     counts_nomask = H.attrh_rank_counts_nomask if g == "attrh" else H.hyp_rank_counts_nomask
 
     def maskless(x):
         return counts_nomask(*(x[k] for k in sweep), x["fidx"], x["gold"], **fam)
 
     if g == "attrh":
-        return names, lambda x: H.attrh_scores_plain(*(x[k] for k in names if k != "t2")), {
-            "attrh_rank_sweep_masked": (H.attrh_rank_counts, H.attrh_rank_counts_plain,
+        return names, lambda x: H.attrh_scores_plain(*(x[k] for k in names if k != "t2"),
+                                                     **fam), {
+            "attrh_rank_sweep_masked": (partial(H.attrh_rank_counts, **fam),
+                                        partial(H.attrh_rank_counts_plain, **fam),
                                         (*sweep, "mask")),
-            "attrh_rank_sweep_nomask": (H.attrh_rank_sweep_nomask,
-                                        H.attrh_rank_sweep_nomask_plain, (*sweep, "gold")),
-            "attrh_rank_filtered_sub": (H.attrh_rank_filtered_sub,
-                                        H.attrh_rank_filtered_sub_plain,
+            "attrh_rank_sweep_nomask": (partial(H.attrh_rank_sweep_nomask, **fam),
+                                        partial(H.attrh_rank_sweep_nomask_plain, **fam),
+                                        (*sweep, "gold")),
+            "attrh_rank_filtered_sub": (partial(H.attrh_rank_filtered_sub, **fam),
+                                        partial(H.attrh_rank_filtered_sub_plain, **fam),
                                         (*names, "fidx", "gold")),
         }, maskless, tables
     return names, lambda x: H.hyp_scores_plain(*(x[k] for k in names if k != "t2"), **fam), {
@@ -1199,7 +1229,6 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     that launches the kernel, both with the query prep, as the card's busy
     time per call (busy_ms).  Train distance: step_ms is one whole training
     step's device time (phase_profile)."""
-    import numpy as np
     import torch
 
     from complexhyperbolickge_torch.kernels import chyp_rank as K
@@ -1211,7 +1240,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     b, d = base[0].shape[0] // 2, base[0].shape[1]
     np_, ld = base[3].shape  # the table's rows padded to ld >= d floats
     l = xn["fidx"].shape[1]
-    f32_peak, bw_peak, f64_peak = peak_rates(name)
+    f32_peak, bw_peak, f64_peak, _ = peak_rates(name)
     # whole rankers per batch, query prep included (~200 launches a call)
     dense = make_ranker(model)
     dense_ms = busy_ms(lambda: dense(q, f))
@@ -1219,19 +1248,24 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     for masked in (True, False):
         ranker = K.ChypRanker(model, masked=masked)
         ranker_ms[masked] = busy_ms(lambda: ranker(q, f))
-    n_rows = int(np.unique(xn["fidx"].cpu().numpy()).size)
-    vec = 4 * (2 * b * d + 2 * b + 2 * np_ + np_ * ld)  # lhs2, zn, t2, wn, bt, rhs
+    # the function's work at the model's N entities, not the table's Np
+    # padded rows (nor the ld - d pad floats of a row)
+    n = model.cfg.n_entities
+    fidx, gold = xn["fidx"].long(), xn["gold"].long()
+    kept = (fidx >= 0) & (fidx < n) & (fidx != gold[:, None])
+    n_rows = int(torch.unique(fidx[kept]).numel())
+    vec = 4 * (2 * b * d + 2 * b + 2 * n + n * d)  # lhs2, zn, t2, wn, bt, rhs
     # name -> (kernel, plain, args, fp32 ops, fp64 ops, bytes)
     work = {
         "chyp_rank_sweep_masked": (K.chyp_rank_counts, K.chyp_rank_counts_plain,
-                                   [*base, xm["mask"]], 4 * b * np_ * d, 0,
-                                   vec + b * np_ + 4 * b),
+                                   [*base, xm["mask"]], 4 * b * n * d, 0,
+                                   vec + b * n + 4 * b),
         "chyp_rank_sweep_nomask": (K.chyp_rank_sweep_nomask,
                                    K.chyp_rank_sweep_nomask_plain, [*base, xn["gold"]],
-                                   4 * b * np_ * d, 0, vec + 4 * b + 4 * b),
+                                   4 * b * n * d, 0, vec + 4 * b + 4 * b),
         "chyp_rank_filtered_sub": (K.chyp_rank_filtered_sub,
                                    K.chyp_rank_filtered_sub_plain,
-                                   [*base, xn["fidx"], xn["gold"]], 4 * b * l * d, 0,
+                                   [*base, xn["fidx"], xn["gold"]], 4 * int(kept.sum()) * d, 0,
                                    4 * (2 * b * d + 2 * b + n_rows * (d + 2))
                                    + 4 * b * l + 8 * b),
     }
@@ -1315,25 +1349,26 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
     from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker, sweep_info
     from complexhyperbolickge_torch.train.evaluate import make_ranker
 
-    f32_peak, bw_peak, _ = peak_rates(name)
+    f32_peak, bw_peak, _, _ = peak_rates(name)
     timed = {}
     for mname, (model, _) in hyp.items():
         family = HYP_MODELS[mname]
         names, _, fns, _, tables = hyp_family(family)
         q, f, x = batches[mname]
         (b, d), np_, l = x["lhs"].shape, x["rhs"].shape[0], x["fidx"].shape[1]
+        n = model.cfg.n_entities  # the function's rows, not the Np padded ones
         n_pq = names.index("rhs") - 1  # per-query vectors
         n_pr = len(names) - names.index("rhs") - 1  # per-row vectors
-        vec = 4 * (b * d + np_ * d + b * n_pq + np_ * n_pr)
+        vec = 4 * (b * d + n * d + b * n_pq + n * n_pr)
         pair_ops = 2 * d + EPILOGUE_OPS[family]
         fidx, gold = x["fidx"].long(), x["gold"].long()
-        kept = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
+        kept = (fidx >= 0) & (fidx < n) & (fidx != gold[:, None])
         n_rows = int(torch.unique(fidx[kept]).numel())
-        table_bytes = 4 * (x["radii"].numel() + x["cvals"].numel())
+        table_bytes = 4 * (x["radii"].numel() // np_ * n + x["cvals"].numel())
         work = {  # kernel name -> (fp32 operations, bytes)
             fns_name: w for fns_name, w in zip(fns, (
-                (b * np_ * pair_ops, vec + b * np_ + table_bytes + 4 * b),
-                (b * np_ * pair_ops, vec + table_bytes + 4 * b + 4 * b),
+                (b * n * pair_ops, vec + b * n + table_bytes + 4 * b),
+                (b * n * pair_ops, vec + table_bytes + 4 * b + 4 * b),
                 (int(kept.sum()) * pair_ops,
                  4 * (b * d + b * n_pq + n_rows * (d + n_pr)) + 4 * b * l + 8 * b)))}
         dense = make_ranker(model)
@@ -1371,6 +1406,274 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
         if family == "poincare":
             row["lorentz"] = timed[(kname, "lorentz")]
         rows.append(row)
+    return rows
+
+
+# ------------------- --eval_precision default: the bf16 instances -------------------
+
+
+def phase_bf16_kernels(model, dataset, hyp: dict):
+    """The bf16 tensor-core instances (precision "default") against their
+    plain default versions on each model's first test batch at full width
+    (FFTRotH: D 66 in bf16 rows of 80; RotH, RotLH, AttRH: D 32), inputs
+    from each default ranker's kernel_inputs: within the entities whose
+    score interval (the contraction moved by TC_REL sum_k |q_k w_k|) holds
+    t2; masked == maskless - subtraction exactly.  Returns (name, family)
+    -> (the bf16 call, its plain call, the exact instance's call on the
+    exact inputs, the inputs, the ranker's busy ms, the model's entities
+    and features) for the kernels line, and the errors."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
+    from complexhyperbolickge_torch.kernels._ranker import TC_REL, near_threshold, score_interval
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+
+    out = {"phase": "bf16-kernels", "models": {}}
+    work, errors, failed = {}, {}, []
+    base = ("lhs2", "zn", "t2", "rhs", "wn", "bt")
+    families = {"FFTRotH": ("chyp", model, dataset),
+                **{m: (HYP_MODELS[m], *md) for m, md in hyp.items()}}
+    for mname, (family, m, data) in families.items():
+        dev = next(m.parameters()).device
+        pack = data.eval_pack("test", "rhs")
+        q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=dev)
+        f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=dev)
+        xs, fns, ranker_ms = {}, {}, {}
+        for prec in ("highest", "default"):
+            r = (K.ChypRanker if family == "chyp" else
+                 AttRHRanker if family == "attrh" else HypRanker)(m, precision=prec)
+            xs[prec] = {**r.kernel_inputs(q, f, masked=False), **r.kernel_inputs(q, f)}
+            if prec == "default":  # the default rankers' busy time a call
+                for masked in (True, False):
+                    rk = type(r)(m, masked=masked, precision=prec)
+                    ranker_ms[masked] = busy_ms(lambda: rk(q, f))
+            if family == "chyp":
+                fns[prec] = {
+                    "chyp_rank_sweep_masked": (partial(K.chyp_rank_counts, precision=prec),
+                                               partial(K.chyp_rank_counts_plain, precision=prec),
+                                               (*base, "mask")),
+                    "chyp_rank_sweep_nomask": (partial(K.chyp_rank_sweep_nomask, precision=prec),
+                                               partial(K.chyp_rank_sweep_nomask_plain,
+                                                       precision=prec), (*base, "gold")),
+                    "chyp_rank_filtered_sub": (partial(K.chyp_rank_filtered_sub, precision=prec),
+                                               partial(K.chyp_rank_filtered_sub_plain,
+                                                       precision=prec), (*base, "fidx", "gold"))}
+            else:
+                fns[prec] = hyp_family(family, prec)[2]
+        x = xs["default"]
+        if family == "chyp":
+            maskless = K.chyp_rank_counts_nomask(*(x[k] for k in base), x["fidx"], x["gold"],
+                                                 precision="default")
+        else:
+            maskless = hyp_family(family, "default")[3](x)
+        near = near_threshold(*score_interval(family, x, TC_REL), x["t2"])
+        res = {"family": family, "batch": BATCH, "Np": int(x["rhs"].shape[0]),
+               "Dp": int(x["rhs"].shape[1]), "operands": str(x["rhs"].dtype),
+               "max_near_threshold": int(near.max()), "kernels": {}}
+        first = None
+        for kname, (kernel, plain, args) in fns["default"].items():
+            a = [x[k] for k in args]
+            got, want = kernel(*a), plain(*a)
+            torch.cuda.synchronize()
+            first = got if first is None else first
+            diff = (got - want).abs()
+            name = f"{kname}_bf16"
+            errors[(name, family)] = int(diff.max())
+            ok = bool((diff <= near).all())
+            res["kernels"][name] = {"max_abs_err": int(diff.max()),
+                                    "queries_differing": int((diff > 0).sum()),
+                                    "within_tolerance": ok}
+            if not ok:
+                failed.append(f"{mname} {name} disagrees with its plain default version")
+            ek, _, eargs = fns["highest"][kname]
+            ea = [xs["highest"][k] for k in eargs]
+            work[(name, family)] = (partial(kernel, *a), partial(plain, *a), partial(ek, *ea), x,
+                                    ranker_ms[kname.endswith("_masked")], m.cfg.n_entities,
+                                    m.entity.shape[1])
+        res["maskless_equals_masked"] = bool(torch.equal(first, maskless))
+        if not res["maskless_equals_masked"]:
+            failed.append(f"{mname}: bf16 maskless != masked on a batch whose golds are filtered")
+        out["models"][mname] = res
+    emit(out)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return work, errors
+
+
+def dense_default_scores(gnn_dir: str, dataset) -> dict:
+    """The dense default path's score region on one card batch: the
+    CompGCN run's score_all inside eval_matmul_precision("default") is not
+    highest's, and equals its definition (the distmult contraction of the
+    bf16-rounded queries and encoded entities summed in float64, then the
+    biases) within the float32 sum of D exact products and the float32
+    bias adds."""
+    import torch
+
+    from complexhyperbolickge_torch.cli.run import build_model
+    from complexhyperbolickge_torch.ops.math import eval_matmul_precision, round_bf16
+    from complexhyperbolickge_torch.train.checkpoint import load_config, load_into
+
+    model = build_model(argparse.Namespace(**load_config(gnn_dir)["args"]), dataset, DEVICE)
+    load_into(model, gnn_dir)
+    pack = dataset.eval_pack("test", "rhs")
+    q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=DEVICE)
+    with torch.no_grad():
+        cache = model.cached_encode()
+        highest = model.score_all(q, cache)
+        with eval_matmul_precision("default"):
+            got = model.score_all(q, cache)
+        (lhs,), lhs_b = model.get_queries(q, cache)
+        a, w = round_bf16(lhs).double(), round_bf16(cache[0]).double()
+        bt = model.bt.double()
+        want = model._apply_bias(a @ w.T, lhs_b.double(), bt, all_pairs=True)
+        slack = ((a.abs() @ w.abs().T) * (a.shape[1] * 2.0 ** -24)
+                 + 2.0 ** -22 * (lhs_b.double().abs() + bt[None, :, 0].abs() + want.abs()))
+        err = (got.double() - want).abs()
+    out = {"shape": list(got.shape), "max_abs_diff_vs_highest": float((got - highest).abs().max()),
+           "max_abs_err_vs_definition": float(err.max()),
+           "max_err_over_slack": float((err / slack).max())}
+    out["ok"] = bool(not torch.equal(got, highest) and (err <= slack).all())
+    return out
+
+
+def phase_default_kge_test(runs: dict, gnn_dir: str, dataset):
+    """kge-test with --eval_precision default (runs: name -> (dir, model,
+    dataset)): each run with the masked fused ranker (auto) and the maskless
+    one, and the dense CompGCN run, beside the same runs at highest: MRR
+    (delta within 1e-3), whole-split queries/s of each default ranker
+    (median of 3), and the default fused forms' ranks identical; and the
+    dense CompGCN score region on one batch (dense_default_scores).
+    Returns the path's launches, read before the highest runs."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.cli.test import test
+    from complexhyperbolickge_torch.train.evaluate import get_ranking, make_best_ranker
+
+    KS.reset_launches()  # the default path starts here
+    out = {"phase": "default-kge-test", "runs": {}}
+    dirs = {**{m: r[0] for m, r in runs.items()}, "CompGCN": gnn_dir}
+    for name, d in dirs.items():
+        for backend in ("auto", "pallas_maskless") if name in runs else ("dense",):
+            t0 = time.perf_counter()
+            m = test(d, device="cuda", eval_backend=backend, eval_precision="default")
+            out["runs"][f"{name} {backend}"] = {"MRR": m["MRR"], "MR": m["MR"],
+                                                "cli_seconds": time.perf_counter() - t0}
+    launches = KS.launches()  # ... and ends here
+    for name, d in dirs.items():
+        for backend in ("auto", "pallas_maskless") if name in runs else ("dense",):
+            r = out["runs"][f"{name} {backend}"]
+            r["MRR_highest"] = test(d, device="cuda", eval_backend=backend)["MRR"]
+            r["MRR_delta"] = r["MRR"] - r["MRR_highest"]
+    for name, (_, model, dataset) in runs.items():
+        packs = [dataset.eval_pack("test", d) for d in ("rhs", "lhs")]
+        n_q = sum(len(p.queries) for p in packs)
+        ranks = {}
+        for backend in ("auto", "pallas_maskless"):
+            rank_fn = make_best_ranker(model, BATCH, backend, precision="default")
+            get_ranking(model, packs[0], BATCH, rank_fn=rank_fn)  # warm-up
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ranks[backend] = [get_ranking(model, p, BATCH, rank_fn=rank_fn) for p in packs]
+                secs.append(time.perf_counter() - t0)
+            out["runs"][f"{name} {backend}"]["queries_per_s"] = n_q / sorted(secs)[1]
+        out["runs"][f"{name} auto"]["fused_ranks_identical"] = all(
+            np.array_equal(a, b) for a, b in zip(ranks["auto"], ranks["pallas_maskless"]))
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["dense_scores"] = dense_default_scores(gnn_dir, dataset)
+    emit(out)
+    bad = {k: v for k, v in out["runs"].items()
+           if not (np.isfinite(v["MRR"]) and 0.0 < v["MRR"] <= 1.0 and abs(v["MRR_delta"]) <= 1e-3
+                   and v.get("fused_ranks_identical", True))}
+    if bad:
+        raise AssertionError(f"default-mode kge-test failed: {bad}")
+    if not out["dense_scores"]["ok"]:
+        raise AssertionError(f"the dense default scores are highest's or not the rounded-operand "
+                             f"definition: {out['dense_scores']}")
+    missing = [k for k in BF16_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"bf16 instances that never launched on the default path: {missing}")
+    return launches
+
+
+def bf16_kernel_rows(work, launches, errors, smi, name):
+    """The kernels line's rows of the bf16 instances, timed on the batches
+    of phase_bf16_kernels beside their exact instances (exact_ms, same
+    call).  Bound, at the model's own width and entity count (D features,
+    N entities: the zero features padding a row to the mma k-step and the
+    pad rows of the table are the kernel's, not the function's): the
+    contraction's 2 M N D operations (M = 2B query rows for the FFT
+    family, B otherwise; a subtraction only this batch's kept filter ids)
+    over the card's dense bf16 tensor-core rate, or the bytes each input
+    once (bf16 operands, f32 vectors, the mask or the gold, the radius
+    table) over its memory rate, whichever is larger;
+    the epilogue's transcendental calls, divisions and square roots a pair
+    beside it (SFU_PER_PAIR: the radius tables hold the rest).  library_ms:
+    torch.mm of the bf16 operands with a float32 output for the same
+    (M x Dp) x (Dp x Np) contraction of the kernel's padded inputs, the
+    contraction alone (no PyTorch call computes the count)."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
+    from complexhyperbolickge_torch.kernels import hyp_rank as H
+
+    _, bw_peak, _, bf16_peak = peak_rates(name)
+    rows = []
+    for (kname, family), (kernel, plain, exact, x, ranker_ms, n, d) in work.items():
+        chyp = family == "chyp"
+        lhs = x["lhs2"] if chyp else x["lhs"]
+        m_rows, dp = lhs.shape
+        np_ = x["rhs"].shape[0]
+        b = m_rows // 2 if chyp else m_rows
+        fidx, gold = x["fidx"].long(), x["gold"].long()
+        kept = (fidx >= 0) & (fidx < n) & (fidx != gold[:, None])
+        n_rows = int(torch.unique(fidx[kept]).numel())
+        names = HYP_ARGS["attrh" if family == "attrh" else "hyp"]
+        n_pq = 2 if chyp else names.index("rhs") - 1  # per-query vectors
+        n_pr = 2 if chyp else len(names) - names.index("rhs") - 1  # per-row vectors
+        if "_sweep_" in kname:
+            ops = 2 * m_rows * n * d
+            nbytes = (2 * (m_rows + n) * d + 4 * (b * n_pq + n * n_pr) + 4 * b
+                      + (b * n if kname.endswith("masked_bf16") else 4 * b))
+            if not chyp:  # the radius table's rows of the real entities
+                nbytes += 4 * (x["radii"].numel() // np_ * n + x["cvals"].numel() + b)
+        else:
+            ops = 2 * (2 if chyp else 1) * int(kept.sum()) * d
+            nbytes = (2 * (m_rows + n_rows) * d + 4 * (b * n_pq + n_rows * n_pr)
+                      + 4 * fidx.numel() + 8 * b)
+        t_ops, t_bytes = ops / bf16_peak * 1e3, nbytes / bw_peak * 1e3
+        row = {"name": kname, "route": "cuda", "source": SOURCES["chyp_rank" if chyp else "hyp_rank"],
+               "replaces": KERNEL_META[kname.removesuffix("_bf16")] + ' (precision="default")',
+               "launches": launches[kname], "max_abs_err": errors[(kname, family)],
+               "ms": cuda_ms(kernel, reps=50), "plain_ms": cuda_ms(plain),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None, "card": smi, "family": family,
+               "exact_ms": cuda_ms(exact, reps=50), "ranker_ms": ranker_ms,
+               "epilogue_sfu_per_pair": SFU_PER_PAIR[family],
+               "shape": {"M": m_rows, "N": n, "D": d, "Np": np_, "Dp": dp,
+                         "L": int(fidx.shape[1])}}
+        if "_sweep_" in kname:
+            rhs_t = x["rhs"].T
+            row["library_ms"] = cuda_ms(lambda: torch.mm(lhs, rhs_t, out_dtype=torch.float32),
+                                        reps=50)
+            row["library_call"] = "torch.mm(bf16, bf16, out_dtype=float32), contraction alone"
+            info = (K.sweep_info(lhs.device, dp, masked=kname.endswith("masked_bf16"),
+                                 precision="default") if chyp else
+                    H.sweep_info(family, lhs.device, dp, masked=kname.endswith("masked_bf16"),
+                                 precision="default"))
+            row.update(info)
+        rows.append(row)
+    # the Lorentz instantiation of K5/K6's rows beside the Poincare one, as
+    # in the exact rows
+    lorentz = {r["name"]: r for r in rows if r["family"] == "lorentz"}
+    rows = [r for r in rows if r["family"] != "lorentz"]
+    for r in rows:
+        if r["name"] in lorentz:
+            r["lorentz"] = lorentz[r["name"]]
     return rows
 
 
@@ -2031,7 +2334,7 @@ def gnn_kernel_rows(meas, launches, smi, name):
     each input read once (msgs, row_ptr; the table, ids) and the output
     written once, K10's table as the distinct rows its ids fetch; K9's E H
     fp32 additions as operations."""
-    f32_peak, bw_peak, _ = peak_rates(name)
+    f32_peak, bw_peak, _, _ = peak_rates(name)
     rows = []
     for kname in GNN_KERNELS:
         by_h = {}
@@ -2084,6 +2387,7 @@ def main(argv=None) -> int:
               "test_tails_not_invertible": not_inverted})
         hyp = {m: load_serving_state(d, "cuda") for m, d in hyp_dirs.items()}
         hyp_batches, hyp_errors = phase_hyp_kernels(hyp)
+        bf16_work, bf16_errors = phase_bf16_kernels(model, dataset, hyp)
 
         KS.reset_launches()  # the FFT serving and evaluation path starts here
         phase_kge_test(model_dir, model, dataset)
@@ -2152,6 +2456,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"K9/K10 launched fewer times than the {gnn_steps} CompGCN "
                                  f"training steps: {gnn_train_launches}")
 
+        # --eval_precision default: kge-test through the bf16 instances
+        # (phase_default_kge_test resets and reads the counts itself)
+        default_launches = phase_default_kge_test(
+            {"FFTRotH": (model_dir, model, dataset),
+             **{m: (d, *hyp[m]) for m, d in hyp_dirs.items()}}, gnn_dirs["CompGCN"], dataset)
+
         # the subgraph path: its steps encode with the unsorted sums and
         # gathers of the masked convs; its validation and test encode the
         # full graph through K9/K10
@@ -2175,6 +2485,7 @@ def main(argv=None) -> int:
         rows = phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
         rows += hyp_kernel_rows(hyp, hyp_batches, hyp_launches, hyp_errors, smi, name)
         rows += gnn_kernel_rows(gnn_meas, gnn_launches, smi, name)
+        rows += bf16_kernel_rows(bf16_work, default_launches, bf16_errors, smi, name)
         emit({"kernels": rows})
         torch.cuda.synchronize()
     except (Exception, SystemExit):  # report, then fail without the ok line

@@ -31,7 +31,8 @@ class PredictService:
     """A loaded model and its top-k predictor."""
 
     def __init__(self, model_dir: str, k: int = 10, batch: int = 32,
-                 max_filter_len: int | None = None, device: str = "cuda"):
+                 max_filter_len: int | None = None, device: str = "cuda",
+                 warm_filters: bool = False):
         from complexhyperbolickge_torch.cli.predict import (
             load_serving_state,
             max_known_tails,
@@ -50,12 +51,18 @@ class PredictService:
         # warm-up: nvcc builds the CUDA kernels (a no-op when the libraries
         # are current), and one call creates the cuBLAS handle and the cuFFT
         # plans and runs the params finiteness check, so the first request
-        # pays for none of them
+        # pays for none of them; warm_filters adds one filtered call at the
+        # padded max_filter_len (the allocator's first scatter at that width)
         if self.device.type == "cuda":
             from complexhyperbolickge_torch.kernels._build import build_all
 
             build_all()
-        self._fn(torch.zeros((batch, 2), dtype=torch.int64, device=self.device))
+        pad_q = torch.zeros((batch, 2), dtype=torch.int64, device=self.device)
+        self._fn(pad_q)
+        if warm_filters:
+            pad_f = torch.full((batch, self.max_filter_len), self.dataset.n_entities,
+                               dtype=torch.int64, device=self.device)
+            self._fn(pad_q, pad_f)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -138,8 +145,9 @@ def make_server(service: PredictService, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def main():
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
+def build_parser() -> argparse.ArgumentParser:
+    """kge-serve's flags: JAX's (a JAX serve command line parses) plus
+    --device."""
     p = argparse.ArgumentParser(description="HTTP top-k prediction server")
     p.add_argument("--model_dir", required=True)
     p.add_argument("--host", default="127.0.0.1")
@@ -150,10 +158,19 @@ def main():
     p.add_argument("--max_filter_len", default=None, type=int,
                    help="padded width of the known-fact filter rows "
                         "(default: the dataset's longest known-tail list)")
+    p.add_argument("--warm_filters", action="store_true",
+                   help="run the filtered predictor once at start, at the "
+                        "padded max_filter_len")
     p.add_argument("--device", default="cuda")
-    a = p.parse_args()
+    return p
+
+
+def main():
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    a = build_parser().parse_args()
     service = PredictService(a.model_dir, k=a.k, batch=a.batch,
-                             max_filter_len=a.max_filter_len, device=a.device)
+                             max_filter_len=a.max_filter_len, device=a.device,
+                             warm_filters=a.warm_filters)
     server = make_server(service, a.host, a.port)
     logging.info("serving %s on http://%s:%d (k<=%d, batch %d)",
                  a.model_dir, a.host, a.port, a.k, a.batch)

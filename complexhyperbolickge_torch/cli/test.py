@@ -61,8 +61,11 @@ def main():
     p.add_argument("--model_dir", required=True)
     p.add_argument("--split", default="test", choices=["valid", "test"])
     p.add_argument("--eval_precision", default=None, choices=["highest", "default"],
-                   help="override the run config's eval precision (only "
-                        "'highest', exact fp32, exists in the port)")
+                   help="override the run config's eval precision: highest "
+                        "= exact fp32; default = the score contractions in "
+                        "one bf16 pass with f32 accumulation (the fused "
+                        "rankers' bf16 tensor-core kernels, the dense "
+                        "rankers' operands rounded to bf16)")
     p.add_argument("--eval_backend", default=None,
                    choices=["auto", "dense", "pallas", "pallas_maskless"],
                    help="override the run config's ranker: auto/pallas = "

@@ -30,13 +30,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+
+
+def _with_bf16(sigs: dict) -> dict:
+    """The launchers and their bf16 instances (`<name>_bf16`, precision
+    "default"), which take the same arguments."""
+    return {**sigs, **{f"{k}_bf16": v for k, v in sigs.items()}}
+
+
 # argtypes of every exported launcher; pointers and the stream are c_void_p
 SIGNATURES = {
     "chyp_rank": {
-        "chyp_rank_sweep_masked": [_P] * 8 + [_I] * 4 + [_F, _P],
-        "chyp_rank_sweep_nomask": [_P] * 8 + [_I] * 4 + [_F, _P],
-        "chyp_rank_filtered_sub": [_P] * 9 + [_I] * 5 + [_F, _P],
+        **_with_bf16({
+            "chyp_rank_sweep_masked": [_P] * 8 + [_I] * 4 + [_F, _P],
+            "chyp_rank_sweep_nomask": [_P] * 8 + [_I] * 4 + [_F, _P],
+            "chyp_rank_filtered_sub": [_P] * 9 + [_I] * 5 + [_F, _P],
+        }),
         "chyp_rank_sweep_info": [_I] * 2 + [_IP] * 4,
+        "chyp_rank_sweep_bf16_info": [_I] * 2 + [_IP] * 4,
     },
     "chyp_train": {
         "chyp_train_fwd": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
@@ -45,14 +56,17 @@ SIGNATURES = {
         "chyp_train_lists_blocks": [_IP],
     },
     "hyp_rank": {
-        "hyp_rank_sweep_masked": [_P] * 11 + [_I] * 5 + [_P],
-        "hyp_rank_sweep_nomask": [_P] * 11 + [_I] * 5 + [_P],
-        "hyp_rank_filtered_sub": [_P] * 10 + [_I] * 5 + [_F, _P],
-        "attrh_rank_sweep_masked": [_P] * 15 + [_I] * 4 + [_P],
-        "attrh_rank_sweep_nomask": [_P] * 15 + [_I] * 4 + [_P],
-        "attrh_rank_filtered_sub": [_P] * 14 + [_I] * 4 + [_P],
+        **_with_bf16({
+            "hyp_rank_sweep_masked": [_P] * 11 + [_I] * 5 + [_P],
+            "hyp_rank_sweep_nomask": [_P] * 11 + [_I] * 5 + [_P],
+            "hyp_rank_filtered_sub": [_P] * 10 + [_I] * 5 + [_F, _P],
+            "attrh_rank_sweep_masked": [_P] * 15 + [_I] * 4 + [_P],
+            "attrh_rank_sweep_nomask": [_P] * 15 + [_I] * 4 + [_P],
+            "attrh_rank_filtered_sub": [_P] * 14 + [_I] * 4 + [_P],
+        }),
         "hyp_rank_radii": [_P] * 4 + [_I] * 3 + [_F, _P],
         "hyp_rank_sweep_info": [_I] * 3 + [_IP] * 4,
+        "hyp_rank_sweep_bf16_info": [_I] * 3 + [_IP] * 4,
     },
     "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
     "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},

@@ -8,15 +8,136 @@ tables (TABLES, built by `_prepare_tables()`, the padded entity table
 first) and its per-batch query inputs (QUERIES, from `_queries_core(q)`,
 the threshold t2 last), and counts with `_counts(x, masked)` on the dict
 that `kernel_inputs` returns.
+
+precision "default" (--eval_precision default) is JAX's single-pass bf16
+contraction with f32 accumulation: both operands of the score contraction
+are rounded to bfloat16 (round-to-nearest-even), their products summed in
+float32, everything else float32.  A default ranker keeps a bfloat16 copy
+of the padded entity table beside the float32 tables (whose norms stay
+those of the unrounded rows) and rounds the query rows per batch; the
+kernel inputs "rhs" and the query rows are then the bfloat16 operands,
+rows padded with zeros to a multiple of 16 features (one mma k-step).  The
+plain default versions contract the rounded operands exactly (float64) and
+round once to float32: within float32 summation of any order of the card's
+tensor-core sum.
 """
 
 from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.ops.math import check_precision, round_up
+
 # entity rows per tile of the sweep kernels; tables are padded to a
 # multiple of it (the kernels also take a ragged last tile)
 ROW_TILE = 128
+# features of one bf16 mma k-step (m16n8k16): bf16 rows are padded to it
+BF16_K = 16
+
+
+def to_bf16(x):
+    """x rounded to bfloat16 (round-to-nearest-even); a bfloat16 x as is."""
+    return x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+
+
+def bf16_rows(x, halves: bool = False):
+    """float rows x (n, d) -> contiguous bfloat16 (n, round_up(d, 16)),
+    rounded to nearest even and zero-padded (exact: zero terms); with
+    `halves` each half of the d features is padded on its own (AttRH's two
+    contractions), (n, 2 round_up(d / 2, 16))."""
+    n, d = x.shape
+    parts = x.chunk(2, dim=1) if halves else (x,)
+    width = round_up(parts[0].shape[1], BF16_K)
+    out = torch.zeros((n, width * len(parts)), dtype=torch.bfloat16, device=x.device)
+    for i, p in enumerate(parts):
+        out[:, i * width: i * width + p.shape[1]] = p
+    return out
+
+
+def plain_mm(a, b, precision: str):
+    """a (M, d) @ b (N, d)^T as the kernels' plain versions take it, float32
+    (M, N): highest, a float32 matmul; default, the bfloat16-rounded
+    operands' products summed exactly (float64) and rounded once."""
+    if precision == "highest":
+        return a @ b.T
+    return (to_bf16(a).double() @ to_bf16(b).double().T).float()
+
+
+def plain_rows(q, rows, precision: str):
+    """q (B, d) against each query's rows (B, L, d), float32 (B, L), as
+    plain_mm."""
+    if precision == "highest":
+        return torch.einsum("bd,bld->bl", q, rows)
+    return torch.einsum("bd,bld->bl", to_bf16(q).double(), to_bf16(rows).double()).float()
+
+
+# A bf16 instance's float32 tensor-core sum of the exact bf16 products
+# against its plain version's once-rounded exact sum, per unit of
+# sum_k |q_k w_k|: 64 float32 ulps, above a truncating accumulator's few
+# ulps a k-step over <= 8 k-steps.
+TC_REL = 2.0 ** -17
+
+
+def _sq_range(v, e):
+    """The range of s^2 over s in [v - e, v + e]."""
+    lo, hi = v - e, v + e
+    mn = torch.where(lo * hi <= 0, torch.zeros_like(lo), torch.minimum(lo * lo, hi * hi))
+    return mn, torch.maximum(lo * lo, hi * hi)
+
+
+def score_interval(kind: str, x: dict, rel: float = 0.0, rounded: bool = False):
+    """float64 score bounds (lo, hi), each (B, Np), of a ranker family's
+    kernel inputs x ("chyp", "poincare", "lorentz" or "attrh"; the names of
+    kernel_inputs): the score contraction of the operands (rounded to
+    bfloat16 first when `rounded`) moved by rel sum_k |q_k w_k| either way,
+    pushed through the family's epilogue.  The FFT cross-ratio is convex
+    in (Re, Im) and the real-hyperbolic scores monotone in <x, v>, so the
+    ends bound each pair's score; rel = 0 gives the score twice."""
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
+    from complexhyperbolickge_torch.kernels import hyp_rank as H
+
+    def op(t):
+        return to_bf16(t).double() if rounded else t.double()
+
+    if kind == "chyp":
+        b, d = x["lhs2"].shape[0] // 2, x["lhs2"].shape[1]
+        a, w = op(x["lhs2"]), op(x["rhs"][:, :d])
+        acc, dl = a @ w.T, (a.abs() @ w.abs().T) * rel
+        (rn, rx), (jn, jx) = _sq_range(acc[:b] - 1.0, dl[:b]), _sq_range(acc[b:], dl[b:])
+        den = x["zn"].double()[:, None] * x["wn"].double()[None, :]
+
+        def score(s2):
+            xx = (2.0 * s2 / den - 1.0).clamp_min(K.X_MIN)
+            dd = torch.log(xx + torch.sqrt(xx * xx - 1.0))
+            return x["bt"].double()[None, :] - dd * dd
+
+        return score(rx + jx), score(rn + jn)
+    c, bt = x["c"].double()[:, None], x["bt"].double()[None, :]
+    a, w = op(x["lhs"]), op(x["rhs"])
+
+    def ends(sl, un, x2, dist):
+        acc, dl = a[:, sl] @ w[:, sl].T, (a[:, sl].abs() @ w[:, sl].abs().T) * rel
+        u = x[un].double()[None, :]
+        e = [dist(v / u, u, c, x[x2].double()[:, None]) for v in (acc - dl, acc + dl)]
+        return torch.minimum(*e), torch.maximum(*e)
+
+    if kind == "attrh":
+        h = a.shape[1] // 2
+        (r0, r1), (f0, f1) = (ends(slice(None, h), "un_rot", "x2r", H._half_dist_sq),
+                              ends(slice(h, None), "un_ref", "x2f", H._half_dist_sq))
+        w0, w1 = x["w0"].double()[:, None], x["w1"].double()[:, None]
+        return bt - w0 * r1 - w1 * f1, bt - w0 * r0 - w1 * f0
+    d0, d1 = ends(slice(None), "un", "x2", H._DISTS[kind])
+    return bt - d1 * d1, bt - d0 * d0
+
+
+def near_threshold(lo, hi, t2):
+    """Per query (B,): the entities whose score interval [lo, hi] comes
+    within 1e-5 (1 + |t2|) of the threshold t2, the float32 epilogue's and
+    the thresholds' own error."""
+    t2 = t2.double()
+    e = (1e-5 * (1.0 + t2.abs()))[:, None]
+    return ((lo - e <= t2[:, None]) & (t2[:, None] <= hi + e)).sum(1)
 
 
 class FusedRanker:
@@ -24,12 +145,15 @@ class FusedRanker:
     QUERIES: tuple = ()
     # the model parameters the tables are built from
     TABLE_PARAMS: tuple = ("entity", "bt")
+    # bf16 rows: the two halves of the features padded each on its own
+    BF16_HALVES = False
 
-    def __init__(self, model, masked: bool = True):
+    def __init__(self, model, masked: bool = True, precision: str = "highest"):
         if model.cfg.bias not in ("learn", "none", "constant"):
             raise ValueError(f"unknown bias mode {model.cfg.bias!r}")
         self.model = model
         self.masked = masked
+        self.precision = check_precision(precision)
         self._tables_key = None
         self._tables = None
 
@@ -63,20 +187,26 @@ class FusedRanker:
         return t2.contiguous()
 
     def _get_tables(self):
-        """The padded tables, rebuilt when a TABLE_PARAMS parameter object or
+        """The padded tables (and, precision "default", the bfloat16 copy
+        of the first, last), rebuilt when a TABLE_PARAMS parameter object or
         its `_version` counter changed, so an in-place update
         (load_state_dict, an optimizer step) is never served stale."""
         params = [getattr(self.model, name) for name in self.TABLE_PARAMS]
         key = [(p, p._version) for p in params]
         old = self._tables_key
         if old is None or any(o[0] is not k[0] or o[1] != k[1] for o, k in zip(old, key)):
-            self._tables = self._prepare_tables()
+            tables = self._prepare_tables()
+            if self.precision == "default":
+                d = self.model.entity.shape[1]
+                tables = (*tables, bf16_rows(tables[0][:, :d], self.BF16_HALVES))
+            self._tables = tables
             self._tables_key = key
         return self._tables
 
     @torch.no_grad()
     def kernel_inputs(self, q, fidx, masked: bool | None = None) -> dict:
-        """The kernels' inputs for one batch: the tables, the query inputs,
+        """The kernels' inputs for one batch: the tables, the query inputs
+        (precision "default": the table and the query rows as bfloat16),
         and mask (int8 (B, Np), masked form) or fidx and gold (int32,
         maskless form).  Filter ids outside [0, Np) are sent to pad row
         n_entities, where torch's scatter has no "drop" mode."""
@@ -85,6 +215,9 @@ class FusedRanker:
         out = dict(zip(self.TABLES, tables))
         out.update(zip(self.QUERIES, self._queries_core(q)))
         rhs = tables[0]
+        if self.precision == "default":  # the contraction's bf16 operands
+            out[self.TABLES[0]] = tables[-1]
+            out[self.QUERIES[0]] = bf16_rows(out[self.QUERIES[0]], self.BF16_HALVES)
         n = self.model.cfg.n_entities
         np_ = rhs.shape[0]
         fidx = torch.where((fidx >= 0) & (fidx < np_), fidx, torch.full_like(fidx, n))

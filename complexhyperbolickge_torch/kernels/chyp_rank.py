@@ -31,6 +31,12 @@ Each wrapper launches its kernel for CUDA tensors and counts the launch in
 which repeats the arithmetic with a matmul over the table's first D columns
 (a different summation order, so counts may differ on scores within float
 rounding of t2).
+
+precision="default" (--eval_precision default, kernels/_ranker.py) takes
+each kernel's bf16 tensor-core instance (launch counters `<name>_bf16`):
+lhs2 (2B, Dp) and rhs (Np, Dp) bfloat16 with Dp a multiple of 16, zero
+past D (bf16_rows); zn, t2, wn and bt stay float32, from the unrounded
+rows.  Its plain versions also take float32 operands and round them.
 """
 
 from __future__ import annotations
@@ -40,16 +46,20 @@ import torch
 from complexhyperbolickge_torch.kernels._build import check_aligned
 from complexhyperbolickge_torch.kernels._build import check_tensor as _check
 from complexhyperbolickge_torch.kernels._build import kernel_info, launch
-from complexhyperbolickge_torch.kernels._ranker import ROW_TILE, FusedRanker
+from complexhyperbolickge_torch.kernels._ranker import (
+    BF16_K,
+    ROW_TILE,
+    FusedRanker,
+    plain_mm,
+    plain_rows,
+)
 from complexhyperbolickge_torch.ops.chyperbolic import chyp_distance, swap_neg
-from complexhyperbolickge_torch.ops.math import ball_eps, round_up
+from complexhyperbolickge_torch.ops.math import ball_eps, check_precision, round_up
 
-# launches of each CUDA kernel since the last reset_launches()
-launches = {
-    "chyp_rank_sweep_masked": 0,
-    "chyp_rank_sweep_nomask": 0,
-    "chyp_rank_filtered_sub": 0,
-}
+KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask", "chyp_rank_filtered_sub")
+# launches of each CUDA kernel since the last reset_launches(): the exact
+# instances and the bf16 ones (precision "default")
+launches = {k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS}
 
 
 def reset_launches():
@@ -80,33 +90,40 @@ def _features(rhs, d):
     return rhs if rhs.shape[1] == d else rhs[:, :d].contiguous()
 
 
-def chyp_scores_plain(lhs2, zn, rhs, wn, bt):
+def chyp_contract_plain(lhs2, rhs, precision: str = "highest"):
+    """The Hermitian form's contraction (2B, Np): lhs2 against the table's
+    first lhs2.shape[1] features (kernels/_ranker.py::plain_mm)."""
+    return plain_mm(lhs2, _features(rhs, lhs2.shape[1]), precision)
+
+
+def chyp_scores_plain(lhs2, zn, rhs, wn, bt, precision: str = "highest"):
     """All-entity scores (B, Np) in plain PyTorch: bt - dist^2."""
     b = lhs2.shape[0] // 2
-    acc = lhs2 @ _features(rhs, lhs2.shape[1]).T
+    acc = chyp_contract_plain(lhs2, rhs, precision)
     return _score_epilogue(acc[:b], acc[b:], zn[:, None], wn[None, :], bt[None, :])
 
 
-def chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask):
-    scores = chyp_scores_plain(lhs2, zn, rhs, wn, bt)
+def chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask, precision: str = "highest"):
+    scores = chyp_scores_plain(lhs2, zn, rhs, wn, bt, precision)
     return ((scores >= t2[:, None]) & (mask == 0)).sum(1, dtype=torch.int32)
 
 
-def chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold):
-    scores = chyp_scores_plain(lhs2, zn, rhs, wn, bt)
+def chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold, precision: str = "highest"):
+    scores = chyp_scores_plain(lhs2, zn, rhs, wn, bt, precision)
     cols = torch.arange(rhs.shape[0], device=rhs.device)
     keep = cols[None, :] != gold[:, None]
     return ((scores >= t2[:, None]) & keep).sum(1, dtype=torch.int32)
 
 
-def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
+def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold,
+                                 precision: str = "highest"):
     b = lhs2.shape[0] // 2
     np_ = rhs.shape[0]
     ok = (fidx >= 0) & (fidx < np_) & (fidx != gold[:, None])
     f = fidx.long().clamp(0, np_ - 1)
     rows = _features(rhs, lhs2.shape[1])[f]  # (B, L, D)
-    acc_re = torch.einsum("bd,bld->bl", lhs2[:b], rows)
-    acc_im = torch.einsum("bd,bld->bl", lhs2[b:], rows)
+    acc_re = plain_rows(lhs2[:b], rows, precision)
+    acc_im = plain_rows(lhs2[b:], rows, precision)
     scores = _score_epilogue(acc_re, acc_im, zn[:, None], wn[f], bt[f])
     return (ok & (scores >= t2[:, None])).sum(1, dtype=torch.int32)
 
@@ -114,8 +131,10 @@ def chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
 # --------------------------------- wrappers -----------------------------------
 
 
-def _check_common(lhs2, zn, t2, rhs, wn, bt):
-    """Validate the shared inputs of a CUDA launch; returns (B, Np, D, ld)."""
+def _check_common(lhs2, zn, t2, rhs, wn, bt, precision):
+    """Validate the shared inputs of a CUDA launch; returns (B, Np, D, ld).
+    precision "default": lhs2 and rhs bfloat16 of one width D, a multiple
+    of 16 (ld = D)."""
     dev = lhs2.device
     if dev.type != "cuda":
         raise ValueError(f"chyp_rank kernels take CPU or CUDA tensors, got {dev}")
@@ -123,83 +142,96 @@ def _check_common(lhs2, zn, t2, rhs, wn, bt):
         raise ValueError("lhs2 must be (2B, D) and rhs (Np, ld)")
     b, d = lhs2.shape[0] // 2, lhs2.shape[1]
     np_, ld = rhs.shape
+    f32, op = torch.float32, torch.float32
+    if check_precision(precision) == "default":
+        op = torch.bfloat16
+        if ld != d or d % BF16_K:
+            raise ValueError(f"the bf16 kernels take lhs2 and rhs of one width, a multiple "
+                             f"of {BF16_K} (bf16_rows), got {d} and {ld}")
+        check_aligned(lhs2=lhs2, rhs=rhs)
     if ld < d:
         raise ValueError(f"rhs rows hold {ld} floats, fewer than the {d} features")
-    f32 = torch.float32
-    _check("lhs2", lhs2, f32, (2 * b, d), dev)
+    _check("lhs2", lhs2, op, (2 * b, d), dev)
     _check("zn", zn, f32, (b,), dev)
     _check("t2", t2, f32, (b,), dev)
-    _check("rhs", rhs, f32, (np_, ld), dev)
+    _check("rhs", rhs, op, (np_, ld), dev)
     _check("wn", wn, f32, (np_,), dev)
     _check("bt", bt, f32, (np_,), dev)
     return b, np_, d, ld
 
 
-def _launch(name, device, *args):
+def _launch(name, precision, device, *args):
+    """Launch `name`'s instance for `precision` (both take the same
+    arguments)."""
+    if precision == "default":
+        name += "_bf16"
     launch("chyp_rank", name, device, *args)
     launches[name] += 1
 
 
-def chyp_rank_counts(lhs2, zn, t2, rhs, wn, bt, mask):
+def chyp_rank_counts(lhs2, zn, t2, rhs, wn, bt, mask, precision: str = "highest"):
     """K1: #{j : mask[b, j] == 0 and score(b, j) >= t2[b]} per query, int32
     (B,).  mask is int8 (B, Np), 1 = filtered out (and on pad rows)."""
     if lhs2.device.type == "cpu":
-        return chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask)
-    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt)
+        return chyp_rank_counts_plain(lhs2, zn, t2, rhs, wn, bt, mask, precision)
+    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt, precision)
     _check("mask", mask, torch.int8, (b, np_), lhs2.device)
     check_aligned(wn=wn, bt=bt)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
-    _launch("chyp_rank_sweep_masked", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
+    _launch("chyp_rank_sweep_masked", precision, lhs2.device, lhs2, zn, t2, rhs, wn, bt,
             mask, counts, b, np_, d, ld, X_MIN)
     return counts
 
 
-def chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold):
+def chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold, precision: str = "highest"):
     """K2 sweep: #{j != gold[b] : score(b, j) >= t2[b]} per query, int32
     (B,).  gold is int32 (B,), a row of this table or -1."""
     if lhs2.device.type == "cpu":
-        return chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold)
-    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt)
+        return chyp_rank_sweep_nomask_plain(lhs2, zn, t2, rhs, wn, bt, gold, precision)
+    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt, precision)
     _check("gold", gold, torch.int32, (b,), lhs2.device)
     check_aligned(wn=wn, bt=bt)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs2.device)
-    _launch("chyp_rank_sweep_nomask", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
+    _launch("chyp_rank_sweep_nomask", precision, lhs2.device, lhs2, zn, t2, rhs, wn, bt,
             gold, counts, b, np_, d, ld, X_MIN)
     return counts
 
 
-def chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
+def chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold, precision: str = "highest"):
     """K2 subtraction: #{l : fidx[b, l] in [0, Np), != gold[b], score >=
     t2[b]} per query, int32 (B,).  fidx is int32 (B, L), rows deduplicated
     (data/dataset.py::eval_pack)."""
     if lhs2.device.type == "cpu":
-        return chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold)
-    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt)
+        return chyp_rank_filtered_sub_plain(lhs2, zn, t2, rhs, wn, bt, fidx, gold, precision)
+    b, np_, d, ld = _check_common(lhs2, zn, t2, rhs, wn, bt, precision)
     if fidx.dim() != 2:
         raise ValueError("fidx must be (B, L)")
     _check("fidx", fidx, torch.int32, (b, fidx.shape[1]), lhs2.device)
     _check("gold", gold, torch.int32, (b,), lhs2.device)
     sub = torch.empty(b, dtype=torch.int32, device=lhs2.device)
-    _launch("chyp_rank_filtered_sub", lhs2.device, lhs2, zn, t2, rhs, wn, bt,
+    _launch("chyp_rank_filtered_sub", precision, lhs2.device, lhs2, zn, t2, rhs, wn, bt,
             fidx, gold, sub, b, np_, d, ld, fidx.shape[1], X_MIN)
     return sub
 
 
-def sweep_info(device, d: int, masked: bool = True) -> dict:
+def sweep_info(device, d: int, masked: bool = True, precision: str = "highest") -> dict:
     """Registers and local (spill) bytes a thread, resident blocks per SM
-    and shared bytes a block of the masked or maskless sweep at feature
+    and shared bytes a block of the masked or maskless sweep (its bf16
+    instance for precision "default", d then the padded width) at feature
     width d on `device`, as the CUDA runtime reports them."""
-    vals = kernel_info("chyp_rank", "chyp_rank_sweep_info", device, int(masked), d)
+    fn = "chyp_rank_sweep_bf16_info" if precision == "default" else "chyp_rank_sweep_info"
+    vals = kernel_info("chyp_rank", fn, device, int(masked), d)
     return dict(zip(("regs_per_thread", "local_bytes", "blocks_per_sm", "smem_bytes"), vals))
 
 
-def chyp_rank_counts_nomask(lhs2, zn, t2, rhs, wn, bt, fidx, gold):
+def chyp_rank_counts_nomask(lhs2, zn, t2, rhs, wn, bt, fidx, gold, precision: str = "highest"):
     """K2: #{non-filtered, non-gold j : score >= t2} without a (B, Np) mask:
     the sweep counts every non-gold row and the filtered ids it counted are
-    subtracted.  Both kernels share one score routine, so a filtered id is
-    subtracted exactly when the sweep counted it."""
-    return (chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold)
-            - chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold))
+    subtracted.  Both kernels share one score routine (in the bf16
+    instances: one mma chain per pair, tile against tile), so a filtered id
+    is subtracted exactly when the sweep counted it."""
+    return (chyp_rank_sweep_nomask(lhs2, zn, t2, rhs, wn, bt, gold, precision)
+            - chyp_rank_filtered_sub(lhs2, zn, t2, rhs, wn, bt, fidx, gold, precision))
 
 
 # ---------------------------------- ranker ------------------------------------
@@ -214,13 +246,13 @@ class ChypRanker(FusedRanker):
     TABLES = ("rhs", "bt", "wn")
     QUERIES = ("lhs2", "zn", "t2")
 
-    def __init__(self, model, masked: bool = True):
+    def __init__(self, model, masked: bool = True, precision: str = "highest"):
         from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
 
         if not isinstance(model, FFTUnitBall):
             raise TypeError("ChypRanker ranks FFTUnitBall-family models only, "
                             f"got {type(model).__name__}")
-        super().__init__(model, masked)
+        super().__init__(model, masked, precision)
 
     def _prepare_tables(self):
         ent = self.model.entity.detach().to(torch.float32)
@@ -251,5 +283,5 @@ class ChypRanker(FusedRanker):
     def _counts(self, x, masked):
         base = (x["lhs2"], x["zn"], x["t2"], x["rhs"], x["wn"], x["bt"])
         if masked:
-            return chyp_rank_counts(*base, x["mask"])
-        return chyp_rank_counts_nomask(*base, x["fidx"], x["gold"])
+            return chyp_rank_counts(*base, x["mask"], precision=self.precision)
+        return chyp_rank_counts_nomask(*base, x["fidx"], x["gold"], precision=self.precision)

@@ -90,6 +90,7 @@ using rank_sweeps::cp_async4;
 using rank_sweeps::cp_async_commit;
 using rank_sweeps::cp_async_wait;
 using rank_sweeps::lane_of;
+using rank_sweeps::mma_bf16;
 using rank_sweeps::next_pos;
 using rank_sweeps::StagePos;
 
@@ -479,6 +480,347 @@ int launch_sweep(SweepArgs a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------- bf16 tensor-core instances (precision "default") -------------------
+//
+// JAX's precision="default" instance of _chyp_scores: both operands of the
+// Hermitian form's contraction rounded to bf16 (the wrapper passes lhs2
+// and the table as bf16 rows of D features, a multiple of 16, zero past
+// the model's width), their products summed in f32 by the tensor cores
+// (mma_bf16, sweep.cuh); zn, wn, bt, t2 and chyp_score() stay f32.
+//
+// The sweep (K1, K2) keeps the exact sweep's pipeline: persistent blocks
+// over (query tile, entity tile) items, each stage an entity tile's rows
+// (at most kMaxChunk features of them; D = 80 at rank 33: one stage an
+// item) with its wn, bt and, masked, its 64 x 128 mask slice, copied with
+// 16-byte cp.async into one of two buffers while the other computes, the
+// query tile's rows staged once per query tile (per stage when too wide).
+// A block tile is 64 queries x 128 entities, 16 warps; warp w takes the 8
+// queries of group w % 8 against the 64 entities of half w / 8.  Its A
+// tile holds the 8 queries' re rows at rows 0-7 and their swapped im rows
+// at rows 8-15, so a thread's accumulators c0..c3 of an 8-entity n-tile
+// are (acc_re, acc_re, acc_im, acc_im) of its query g against entities 2t
+// and 2t + 1: chyp_score() runs on them as they are, 16 pairs a thread.
+// Staged rows are bf16_row_words() words apart: conflict-free fragment
+// loads, 6 words of shared loads per mma.
+//
+// The subtraction gives each filtered id the same chain: one block per
+// query, a warp an n-tile of 8 of its filtered ids, the query's re row in
+// A rows 0-7 and its im row in rows 8-15, the same k-steps from a zero
+// accumulator.  So each (query, filtered id) score equals the sweep's bit
+// for bit, and K2 == K1 - subtraction holds in this instance too.
+//
+// Bound on an H100 SXM at the WN18RR eval shape (B = 500, Np = 40,960,
+// D = 80): 2 (2B) Np D = 6.6 GFLOP of bf16 tensor-core work (~7 us at 989
+// TFLOP/s dense), the 6.6 MB bf16 table and 20.5 MB mask (~8 us at 3.35
+// TB/s); the epilogue's 20.5 M pairs of one division, one square root and
+// one logf each (SFU work) stay as in the exact sweep.
+namespace bf16 {
+
+constexpr int kTQ = 64;         // queries per block tile: 8 groups of 8
+constexpr int kTN = 128;        // entities per block tile: 16 n-tiles of 8
+constexpr int kThreads = 512;   // 16 warps: query group (warp % 8) x entity half (warp / 8)
+constexpr int kNT = 8;          // n-tiles a warp (64 entities)
+constexpr int kMaxChunk = 128;  // features of a staged chunk (8 k-steps)
+constexpr int kMaxSmem = 200 * 1024;
+
+struct Args {
+  const uint32_t* lhs2;  // (2B, D) bf16, two features a word
+  const float *zn, *t2;
+  const uint32_t* rhs;   // (Np, ld) bf16
+  const float *wn, *bt;
+  const int8_t* mask;
+  const int* gold;
+  int* out;
+  int B, Np, D, ld;  // D, ld in bf16 features
+  float x_min;
+  int n_et, n_chunks, kc, n_items;
+  int ws;            // words a staged entity row (and per-stage query row)
+  int qs;            // words a staged query row of the whole tile
+  bool q_per_stage;  // the whole query tile does not fit: a chunk per stage
+  bool vec_mask;
+  int off_wn, off_bt, off_mask, off_q, stage_bytes;  // a stage's layout, bytes
+};
+
+// One stage: w[kTN][ws] words, wn[kTN], bt[kTN], masked mask[kTQ][kTN],
+// per-stage queries q[2 kTQ][ws] words (re rows, then im rows).
+template <bool kMasked>
+void layout(Args& a) {
+  a.off_wn = kTN * a.ws * 4;
+  a.off_bt = a.off_wn + kTN * 4;
+  a.off_mask = a.off_bt + kTN * 4;
+  a.off_q = a.off_mask + (kMasked ? kTQ * kTN : 0);
+  a.stage_bytes = a.off_q + (a.q_per_stage ? 2 * kTQ * a.ws * 4 : 0);
+}
+
+template <bool kMasked>
+size_t smem_bytes(const Args& a) {
+  return 2 * (size_t)a.stage_bytes + (a.q_per_stage ? 0 : (size_t)2 * kTQ * a.qs * 4);
+}
+
+// The query tile qt's rows, words [w0, w0 + nw), re rows then im rows, into
+// q (rows of qs words).
+__device__ __forceinline__ void load_queries(const Args& a, uint32_t* q, int qs, int qt, int w0,
+                                             int nw, int tid) {
+  const int ld = a.ld / 2, q0 = qt * kTQ;
+  rank_sweeps::copy_words<kTQ, kThreads>(q, qs, a.lhs2, q0, a.B, ld, w0, nw, tid);
+  rank_sweeps::copy_words<kTQ, kThreads>(q + kTQ * qs, qs, a.lhs2 + (size_t)a.B * ld, q0, a.B,
+                                         ld, w0, nw, tid);
+}
+
+template <bool kMasked>
+__device__ __forceinline__ void load_stage(const Args& a, unsigned char* st, StagePos pos,
+                                           int tid) {
+  const int q0 = pos.qt * kTQ, j0 = pos.et * kTN;
+  const int k0 = pos.chunk * a.kc, kn = min(a.kc, a.D - k0);
+  rank_sweeps::copy_words<kTN, kThreads>(reinterpret_cast<uint32_t*>(st), a.ws, a.rhs, j0, a.Np,
+                                         a.ld / 2, k0 / 2, kn / 2, tid);
+  if (a.q_per_stage)
+    load_queries(a, reinterpret_cast<uint32_t*>(st + a.off_q), a.ws, pos.qt, k0 / 2, kn / 2, tid);
+  if (pos.chunk != a.n_chunks - 1) return;
+  if (tid < 2 * (kTN / 4)) {  // wn, bt: 16-byte copies, the tail zero-filled
+    const int v = tid / (kTN / 4), p = tid % (kTN / 4), j = j0 + 4 * p;
+    const int n = max(0, min(4, a.Np - j));
+    float* dst = reinterpret_cast<float*>(st + (v == 0 ? a.off_wn : a.off_bt));
+    cp_async16(dst + 4 * p, (v == 0 ? a.wn : a.bt) + (n > 0 ? j : 0), 4 * n);
+  }
+  if constexpr (kMasked) {
+    int8_t* mask = reinterpret_cast<int8_t*>(st + a.off_mask);
+    if (a.vec_mask) {
+      static_assert(kTQ * (kTN / 16) == kThreads, "one 16-byte mask copy a thread");
+      const int r = tid / (kTN / 16), p = tid % (kTN / 16), qq = q0 + r, j = j0 + 16 * p;
+      const bool ok = qq < a.B && j < a.Np;
+      cp_async16(mask + r * kTN + 16 * p, a.mask + (ok ? (size_t)qq * a.Np + j : 0), ok ? 16 : 0);
+    } else {  // a ragged row stride: plain byte loads
+#pragma unroll 1
+      for (int idx = tid; idx < kTQ * kTN; idx += kThreads) {
+        const int r = idx / kTN, e = idx % kTN, qq = q0 + r, j = j0 + e;
+        mask[r * kTN + e] = (qq < a.B && j < a.Np) ? a.mask[(size_t)qq * a.Np + j] : 1;
+      }
+    }
+  }
+}
+
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 1) chyp_sweep_bf16_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ TileQuery tq[kTQ];
+  uint32_t* q_whole = reinterpret_cast<uint32_t*>(smem_raw + 2 * a.stage_bytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_local = (warp & 7) * 8 + g;  // this thread's query in the tile
+  const int e_base = (warp >> 3) * (kNT * 8);  // this warp's first entity in the tile
+  int item_begin, item_end;
+  rank_sweeps::block_items(a.n_items, &item_begin, &item_end);
+  if (item_begin >= item_end) return;
+  const int s_begin = item_begin * a.n_chunks, s_end = item_end * a.n_chunks;
+
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+  int cnt = 0, cur_qt = -1;
+
+  StagePos pos{item_begin / a.n_et, item_begin % a.n_et, 0};
+  load_stage<kMasked>(a, smem_raw, pos, tid);
+  cp_async_commit();
+  for (int s = s_begin; s < s_end; ++s) {
+    const int buf = (s - s_begin) & 1;
+    const unsigned char* st = smem_raw + buf * a.stage_bytes;
+    const int chunk = pos.chunk, qt = pos.qt, j0 = pos.et * kTN;
+    // a new query tile: its rows replace the last tile's, which no thread
+    // reads after the previous iteration's closing barrier
+    if (!a.q_per_stage && qt != cur_qt) load_queries(a, q_whole, a.qs, qt, 0, a.D / 2, tid);
+    cp_async_commit();
+    if (s + 1 < s_end) {  // the next stage streams in while this one computes
+      load_stage<kMasked>(a, smem_raw + (buf ^ 1) * a.stage_bytes,
+                          next_pos(pos, a.n_chunks, a.n_et), tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (qt != cur_qt) {  // a new query tile: its scalars into shared memory
+      cur_qt = qt;
+      if (tid < kTQ) {
+        const int q = qt * kTQ + tid;
+        const int ok = q < a.B;
+        tq[tid] = TileQuery{ok ? a.zn[q] : -1.0f, ok ? a.t2[q] : 0.0f,
+                            (!kMasked && ok) ? a.gold[q] : -1, ok};
+      }
+    }
+    __syncthreads();  // this stage's copies and the tile's queries are visible
+
+    const int k0 = chunk * a.kc, kn = min(a.kc, a.D - k0);
+    const uint32_t* q = a.q_per_stage ? reinterpret_cast<const uint32_t*>(st + a.off_q)
+                                      : q_whole + k0 / 2;
+    const int qs = a.q_per_stage ? a.ws : a.qs;
+    const uint32_t* q_re = q + q_local * qs + t;
+    const uint32_t* q_im = q + (kTQ + q_local) * qs + t;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(st) + (e_base + g) * a.ws + t;
+#pragma unroll 1
+    for (int kw = 0; kw < kn / 2; kw += 8) {  // one k-step of 16 features
+      const uint32_t a0 = q_re[kw], a1 = q_im[kw], a2 = q_re[kw + 4], a3 = q_im[kw + 4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const uint32_t* wr = w + n * 8 * a.ws + kw;
+        mma_bf16(acc[n], a0, a1, a2, a3, wr[0], wr[4]);
+      }
+    }
+
+    if (chunk == a.n_chunks - 1) {
+      const float* wn = reinterpret_cast<const float*>(st + a.off_wn);
+      const float* bt = reinterpret_cast<const float*>(st + a.off_bt);
+      const int8_t* mask = reinterpret_cast<const int8_t*>(st + a.off_mask);
+      const TileQuery tqq = tq[q_local];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int el = e_base + n * 8 + 2 * t + h, j = j0 + el;
+          if (j < a.Np) {
+            const float s_ij = chyp_score(acc[n][h], acc[n][2 + h], tqq.zn, wn[el], bt[el],
+                                          a.x_min);
+            bool keep;
+            if constexpr (kMasked) {
+              keep = mask[q_local * kTN + el] == 0;
+            } else {
+              keep = j != tqq.gold;
+            }
+            cnt += (keep && s_ij >= tqq.t2) ? 1 : 0;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+      }
+      const bool last_of_tile = s + 1 == s_end || next_pos(pos, a.n_chunks, a.n_et).qt != qt;
+      if (last_of_tile) {  // the 4 lanes of a query group hold its counts
+        cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
+        cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
+        if (t == 0 && tqq.ok && cnt) atomicAdd(&a.out[qt * kTQ + q_local], cnt);
+        cnt = 0;
+      }
+    }
+    pos = next_pos(pos, a.n_chunks, a.n_et);
+    __syncthreads();  // this buffer and the tile's queries are free again
+  }
+}
+
+// One block per query; a warp takes 8 of its filtered ids at a time as the
+// 8 columns of one mma chain.  Ids outside [0, Np) and the gold are skipped.
+__global__ void __launch_bounds__(kSubThreads)
+chyp_filtered_sub_bf16_kernel(const uint32_t* __restrict__ lhs2, const float* __restrict__ zn,
+                              const float* __restrict__ t2, const uint32_t* __restrict__ rhs,
+                              const float* __restrict__ wn, const float* __restrict__ bt,
+                              const int* __restrict__ fidx, const int* __restrict__ gold,
+                              int* __restrict__ sub, int B, int Np, int D, int ld, int L,
+                              float x_min) {
+  __shared__ int warp_sums[kSubThreads / 32];
+  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* q_re = lhs2 + (size_t)b * (ld / 2) + t;
+  const uint32_t* q_im = lhs2 + (size_t)(B + b) * (ld / 2) + t;
+  const float zn_b = zn[b], t2_b = t2[b];
+  const int gold_b = gold[b];
+  const int* f_b = fidx + (size_t)b * L;
+  int cnt = 0;
+#pragma unroll 1
+  for (int l0 = warp * 8; l0 < L; l0 += kSubThreads / 32 * 8) {
+    const int fg = l0 + g < L ? f_b[l0 + g] : -1;  // this lane's column: id l0 + g
+    const bool ok_g = fg >= 0 && fg < Np;
+    const uint32_t* w = rhs + (size_t)(ok_g ? fg : 0) * (ld / 2) + t;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+    for (int kw = 0; kw < D / 2; kw += 8)
+      mma_bf16(acc, q_re[kw], q_im[kw], q_re[kw + 4], q_im[kw + 4], ok_g ? w[kw] : 0u,
+               ok_g ? w[kw + 4] : 0u);
+    if (g == 0) {  // row 0 (re) and row 8 (im) of columns 2t, 2t + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = l0 + 2 * t + h;
+        const int f = l < L ? f_b[l] : -1;
+        if (f >= 0 && f < Np && f != gold_b) {
+          const float s = chyp_score(acc[h], acc[2 + h], zn_b, wn[f], bt[f], x_min);
+          cnt += (s >= t2_b) ? 1 : 0;
+        }
+      }
+    }
+  }
+  const unsigned c = __reduce_add_sync(0xffffffffu, (unsigned)cnt);
+  if (lane == 0) warp_sums[warp] = (int)c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < kSubThreads / 32; ++i) total += warp_sums[i];
+    sub[b] = total;
+  }
+}
+
+template <bool kMasked>
+int blocks_per_sm(size_t smem, int* sms) {
+  static rank_sweeps::Occupancy cache;
+  return rank_sweeps::blocks_per_sm(cache, chyp_sweep_bf16_kernel<kMasked>, kThreads, smem,
+                                    kMaxSmem, sms);
+}
+
+// The launch geometry of a sweep on D features (D % 16 == 0): chunks,
+// strides and the shared-memory layout.
+template <bool kMasked>
+void plan(Args& a) {
+  a.n_chunks = (a.D + kMaxChunk - 1) / kMaxChunk;
+  a.kc = ((a.D + a.n_chunks - 1) / a.n_chunks + 15) / 16 * 16;  // <= kMaxChunk
+  a.ws = rank_sweeps::bf16_row_words(a.kc);
+  a.qs = rank_sweeps::bf16_row_words(a.D);
+  a.q_per_stage = false;
+  layout<kMasked>(a);
+  if (smem_bytes<kMasked>(a) > (size_t)kMaxSmem) {
+    a.q_per_stage = true;
+    layout<kMasked>(a);
+  }
+}
+
+template <bool kMasked>
+int launch_sweep(Args a, cudaStream_t stream) {
+  if (a.B <= 0 || a.Np <= 0 || a.D <= 0) return 0;
+  if (a.D % 16 || a.ld < a.D || a.ld % 8 || !aligned16(a.lhs2) || !aligned16(a.rhs) ||
+      !aligned16(a.wn) || !aligned16(a.bt) || (kMasked ? a.mask == nullptr : a.gold == nullptr))
+    return (int)cudaErrorInvalidValue;
+  plan<kMasked>(a);
+  const size_t smem = smem_bytes<kMasked>(a);
+  int sms = 0;
+  const int per_sm = blocks_per_sm<kMasked>(smem, &sms);
+  if (per_sm < 0) return -per_sm;
+  a.n_et = (a.Np + kTN - 1) / kTN;
+  a.n_items = (a.B + kTQ - 1) / kTQ * a.n_et;
+  a.vec_mask = kMasked && a.Np % 16 == 0 && aligned16(a.mask);
+  const int grid = rank_sweeps::grid_size(a.n_items, per_sm, sms);
+  chyp_sweep_bf16_kernel<kMasked><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kMasked>
+int info(int D, int* regs, int* local_bytes, int* per_sm_out, int* smem_out) {
+  Args a{};
+  a.D = D;
+  plan<kMasked>(a);
+  const size_t smem = smem_bytes<kMasked>(a);
+  int sms = 0;
+  const int per_sm = blocks_per_sm<kMasked>(smem, &sms);
+  if (per_sm < 0) return -per_sm;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, chyp_sweep_bf16_kernel<kMasked>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *per_sm_out = per_sm;
+  *smem_out = (int)(smem + attr.sharedSizeBytes);
+  return 0;
+}
+
+}  // namespace bf16
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Each launcher enqueues on `stream`,
@@ -543,4 +885,50 @@ extern "C" int chyp_rank_sweep_info(int masked, int D, int* regs, int* local_byt
   const size_t smem = sweep_smem<false>(D);
   const int per_sm = sweep_blocks_per_sm<false>(smem, &sms);
   return per_sm < 0 ? -per_sm : info(chyp_sweep_kernel<false>, smem, per_sm);
+}
+
+// The bf16 instances (precision "default"): the same arguments, lhs2 and
+// rhs bf16 rows (ld = D features, a multiple of 16, 16-byte aligned).
+extern "C" int chyp_rank_sweep_masked_bf16(const void* lhs2, const float* zn, const float* t2,
+                                           const void* rhs, const float* wn, const float* bt,
+                                           const int8_t* mask, int* counts, int B, int Np,
+                                           int D, int ld, float x_min, cudaStream_t stream) {
+  bf16::Args a{};
+  a.lhs2 = static_cast<const uint32_t*>(lhs2);
+  a.zn = zn, a.t2 = t2, a.rhs = static_cast<const uint32_t*>(rhs), a.wn = wn, a.bt = bt;
+  a.mask = mask, a.out = counts, a.B = B, a.Np = Np, a.D = D, a.ld = ld, a.x_min = x_min;
+  return bf16::launch_sweep<true>(a, stream);
+}
+
+extern "C" int chyp_rank_sweep_nomask_bf16(const void* lhs2, const float* zn, const float* t2,
+                                           const void* rhs, const float* wn, const float* bt,
+                                           const int* gold, int* counts, int B, int Np, int D,
+                                           int ld, float x_min, cudaStream_t stream) {
+  bf16::Args a{};
+  a.lhs2 = static_cast<const uint32_t*>(lhs2);
+  a.zn = zn, a.t2 = t2, a.rhs = static_cast<const uint32_t*>(rhs), a.wn = wn, a.bt = bt;
+  a.gold = gold, a.out = counts, a.B = B, a.Np = Np, a.D = D, a.ld = ld, a.x_min = x_min;
+  return bf16::launch_sweep<false>(a, stream);
+}
+
+extern "C" int chyp_rank_filtered_sub_bf16(const void* lhs2, const float* zn, const float* t2,
+                                           const void* rhs, const float* wn, const float* bt,
+                                           const int* fidx, const int* gold, int* sub, int B,
+                                           int Np, int D, int ld, int L, float x_min,
+                                           cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (D % 16 || ld < D || ld % 2) return (int)cudaErrorInvalidValue;
+  bf16::chyp_filtered_sub_bf16_kernel<<<B, kSubThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(lhs2), zn, t2, static_cast<const uint32_t*>(rhs), wn, bt, fidx,
+      gold, sub, B, Np, D, ld, L, x_min);
+  return (int)cudaGetLastError();
+}
+
+// Registers a thread, local (spill) bytes a thread, resident blocks per SM
+// and shared bytes a block of the bf16 sweep at D bf16 features.
+extern "C" int chyp_rank_sweep_bf16_info(int masked, int D, int* regs, int* local_bytes,
+                                         int* blocks_per_sm, int* smem_bytes) {
+  if (D <= 0 || D % 16) return (int)cudaErrorInvalidValue;
+  return masked ? bf16::info<true>(D, regs, local_bytes, blocks_per_sm, smem_bytes)
+                : bf16::info<false>(D, regs, local_bytes, blocks_per_sm, smem_bytes);
 }

@@ -3,7 +3,8 @@
 // stage their operands into shared memory with cp.async while the other
 // buffer computes, and launch one persistent grid sized by the occupancy
 // API: blocks_per_sm resident blocks on each SM, each a contiguous range
-// of (query tile, entity tile) items.
+// of (query tile, entity tile) items.  Their bf16 instances (precision
+// "default") contract with the warp-level tensor-core product mma_bf16.
 
 #pragma once
 
@@ -60,6 +61,51 @@ __device__ __forceinline__ StagePos next_pos(StagePos p, int n_chunks, int n_et)
   }
   return p;
 }
+
+// The bf16 tensor-core product of the bf16 instances: c += A B over one
+// k-step of 16 features, A 16 x 16 (rows), B 16 x 8 (columns), f32
+// accumulators, by mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+// With g = lane / 4 and t = lane % 4, the fragments are 32-bit words of two
+// bf16 features (the lower feature in the lower half, as a little-endian
+// load of a row gives them):
+//   a0: A row g,     features 2t, 2t + 1      a2: row g,     features 2t + 8, 2t + 9
+//   a1: A row g + 8, features 2t, 2t + 1      a3: row g + 8, features 2t + 8, 2t + 9
+//   b0: B column g,  features 2t, 2t + 1      b1: column g,  features 2t + 8, 2t + 9
+//   c0, c1: (row g, columns 2t, 2t + 1)       c2, c3: (row g + 8, columns 2t, 2t + 1)
+// so a row's k-step is words t and t + 4 of its 8 (rows stored feature-
+// contiguous).  An output element depends on its A row, its B column and
+// the accumulator it continues only: the same chain of k-steps over the
+// same rows gives the same bits wherever the rows sit in the tiles.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Copy words [w0, w0 + nw) (nw a multiple of 4) of rows [r0, r0 + kRows) of
+// a table of n rows of ld 32-bit words (16-byte aligned rows) into kRows
+// staged rows of dst_ld words, 16 bytes a copy; rows past n are
+// zero-filled.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void copy_words(uint32_t* dst, int dst_ld, const uint32_t* src, int r0,
+                                           int n, int ld, int w0, int nw, int tid) {
+  const int per_row = nw / 4;
+#pragma unroll 1
+  for (int idx = tid; idx < kRows * per_row; idx += kThreads) {
+    const int r = idx / per_row, p = idx % per_row;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * dst_ld + 4 * p, src + (size_t)(ok ? r0 + r : 0) * ld + w0 + 4 * p,
+               ok ? 16 : 0);
+  }
+}
+
+// Words a staged bf16 row of kc features takes: kc / 2 + 4, an odd multiple
+// of 4 modulo 32 when kc is a multiple of 16, so the 8 rows x 4 words of a
+// fragment load fall in 32 distinct banks.
+__host__ __device__ constexpr int bf16_row_words(int kc) { return kc / 2 + 4; }
 
 // Element t (0-3) of v.
 __device__ __forceinline__ float lane_of(const float4& v, int t) {

@@ -48,6 +48,14 @@ which repeats the arithmetic with a matmul (a different summation order, so
 counts may differ on scores within float rounding of t2).  The plain
 sweeps take the same inputs as the kernels, radii included, and
 recompute the radius part inline.
+
+precision="default" (--eval_precision default, kernels/_ranker.py) takes
+each kernel's bf16 tensor-core instance (launch counters `<name>_bf16`):
+lhs (B, Dp) and rhs (Np, Dp) bfloat16, Dp a multiple of 16, zero past D
+(bf16_rows; AttRH: each half padded on its own, so Dp = 2 round_up(D / 2,
+16)); every other input stays float32, un from the unrounded rows.  The
+radius tables do not change: they depend on un and c only.  The plain
+versions also take float32 operands and round them.
 """
 
 from __future__ import annotations
@@ -57,19 +65,20 @@ import torch
 from complexhyperbolickge_torch.kernels._build import check_aligned
 from complexhyperbolickge_torch.kernels._build import check_tensor as _check
 from complexhyperbolickge_torch.kernels._build import kernel_info, launch
-from complexhyperbolickge_torch.kernels._ranker import ROW_TILE, FusedRanker
-from complexhyperbolickge_torch.ops.math import MIN_NORM, ball_eps, round_up
+from complexhyperbolickge_torch.kernels._ranker import (
+    BF16_K,
+    ROW_TILE,
+    FusedRanker,
+    plain_mm,
+    plain_rows,
+)
+from complexhyperbolickge_torch.ops.math import MIN_NORM, ball_eps, check_precision, round_up
 
-# launches of each CUDA kernel since the last reset_launches()
-launches = {
-    "hyp_rank_sweep_masked": 0,
-    "hyp_rank_sweep_nomask": 0,
-    "hyp_rank_filtered_sub": 0,
-    "attrh_rank_sweep_masked": 0,
-    "attrh_rank_sweep_nomask": 0,
-    "attrh_rank_filtered_sub": 0,
-    "hyp_rank_radii": 0,
-}
+KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_sub",
+           "attrh_rank_sweep_masked", "attrh_rank_sweep_nomask", "attrh_rank_filtered_sub")
+# launches of each CUDA kernel since the last reset_launches(): the exact
+# instances, the bf16 ones (precision "default") and the radius launcher
+launches = {**{k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS}, "hyp_rank_radii": 0}
 
 
 def reset_launches():
@@ -187,9 +196,10 @@ def hyp_rank_radii_plain(cvals, un, family: str, un2=None):
     return torch.stack(parts, dim=-1)
 
 
-def hyp_scores_plain(lhs, x2, c, rhs, un, bt, family: str = "poincare"):
+def hyp_scores_plain(lhs, x2, c, rhs, un, bt, family: str = "poincare",
+                     precision: str = "highest"):
     """All-entity scores (B, Np) in plain PyTorch: bt - dist^2."""
-    xv = (lhs @ rhs.T) / un[None, :]
+    xv = plain_mm(lhs, rhs, precision) / un[None, :]
     d = _DISTS[family](xv, un[None, :], c[:, None], x2[:, None])
     return bt[None, :] - d * d
 
@@ -217,33 +227,38 @@ def query_curvature(cid, cvals):
 
 
 def hyp_rank_counts_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
-                          family="poincare"):
+                          family="poincare", precision="highest"):
     """K5's plain version: the curvature cvals[cid], the radius part
     recomputed inline (radii is the kernel's copy of it)."""
-    scores = hyp_scores_plain(lhs, x2, query_curvature(cid, cvals), rhs, un, bt, family)
+    scores = hyp_scores_plain(lhs, x2, query_curvature(cid, cvals), rhs, un, bt, family,
+                              precision)
     return _count(scores, t2, mask == 0)
 
 
 def hyp_rank_sweep_nomask_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
-                                family="poincare"):
+                                family="poincare", precision="highest"):
     """K6's plain version, as hyp_rank_counts_plain."""
-    scores = hyp_scores_plain(lhs, x2, query_curvature(cid, cvals), rhs, un, bt, family)
+    scores = hyp_scores_plain(lhs, x2, query_curvature(cid, cvals), rhs, un, bt, family,
+                              precision)
     return _count(scores, t2, _not_gold(rhs.shape[0], gold))
 
 
 def hyp_rank_filtered_sub_plain(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
-                                family="poincare"):
+                                family="poincare", precision="highest"):
     ok, f = _filtered_rows(fidx, gold, rhs.shape[0])
-    xv = torch.einsum("bd,bld->bl", lhs, rhs[f]) / un[f]
+    xv = plain_rows(lhs, rhs[f], precision) / un[f]
     d = _DISTS[family](xv, un[f], c[:, None], x2[:, None])
     return _count(bt[f] - d * d, t2, ok)
 
 
-def attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt):
-    """All-entity AttRH scores (B, Np): bt - w0 d_rot^2 - w1 d_ref^2."""
+def attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt,
+                       precision="highest"):
+    """All-entity AttRH scores (B, Np): bt - w0 d_rot^2 - w1 d_ref^2.  The
+    halves are the two halves of the columns (each padded on its own in
+    the bf16 operands)."""
     h = lhs.shape[1] // 2
-    xr = (lhs[:, :h] @ rhs[:, :h].T) / un_rot[None, :]
-    xf = (lhs[:, h:] @ rhs[:, h:].T) / un_ref[None, :]
+    xr = plain_mm(lhs[:, :h], rhs[:, :h], precision) / un_rot[None, :]
+    xf = plain_mm(lhs[:, h:], rhs[:, h:], precision) / un_ref[None, :]
     c = c[:, None]
     d2r = _half_dist_sq(xr, un_rot[None, :], c, x2r[:, None])
     d2f = _half_dist_sq(xf, un_ref[None, :], c, x2f[:, None])
@@ -251,28 +266,28 @@ def attrh_scores_plain(lhs, x2r, x2f, c, w0, w1, rhs, un_rot, un_ref, bt):
 
 
 def attrh_rank_counts_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
-                            radii, mask):
+                            radii, mask, precision="highest"):
     """K7's plain version, as hyp_rank_counts_plain."""
     scores = attrh_scores_plain(lhs, x2r, x2f, query_curvature(cid, cvals), w0, w1, rhs,
-                                un_rot, un_ref, bt)
+                                un_rot, un_ref, bt, precision)
     return _count(scores, t2, mask == 0)
 
 
 def attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref,
-                                  bt, radii, gold):
+                                  bt, radii, gold, precision="highest"):
     """K8's plain version, as hyp_rank_counts_plain."""
     scores = attrh_scores_plain(lhs, x2r, x2f, query_curvature(cid, cvals), w0, w1, rhs,
-                                un_rot, un_ref, bt)
+                                un_rot, un_ref, bt, precision)
     return _count(scores, t2, _not_gold(rhs.shape[0], gold))
 
 
 def attrh_rank_filtered_sub_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
-                                  bt, fidx, gold):
+                                  bt, fidx, gold, precision="highest"):
     ok, f = _filtered_rows(fidx, gold, rhs.shape[0])
     h = lhs.shape[1] // 2
     rows = rhs[f]  # (B, L, D)
-    xr = torch.einsum("bd,bld->bl", lhs[:, :h], rows[..., :h]) / un_rot[f]
-    xf = torch.einsum("bd,bld->bl", lhs[:, h:], rows[..., h:]) / un_ref[f]
+    xr = plain_rows(lhs[:, :h], rows[..., :h], precision) / un_rot[f]
+    xf = plain_rows(lhs[:, h:], rows[..., h:], precision) / un_ref[f]
     c = c[:, None]
     d2r = _half_dist_sq(xr, un_rot[f], c, x2r[:, None])
     d2f = _half_dist_sq(xf, un_ref[f], c, x2f[:, None])
@@ -282,18 +297,25 @@ def attrh_rank_filtered_sub_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_
 # --------------------------------- wrappers -----------------------------------
 
 
-def _check_common(lhs, per_query, rhs, per_row):
+def _check_common(lhs, per_query, rhs, per_row, precision="highest", k_align=BF16_K):
     """Validate the shared inputs of a CUDA launch: lhs (B, D), the (B,)
-    per-query and (Np,) per-row vectors, rhs (Np, D); returns (B, Np, D)."""
+    per-query and (Np,) per-row vectors, rhs (Np, D); returns (B, Np, D).
+    precision "default": lhs and rhs bfloat16, D a multiple of k_align."""
     dev = lhs.device
     if dev.type != "cuda":
         raise ValueError(f"hyp_rank kernels take CPU or CUDA tensors, got {dev}")
     if lhs.dim() != 2 or rhs.dim() != 2:
         raise ValueError("lhs must be (B, D) and rhs (Np, D)")
     (b, d), np_ = lhs.shape, rhs.shape[0]
-    f32 = torch.float32
-    _check("lhs", lhs, f32, (b, d), dev)
-    _check("rhs", rhs, f32, (np_, d), dev)
+    f32, op = torch.float32, torch.float32
+    if check_precision(precision) == "default":
+        op = torch.bfloat16
+        if d % k_align:
+            raise ValueError(f"the bf16 kernels take rows padded to a multiple of {k_align} "
+                             f"features (bf16_rows), got {d}")
+        check_aligned(lhs=lhs, rhs=rhs)
+    _check("lhs", lhs, op, (b, d), dev)
+    _check("rhs", rhs, op, (np_, d), dev)
     for i, v in enumerate(per_query):
         _check(f"per-query input {i}", v, f32, (b,), dev)
     for i, v in enumerate(per_row):
@@ -308,7 +330,11 @@ def _check_filters(fidx, gold, b):
     _check("gold", gold, torch.int32, (b,), gold.device)
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, precision="highest"):
+    """Launch `name`'s instance for `precision` (both take the same
+    arguments)."""
+    if precision == "default":
+        name += "_bf16"
     launch("hyp_rank", name, device, *args)
     launches[name] += 1
 
@@ -333,22 +359,22 @@ def _check_sweep(b, np_, cid, cvals, radii, family, device):
 
 
 def hyp_rank_counts(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
-                    family: str = "poincare"):
+                    family: str = "poincare", precision: str = "highest"):
     """K5: #{j : mask[b, j] == 0 and score(b, j) >= t2[b]} per query, int32
     (B,), at the curvature cvals[cid[b]].  mask is int8 (B, Np), 1 =
     filtered out (and on pad rows); radii = hyp_rank_radii(cvals, un,
     family)."""
     if lhs.device.type == "cpu":
         return hyp_rank_counts_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, mask,
-                                     family)
+                                     family, precision)
     fam = _family(family)
-    b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
+    b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt), precision)
     n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
     _check("mask", mask, torch.int8, (b, np_), lhs.device)
     check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("hyp_rank_sweep_masked", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
-            mask, counts, b, np_, d, n_c, fam)
+            mask, counts, b, np_, d, n_c, fam, precision=precision)
     return counts
 
 
@@ -378,127 +404,133 @@ def hyp_rank_radii(cvals, un, family: str, un2=None):
     return out
 
 
-def sweep_info(family: str, device, d: int, masked: bool = True) -> dict:
+def sweep_info(family: str, device, d: int, masked: bool = True,
+               precision: str = "highest") -> dict:
     """Registers and local (spill) bytes a thread, shared bytes a block and
     resident blocks per SM of the sweep of `family` ("poincare", "lorentz"
-    or "attrh"), masked or not, at feature width d on `device`, as the CUDA
+    or "attrh"), masked or not (its bf16 instance for precision "default",
+    d then the padded width), at feature width d on `device`, as the CUDA
     runtime reports them."""
-    vals = kernel_info("hyp_rank", "hyp_rank_sweep_info", device, RADII_FAMILIES[family],
-                       int(masked), d)
+    fn = "hyp_rank_sweep_bf16_info" if precision == "default" else "hyp_rank_sweep_info"
+    vals = kernel_info("hyp_rank", fn, device, RADII_FAMILIES[family], int(masked), d)
     return dict(zip(("regs_per_thread", "local_bytes", "smem_bytes", "blocks_per_sm"), vals))
 
 
 def hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
-                          family: str = "poincare"):
+                          family: str = "poincare", precision: str = "highest"):
     """K6 sweep: #{j != gold[b] : score(b, j) >= t2[b]} per query, int32
     (B,), at the curvature cvals[cid[b]].  gold is int32 (B,), a row of
     this table or -1; radii as hyp_rank_counts takes it."""
     if lhs.device.type == "cpu":
         return hyp_rank_sweep_nomask_plain(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold,
-                                           family)
+                                           family, precision)
     fam = _family(family)
-    b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt))
+    b, np_, d = _check_common(lhs, (x2, t2), rhs, (un, bt), precision)
     n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
     _check("gold", gold, torch.int32, (b,), lhs.device)
     check_aligned(un=un, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("hyp_rank_sweep_nomask", lhs.device, lhs, x2, cid, cvals, t2, rhs, un, bt, radii,
-            gold, counts, b, np_, d, n_c, fam)
+            gold, counts, b, np_, d, n_c, fam, precision=precision)
     return counts
 
 
 def hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
-                          family: str = "poincare"):
+                          family: str = "poincare", precision: str = "highest"):
     """K6 subtraction: #{l : fidx[b, l] in [0, Np), != gold[b], score >=
     t2[b]} per query, int32 (B,), at the curvature c[b].  fidx is int32
     (B, L), rows deduplicated (data/dataset.py::eval_pack)."""
     if lhs.device.type == "cpu":
         return hyp_rank_filtered_sub_plain(lhs, x2, c, t2, rhs, un, bt, fidx, gold,
-                                           family)
+                                           family, precision)
     fam = _family(family)
-    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt))
+    b, np_, d = _check_common(lhs, (x2, c, t2), rhs, (un, bt), precision)
     _check_filters(fidx, gold, b)
     sub = torch.empty(b, dtype=torch.int32, device=lhs.device)
     _launch("hyp_rank_filtered_sub", lhs.device, lhs, x2, c, t2, rhs, un, bt, fidx,
-            gold, sub, b, np_, d, fidx.shape[1], fam, ONE_MINUS_EPS)
+            gold, sub, b, np_, d, fidx.shape[1], fam, ONE_MINUS_EPS, precision=precision)
     return sub
 
 
 def hyp_rank_counts_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, fidx, gold,
-                           family: str = "poincare"):
+                           family: str = "poincare", precision: str = "highest"):
     """K6: #{non-filtered, non-gold j : score >= t2} without a (B, Np) mask:
     the sweep counts every non-gold row and the filtered ids it counted are
     subtracted, at c = query_curvature(cid, cvals).  Both kernels share one
-    score routine and the table holds the inline radius part bit for bit,
+    score routine (in the bf16 instances: one mma chain per pair, tile
+    against tile) and the table holds the inline radius part bit for bit,
     so a filtered id is subtracted exactly when the sweep counted it."""
     c = query_curvature(cid, cvals)
-    return (hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold, family)
-            - hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold, family))
+    return (hyp_rank_sweep_nomask(lhs, x2, cid, cvals, t2, rhs, un, bt, radii, gold, family,
+                                  precision)
+            - hyp_rank_filtered_sub(lhs, x2, c, t2, rhs, un, bt, fidx, gold, family,
+                                    precision))
 
 
-def _check_attrh(lhs, per_query, rhs, per_row):
-    b, np_, d = _check_common(lhs, per_query, rhs, per_row)
+def _check_attrh(lhs, per_query, rhs, per_row, precision="highest"):
+    b, np_, d = _check_common(lhs, per_query, rhs, per_row, precision, k_align=2 * BF16_K)
     if d % 2:
         raise ValueError(f"AttRH's features split in two halves, got D = {d}")
     return b, np_, d
 
 
 def attrh_rank_counts(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt, radii,
-                      mask):
+                      mask, precision: str = "highest"):
     """K7: the masked AttRH count, as hyp_rank_counts; radii =
     hyp_rank_radii(cvals, un_rot, "attrh", un_ref)."""
     if lhs.device.type == "cpu":
         return attrh_rank_counts_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot,
-                                       un_ref, bt, radii, mask)
-    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+                                       un_ref, bt, radii, mask, precision)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt), precision)
     n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
     _check("mask", mask, torch.int8, (b, np_), lhs.device)
     check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("attrh_rank_sweep_masked", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
-            un_rot, un_ref, bt, radii, mask, counts, b, np_, d, n_c)
+            un_rot, un_ref, bt, radii, mask, counts, b, np_, d, n_c, precision=precision)
     return counts
 
 
 def attrh_rank_sweep_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
-                            radii, gold):
+                            radii, gold, precision: str = "highest"):
     """K8 sweep, as hyp_rank_sweep_nomask."""
     if lhs.device.type == "cpu":
         return attrh_rank_sweep_nomask_plain(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
-                                             un_rot, un_ref, bt, radii, gold)
-    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+                                             un_rot, un_ref, bt, radii, gold, precision)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1, t2), rhs, (un_rot, un_ref, bt), precision)
     n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
     _check("gold", gold, torch.int32, (b,), lhs.device)
     check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
     counts = torch.zeros(b, dtype=torch.int32, device=lhs.device)
     _launch("attrh_rank_sweep_nomask", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs,
-            un_rot, un_ref, bt, radii, gold, counts, b, np_, d, n_c)
+            un_rot, un_ref, bt, radii, gold, counts, b, np_, d, n_c, precision=precision)
     return counts
 
 
 def attrh_rank_filtered_sub(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref, bt,
-                            fidx, gold):
+                            fidx, gold, precision: str = "highest"):
     """K8 subtraction, as hyp_rank_filtered_sub."""
     if lhs.device.type == "cpu":
         return attrh_rank_filtered_sub_plain(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot,
-                                             un_ref, bt, fidx, gold)
-    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt))
+                                             un_ref, bt, fidx, gold, precision)
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, c, w0, w1, t2), rhs, (un_rot, un_ref, bt),
+                             precision)
     _check_filters(fidx, gold, b)
     sub = torch.empty(b, dtype=torch.int32, device=lhs.device)
     _launch("attrh_rank_filtered_sub", lhs.device, lhs, x2r, x2f, c, w0, w1, t2, rhs,
-            un_rot, un_ref, bt, fidx, gold, sub, b, np_, d, fidx.shape[1])
+            un_rot, un_ref, bt, fidx, gold, sub, b, np_, d, fidx.shape[1], precision=precision)
     return sub
 
 
 def attrh_rank_counts_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref, bt,
-                             radii, fidx, gold):
+                             radii, fidx, gold, precision: str = "highest"):
     """K8: the AttRH sweep minus its filtered subtraction, as
     hyp_rank_counts_nomask."""
     c = query_curvature(cid, cvals)
     sweep = attrh_rank_sweep_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot, un_ref,
-                                    bt, radii, gold)
+                                    bt, radii, gold, precision)
     return sweep - attrh_rank_filtered_sub(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
-                                           bt, fidx, gold)
+                                           bt, fidx, gold, precision)
 
 
 # ---------------------------------- rankers -----------------------------------
@@ -547,13 +579,13 @@ class HypRanker(FusedRanker):
     QUERIES = ("lhs", "x2", "cid", "c", "t2")
     TABLE_PARAMS = ("entity", "bt", "c")
 
-    def __init__(self, model, masked: bool = True):
+    def __init__(self, model, masked: bool = True, precision: str = "highest"):
         from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
 
         if isinstance(model, AttRH) or not isinstance(model, (BaseH, BaseLorentz)):
             raise TypeError("HypRanker ranks BaseH (not AttRH) and BaseLorentz models, "
                             f"got {type(model).__name__}")
-        super().__init__(model, masked)
+        super().__init__(model, masked, precision)
         self.family = "poincare" if isinstance(model, BaseH) else "lorentz"
 
     def _prepare_tables(self):
@@ -580,16 +612,15 @@ class HypRanker(FusedRanker):
                 self._gold_threshold(sim, gold))
 
     def _counts(self, x, masked):
+        kw = dict(family=self.family, precision=self.precision)
         if masked:
             return hyp_rank_counts(*(x[k] for k in ("lhs", "x2", "cid", "cvals", "t2", "rhs",
-                                                    "un", "bt", "radii", "mask")),
-                                   family=self.family)
+                                                    "un", "bt", "radii", "mask")), **kw)
         # K6 with the batch's c = cvals[cid], which the queries already hold
         sweep = hyp_rank_sweep_nomask(*(x[k] for k in (
-            "lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii", "gold")),
-            family=self.family)
+            "lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii", "gold")), **kw)
         return sweep - hyp_rank_filtered_sub(*(x[k] for k in (
-            "lhs", "x2", "c", "t2", "rhs", "un", "bt", "fidx", "gold")), family=self.family)
+            "lhs", "x2", "c", "t2", "rhs", "un", "bt", "fidx", "gold")), **kw)
 
 
 class AttRHRanker(FusedRanker):
@@ -601,13 +632,14 @@ class AttRHRanker(FusedRanker):
     TABLES = ("rhs", "un_rot", "un_ref", "bt", "cvals", "radii")
     QUERIES = ("lhs", "x2r", "x2f", "cid", "c", "w0", "w1", "t2")
     TABLE_PARAMS = ("entity", "bt", "c")
+    BF16_HALVES = True
 
-    def __init__(self, model, masked: bool = True):
+    def __init__(self, model, masked: bool = True, precision: str = "highest"):
         from complexhyperbolickge_torch.models.hyperbolic import AttRH
 
         if not isinstance(model, AttRH):
             raise TypeError(f"AttRHRanker ranks AttRH only, got {type(model).__name__}")
-        super().__init__(model, masked)
+        super().__init__(model, masked, precision)
 
     def _prepare_tables(self):
         rhs = _padded_table(self.model.entity.detach().to(torch.float32))
@@ -634,14 +666,15 @@ class AttRHRanker(FusedRanker):
                 w[:, 1].contiguous(), self._gold_threshold(sim, gold))
 
     def _counts(self, x, masked):
+        p = self.precision
         if masked:
             return attrh_rank_counts(*(x[k] for k in (
                 "lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot",
-                "un_ref", "bt", "radii", "mask")))
+                "un_ref", "bt", "radii", "mask")), precision=p)
         # K8 with the batch's c = cvals[cid], which the queries already hold
         sweep = attrh_rank_sweep_nomask(*(x[k] for k in (
             "lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot", "un_ref",
-            "bt", "radii", "gold")))
+            "bt", "radii", "gold")), precision=p)
         return sweep - attrh_rank_filtered_sub(*(x[k] for k in (
             "lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref", "bt", "fidx",
-            "gold")))
+            "gold")), precision=p)

@@ -20,6 +20,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from complexhyperbolickge_torch.ops.math import pinned_mm
+
 _DTYPES = {
     "float32": torch.float32,
     "float": torch.float32,
@@ -234,7 +236,7 @@ def dot_train(x, y):
 
 def dot_all(x, y):
     """(B, d) vs (N, d) -> (B, N) inner products as one matmul."""
-    return torch.matmul(x, y.T)
+    return pinned_mm(x, y.T)
 
 
 def neg_sq_dist(lhs, rhs_e, all_pairs: bool):

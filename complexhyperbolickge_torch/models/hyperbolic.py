@@ -25,6 +25,7 @@ from complexhyperbolickge_torch.ops.euclidean import (
     givens_unitary,
 )
 from complexhyperbolickge_torch.ops.fft import _fft_dtype
+from complexhyperbolickge_torch.ops.math import mm_operands
 
 HYP_MODELS = ["RotH", "RefH", "AttH", "AttRH", "IFFTH", "IsoH", "RotLH", "HyboNet"]
 
@@ -305,8 +306,9 @@ class HyboNet(BaseLorentz):
     def _lorentz_linear(self, x, weight, scale, bias, c):
         """x (B, rank+1) through weight (B, rank+1, rank+1); `time` uses the
         product before the bias.  An exact fp32/fp64 einsum (TF32 is off
-        package-wide)."""
-        x = torch.einsum("...i,...ji->...j", x, weight)
+        package-wide); inside get_queries of a dense "default" ranking its
+        operands are rounded to bfloat16, as JAX reads mm_precision() here."""
+        x = torch.einsum("...i,...ji->...j", *mm_operands(x, weight))
         epsilon = (1.0 / c**0.5) + 0.1
         time = torch.sigmoid(x[..., 0:1]) * scale + epsilon
         x_narrow = (x + bias)[..., 1:]

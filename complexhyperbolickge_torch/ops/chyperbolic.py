@@ -33,6 +33,7 @@ from complexhyperbolickge_torch.ops.math import (
     MIN_NORM,
     artanh,
     ball_eps,
+    mm_operands,
     safe_norm,
     st_clip,
     tanh,
@@ -222,8 +223,9 @@ class _ChypDistanceAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lhs, rhs):
         eps = ball_eps(lhs.dtype)
-        sr = torch.matmul(lhs, rhs.T) - 1.0
-        si = torch.matmul(swap_neg(lhs), rhs.T)
+        lhs_m, rhs_m = mm_operands(lhs, rhs)  # bf16-rounded under "default"
+        sr = torch.matmul(lhs_m, rhs_m.T) - 1.0
+        si = torch.matmul(swap_neg(lhs_m), rhs_m.T)
         zn = hermitian_sqnorm_lifted(lhs).clamp(-1.0, -eps)[:, None]
         wn = hermitian_sqnorm_lifted(rhs).clamp(-1.0, -eps)[None, :]
         x = (2 * (sr * sr + si * si) / (zn * wn) - 1.0).clamp_min(1 + eps)

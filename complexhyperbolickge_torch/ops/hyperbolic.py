@@ -23,6 +23,7 @@ from complexhyperbolickge_torch.ops.math import (
     arcosh,
     artanh,
     ball_eps,
+    pinned_mm,
     safe_norm,
     tanh,
 )
@@ -109,7 +110,7 @@ def hyp_distance_multi_c_all(x, v, c):
     """All-pairs form: x (B, d) queries vs v (N, d) candidates, c (B, 1) or
     (1, 1) -> (B, N)."""
     vnorm = safe_norm(v)  # (N, 1)
-    xv = torch.matmul(x, (v / vnorm).T)  # (B, N)
+    xv = pinned_mm(x, (v / vnorm).T)  # (B, N)
     x2 = torch.sum(x * x, dim=-1, keepdim=True)
     return _hyp_dist_multi_c_from_parts(x2, xv, vnorm[:, 0][None, :], c)
 
@@ -166,7 +167,7 @@ def hyp_distance_multi_c_lorentz_all(x, v, c):
     x0 = torch.sqrt(torch.sum(x**2, dim=-1, keepdim=True) + 1 / c)  # (B, 1)
     v2 = torch.sum(v**2, dim=-1)[None, :]  # (1, N)
     v0 = torch.sqrt(v2 + 1 / c)  # (B, N)
-    res = torch.matmul(x, v.T) - x0 * v0
+    res = pinned_mm(x, v.T) - x0 * v0
     return arcosh(-c * res) / (c**0.5)
 
 
@@ -182,7 +183,7 @@ def hyp_distance_multi_c_lorentz_all(x, v, c):
 def hyp_sim_expmap_all(x, v, c):
     """hyp_distance_multi_c(x, expmap0(v, c), c) in folded all-pairs form."""
     un = safe_norm(v)  # (N, 1), clamped as expmap0's u_norm
-    xv = torch.matmul(x, (v / un).T)  # (B, N)
+    xv = pinned_mm(x, (v / un).T)  # (B, N)
     sqrt_c = c**0.5
     m = tanh(sqrt_c * un[:, 0][None, :]) / sqrt_c  # radius after expmap0
     m = torch.minimum(m, (1 - ball_eps(v.dtype)) / sqrt_c)  # project()'s clip
@@ -196,7 +197,7 @@ def hyp_plain_sim_expmap_all(x, v, c):
     argument as a ball point, so expmap0 is folded once."""
     sqrt_c = c**0.5
     un = safe_norm(v)  # (N, 1)
-    xv_dir = torch.matmul(x, (v / un).T)  # (B, N)
+    xv_dir = pinned_mm(x, (v / un).T)  # (B, N)
     m = tanh(sqrt_c * un[:, 0][None, :]) / sqrt_c  # ball radius
     m = torch.minimum(m, (1 - ball_eps(v.dtype)) / sqrt_c)  # project()'s clip
     x2 = torch.sum(x * x, dim=-1, keepdim=True)  # (B, 1)
@@ -212,7 +213,7 @@ def hyp_plain_sim_expmap_all(x, v, c):
 def lorentz_sim_expmap_all(x, v, c):
     """hyp_distance_multi_c_lorentz(x, expmap0_lorentz(v, c), c), folded."""
     un = safe_norm(v)  # (N, 1)
-    xdir = torch.matmul(x, (v / un).T)  # (B, N)
+    xdir = pinned_mm(x, (v / un).T)  # (B, N)
     sqrt_c = c**0.5
     alpha = sqrt_c * un[:, 0][None, :]
     s = torch.sinh(alpha) / alpha * un[:, 0][None, :]  # radius after expmap0

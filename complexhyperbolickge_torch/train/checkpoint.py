@@ -20,6 +20,11 @@ optax and jax to rebuild them.  The loader here stubs every class from
 those packages instead: the stubs keep the opt_state's values as plain
 tuples, and `opt_state_from_jax` turns them into the port's form.
 
+bfloat16 params are written as ml_dtypes.bfloat16 arrays, as JAX writes
+them, when ml_dtypes imports (JAX depends on it; the port does not).
+Without it they are widened to float32, exactly, and the schema keeps
+"bfloat16": the port's loader reads both forms (JAX's only the first).
+
 The port's trainer writes its own optimizer state in the opt_state slot as
 {"lr": float, "state": {param name: {torch state key: numpy array}}}
 (train/trainer.py::Trainer.opt_state): numbers and arrays only, so the JAX
@@ -153,6 +158,30 @@ def opt_state_from_jax(opt_state) -> dict:
     return {"lr": float(lr), "state": state}
 
 
+def _bf16_to_numpy(t):
+    """A bfloat16 tensor on the CPU as ml_dtypes.bfloat16 (the same bits),
+    or widened to float32 when ml_dtypes is missing."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def _to_numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    return _bf16_to_numpy(t) if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _to_torch(v) -> torch.Tensor:
+    """A checkpoint array as a tensor; an ml_dtypes bfloat16 array keeps
+    its bits."""
+    a = np.array(v, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _dtype_name(v) -> str:
     if isinstance(v, torch.Tensor):
         return str(v.dtype).removeprefix("torch.")
@@ -176,7 +205,7 @@ def params_from_jax(np_params, device, dtype: torch.dtype | None = None) -> dict
     load_state_dict."""
     out = {}
     for k, v in flatten(np_params).items():
-        t = torch.from_numpy(np.array(v, copy=True))
+        t = _to_torch(v)
         out[k] = t.to(device=device, dtype=dtype or t.dtype)
     return out
 
@@ -185,7 +214,7 @@ def params_to_jax(params: dict):
     """Inverse of params_from_jax: dotted name -> tensor (any device) -> the
     JAX tree of numpy arrays that JAX's load_checkpoint reads (nested for a
     GNN, flat otherwise)."""
-    return nest({k: v.detach().cpu().numpy() for k, v in params.items()})
+    return nest({k: _to_numpy(v) for k, v in params.items()})
 
 
 def save_checkpoint(path: str, params: dict, opt_state=None, epoch: int = 0,
@@ -195,11 +224,12 @@ def save_checkpoint(path: str, params: dict, opt_state=None, epoch: int = 0,
     format.  filename='state.pkl' is the best-validation checkpoint;
     config rides inside the checkpoint and in config.json beside it."""
     os.makedirs(path, exist_ok=True)
-    np_params = params_to_jax(params)
     state = {
         "format_version": FORMAT_VERSION,
-        "params": np_params,
-        "param_schema": _schema(np_params),
+        "params": params_to_jax(params),
+        # from the tensors: a bfloat16 param widened to float32 stays
+        # "bfloat16" here
+        "param_schema": _schema(params),
         "opt_state": opt_state,
         "epoch": epoch,
         "best_mrr": best_mrr,
@@ -242,14 +272,16 @@ def load_checkpoint(path: str, expect_params: dict | None = None,
             f"code's {FORMAT_VERSION}"
         )
     schema = state.get("param_schema")
-    if schema is not None and _schema(state["params"]) != schema:
-        raise ValueError(
-            f"checkpoint at {path} is corrupt: stored params do not match "
-            f"their recorded schema"
-        )
+    got = _schema(state["params"])
+    if schema is not None:
+        if _unwiden(got, schema) != schema:
+            raise ValueError(
+                f"checkpoint at {path} is corrupt: stored params do not match "
+                f"their recorded schema"
+            )
+        got = schema
     if expect_params is not None:
         want = _schema(expect_params)
-        got = _schema(state["params"])
         if cast_to_expected:
             want = {k: v[0] for k, v in want.items()}
             got = {k: v[0] for k, v in got.items()}
@@ -264,6 +296,17 @@ def load_checkpoint(path: str, expect_params: dict | None = None,
                 + "\n".join(diffs)
             )
     return state
+
+
+def _unwiden(got: dict, schema: dict) -> dict:
+    """The stored params' schema with each float32 leaf that the recorded
+    schema calls bfloat16 (the widened form) named bfloat16."""
+    out = dict(got)
+    for k, v in got.items():
+        rec = schema.get(k)
+        if rec is not None and rec[1] == "bfloat16" and v == [rec[0], "float32"]:
+            out[k] = rec
+    return out
 
 
 def load_into(model: torch.nn.Module, path: str,

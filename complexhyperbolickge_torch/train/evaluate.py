@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from complexhyperbolickge_torch.ops.math import check_precision, eval_matmul_precision
+
 
 def _mask_pad_cols(scores, n_entities: int):
     """Push score columns past n_entities (row-padded entity tables) below
@@ -48,24 +50,33 @@ def filtered_rank_counts(scores, target, fidx, n_entities: int):
     return total - sub + add
 
 
-def _score_all(model, queries):
-    """score_all over the current params; a GNN scores against its cached
-    eval-mode encoding."""
+def _score_all(model, queries, precision: str = "highest"):
+    """score_all over the current params, its all-pairs contractions at
+    `precision` (ops/math.py::eval_matmul_precision); a GNN scores against
+    its cached eval-mode encoding, encoded outside the precision scope
+    (exact), as JAX encodes outside it."""
     if getattr(model, "is_gnn", False):
-        return model.score_all(queries, cache=model.cached_encode())
-    return model.score_all(queries)
+        cache = model.cached_encode()
+        with eval_matmul_precision(precision):
+            return model.score_all(queries, cache=cache)
+    with eval_matmul_precision(precision):
+        return model.score_all(queries)
 
 
 def make_ranker(model, eval_batch_size: int | None = None,
                 precision: str = "highest"):
     """Dense filtered ranker: score_all materializes the (B, N) scores
-    (two fp32 matmuls plus the epilogue), then counts by subtraction.
+    (two matmuls plus the epilogue), then counts by subtraction; the target
+    is the gold's entry of the same matrix.  precision "default" rounds the
+    operands of score_all's all-pairs contractions to bfloat16 (JAX traces
+    its score region under eval_matmul_precision alike).
     eval_batch_size is accepted for symmetry with make_best_ranker."""
-    _check_precision(precision)
+    check_precision(precision)
 
     @torch.no_grad()
     def rank_batch(q, fidx):
-        scores = _mask_pad_cols(_score_all(model, q[:, :2]), model.cfg.n_entities)
+        scores = _mask_pad_cols(_score_all(model, q[:, :2], precision),
+                                model.cfg.n_entities)
         target = torch.gather(scores, 1, q[:, 2:3])
         counts = filtered_rank_counts(scores, target, fidx, model.cfg.n_entities)
         # NaN discipline: target * 0 is NaN exactly when the gold score is;
@@ -73,16 +84,6 @@ def make_ranker(model, eval_batch_size: int | None = None,
         return 1.0 + counts.to(torch.float32) + (target[:, 0] * 0.0).to(torch.float32)
 
     return rank_batch
-
-
-def _check_precision(precision: str):
-    if precision != "highest":
-        raise NotImplementedError(
-            f"eval_precision={precision!r} has no PyTorch/CUDA form yet; "
-            "evaluate with --eval_precision highest (exact fp32, the "
-            "reference ranks).  The reduced-precision mode is queued in "
-            "ROADMAP.md."
-        )
 
 
 def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
@@ -103,8 +104,11 @@ def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
     families without a fused ranker: the GNN models, whose decoders score
     against their encoder output, as in JAX.
 
-    precision: only 'highest' (exact fp32) exists in the port; 'default'
-    raises with the flag that selects the exact path.
+    precision: 'highest' (exact fp32) or 'default', JAX's single-pass
+    bf16 contraction with f32 accumulation: the fused rankers launch their
+    kernels' bf16 tensor-core instances (the CPU runs their plain default
+    versions), the dense ranker rounds its contractions' operands
+    (make_ranker).  Any other string raises ValueError.
     """
     from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
     from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
@@ -113,13 +117,13 @@ def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
 
     if backend not in ("auto", "dense", "pallas", "pallas_maskless"):
         raise ValueError(f"unknown eval backend {backend!r}")
-    _check_precision(precision)
+    check_precision(precision)
     if backend != "dense":
         masked = backend != "pallas_maskless"
         for family, ranker in ((FFTUnitBall, ChypRanker), (AttRH, AttRHRanker),
                                ((BaseH, BaseLorentz), HypRanker)):
             if isinstance(model, family):
-                return ranker(model, masked=masked)
+                return ranker(model, masked=masked, precision=precision)
     if backend in ("pallas", "pallas_maskless"):
         raise NotImplementedError(
             f"no fused CUDA ranker exists for {type(model).__name__}; rank it "

@@ -29,13 +29,14 @@ from complexhyperbolickge_tpu.cli.test import test as jax_test
 from complexhyperbolickge_tpu.train import checkpoint as jax_ckpt
 
 
-def write_jax_checkpoint(path, dtype="float64", backend="dense"):
+def write_jax_checkpoint(path, dtype="float64", backend="dense", precision="highest"):
     """A FFTRotH run dir as the JAX trainer writes it: state.pkl with params
     and an optax Adam opt_state, config.json with the run args."""
     args = jax_build_parser().parse_args([
         "--dataset", "synthetic", "--synthetic_entities", "120",
         "--model", "FFTRotH", "--rank", "6", "--bias", "learn", "--multi_c",
         "--dtype", dtype, "--eval_batch_size", "64", "--eval_backend", backend,
+        "--eval_precision", precision,
     ])
     model = jax_build_model(args, jax_load_dataset(args))
     rng = np.random.default_rng(7)
@@ -131,3 +132,63 @@ def test_http_predict_and_errors(model_dir):
         srv.server_close()
         t.join(timeout=10)
     assert not t.is_alive()
+
+
+def test_jax_serve_command_line_parses_and_warms_filters(model_dir, monkeypatch):
+    """A kge-serve command line of the JAX package, --warm_filters
+    included, parses in the port's server; with the flag the service runs
+    one filtered call at start at the padded max_filter_len."""
+    from complexhyperbolickge_torch.cli import serve as S
+    from complexhyperbolickge_torch.train import evaluate as TEV
+
+    argv = ["--model_dir", model_dir, "--host", "0.0.0.0", "--port", "9000", "--k", "7",
+            "--batch", "16", "--max_filter_len", "12", "--warm_filters"]
+    a = S.build_parser().parse_args(argv)
+    assert (a.k, a.batch, a.max_filter_len, a.warm_filters, a.device) == (7, 16, 12, True,
+                                                                          "cuda")
+    calls = []
+    real = TEV.make_predictor
+
+    def recording(model, k=10):
+        fn = real(model, k=k)
+
+        def predict(q, fidx=None):
+            calls.append(None if fidx is None else tuple(fidx.shape))
+            return fn(q, fidx)
+        return predict
+
+    monkeypatch.setattr(TEV, "make_predictor", recording)
+    S.PredictService(model_dir, k=3, batch=4, max_filter_len=12, device="cpu",
+                     warm_filters=True)
+    S.PredictService(model_dir, k=3, batch=4, max_filter_len=12, device="cpu")
+    assert calls == [None, (4, 12), None]
+
+
+@pytest.mark.parametrize("backend", ["dense", "auto", "pallas_maskless"])
+def test_kge_test_of_a_jax_run_dir_saying_default(tmp_path, backend, monkeypatch):
+    """A JAX-written run dir whose config.json says eval_precision
+    "default": the port's kge-test (the function and the command line)
+    ranks it in that mode with the run's backend; JAX's kge-test of it
+    (full float32 on the CPU) gives an MRR within 1e-2 (bf16 rounding moves
+    a few near-tied ranks)."""
+    import sys
+
+    from complexhyperbolickge_torch.cli import test as T
+
+    d = write_jax_checkpoint(tmp_path, dtype="float32", backend=backend, precision="default")
+    assert load_config(d)["args"]["eval_precision"] == "default"
+    seen = []
+    real = T.make_best_ranker
+
+    def spy(model, bs, be="auto", precision="highest"):
+        seen.append((be, precision))
+        return real(model, bs, be, precision=precision)
+
+    monkeypatch.setattr(T, "make_best_ranker", spy)
+    got = torch_test(d, device="cpu")
+    want = jax_test(d)
+    assert np.isfinite(got["MRR"]) and abs(got["MRR"] - want["MRR"]) < 1e-2
+    monkeypatch.setattr(sys, "argv", ["kge-test", "--model_dir", d, "--device", "cpu",
+                                      "--eval_precision", "default"])
+    T.main()
+    assert seen == [(backend, "default")] * 2

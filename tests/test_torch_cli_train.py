@@ -402,3 +402,117 @@ def test_subgraph_refuses_negatives_and_shallow_models(tmp_path):
             GNN + ["--subgraph", "--save_dir", str(tmp_path), "--max_epochs", "1"]))
     with pytest.raises(ValueError, match="GNN-only"):
         run(tmp_path, "--subgraph", "--neg_sample_size", "0", "--max_epochs", "1")
+
+
+# ------------------- bfloat16 run dirs across the two packages -------------------
+
+BF16 = {"full": [a if a != "float64" else "bfloat16" for a in GNN],
+        "subgraph": [a if a != "float64" else "bfloat16" for a in SUBGRAPH]}
+
+
+@pytest.fixture(scope="module", params=["full", "subgraph"])
+def bf16_run(request, tmp_path_factory):
+    d = tmp_path_factory.mktemp(f"compgcn_bf16_{request.param}")
+    out = R.train(R.build_parser().parse_args(BF16[request.param] + [
+        "--save_dir", str(d), "--max_epochs", "1"]))
+    return request.param, d, out
+
+
+def test_bf16_run_writes_a_checkpoint_jax_reads_and_evaluates(bf16_run):
+    """A bf16 CompGCN run (full graph and --subgraph) writes its checkpoint
+    as JAX writes one, ml_dtypes.bfloat16 arrays: JAX's load_checkpoint
+    validates it against its own bf16 model and holds the same bits, and
+    JAX's kge-test evaluates it."""
+    import ml_dtypes
+
+    from complexhyperbolickge_torch.train.checkpoint import flatten
+    from complexhyperbolickge_tpu.train import checkpoint as jax_ckpt
+
+    _, d, out = bf16_run
+    assert np.isfinite(out["history"][0]["train_loss"])
+    mine = load_checkpoint(str(d), filename="latest.pkl")["params"]
+    theirs = jax_ckpt.load_checkpoint(str(d), device_put=False, filename="latest.pkl")["params"]
+    a, b = flatten(mine), flatten(theirs)
+    assert sorted(a) == sorted(b) and np.asarray(a["entity"]).dtype == ml_dtypes.bfloat16
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(b[k]).view(np.int16), a[k].view(np.int16))
+    m = jax_test(str(d))
+    assert np.isfinite(m["MRR"]) and 0.0 < m["MRR"] <= 1.0
+
+
+@pytest.fixture(scope="module", params=["full", "subgraph"])
+def jax_bf16_dir(request, tmp_path_factory):
+    """A bf16 CompGCN run dir as the JAX package writes it: bf16 params and
+    its trainer's optimizer state (float32, _f32_state_for_bf16), epoch 1."""
+    import jax
+
+    from complexhyperbolickge_tpu.cli.run import build_model, build_parser, load_dataset
+    from complexhyperbolickge_tpu.train import checkpoint as jax_ckpt
+    from complexhyperbolickge_tpu.train.trainer import TrainConfig, Trainer
+
+    path = tmp_path_factory.mktemp(f"jax_compgcn_bf16_{request.param}")
+    flags = [a for a in BF16[request.param] if a not in ("--device", "cpu")]
+    args = build_parser().parse_args(flags + ["--save_dir", str(path)])
+    dataset = load_dataset(args)
+    model = build_model(args, dataset)
+    params = model.init(jax.random.PRNGKey(3))
+    n_ent, n_rel, _ = dataset.get_shape()
+    trainer = Trainer(model, TrainConfig(learning_rate=1e-2, batch_size=256,
+                                         neg_sample_size=args.neg_sample_size,
+                                         loss=args.loss), n_ent, n_rel)
+    jax_ckpt.save_checkpoint(str(path), params, trainer.tx.init(params), epoch=1,
+                             best_mrr=0.0, config={"args": vars(args)})
+    return request.param, path
+
+
+def test_port_resumes_a_jax_bf16_run_dir(jax_bf16_dir):
+    """The port resumes a JAX-written bf16 checkpoint (full graph and
+    --subgraph): its params load bit for bit into the bf16 model and the
+    next epoch trains."""
+    mode, path = jax_bf16_dir
+    resumed = R.train(R.build_parser().parse_args(BF16[mode] + [
+        "--save_dir", str(path), "--max_epochs", "2", "--resume"]))
+    assert [h["epoch"] for h in resumed["history"]] == [2]
+    assert np.isfinite(resumed["history"][0]["train_loss"])
+    assert 0.0 < resumed["test"]["MRR"] <= 1.0
+
+
+def test_bf16_params_widen_without_ml_dtypes(tmp_path, monkeypatch):
+    """Without ml_dtypes a bf16 param is written widened to float32 with
+    "bfloat16" in the schema, and the port's loader reads it back to the
+    same bits (strict schema check included)."""
+    import torch
+
+    from complexhyperbolickge_torch.train.checkpoint import (
+        load_into,
+        params_from_jax,
+        save_checkpoint,
+    )
+
+    x = torch.randn(5, 3).to(torch.bfloat16)
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)  # import raises ImportError
+    save_checkpoint(str(tmp_path), {"entity": x})
+    monkeypatch.undo()
+    st = load_checkpoint(str(tmp_path), expect_params={"entity": x})
+    assert st["params"]["entity"].dtype == np.float32
+    assert st["param_schema"]["entity"] == [[5, 3], "bfloat16"]
+    back = params_from_jax(st["params"], "cpu", torch.bfloat16)["entity"]
+    assert torch.equal(back.view(torch.int16), x.view(torch.int16))
+    model = torch.nn.Module()
+    model.entity = torch.nn.Parameter(torch.zeros(5, 3, dtype=torch.bfloat16))
+    load_into(model, str(tmp_path))
+    assert torch.equal(model.entity.detach().view(torch.int16), x.view(torch.int16))
+
+
+def test_run_validates_and_tests_with_eval_precision_default(tmp_path):
+    """cli.run --eval_precision default: validation and the final test rank
+    through the default fused ranker (K1's plain default version here); the
+    run dir's kge-test repeats the final metrics in that mode, and JAX's
+    kge-test (full float32 on the CPU) reads the run dir within 1e-2 of
+    them."""
+    out = run(tmp_path, "--max_epochs", "1", "--eval_precision", "default",
+              "--dtype", "float32")
+    assert 0.0 < out["test"]["MRR"] <= 1.0
+    assert load_checkpoint(str(tmp_path))["config"]["args"]["eval_precision"] == "default"
+    assert torch_test(str(tmp_path), device="cpu") == out["test"]
+    assert abs(jax_test(str(tmp_path))["MRR"] - out["test"]["MRR"]) < 1e-2

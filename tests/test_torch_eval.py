@@ -112,12 +112,6 @@ def test_best_ranker_policy(kgs, backend, kind, masked):
         assert isinstance(r, kind) and r.masked is masked
 
 
-@pytest.mark.parametrize("backend", ["auto", "dense", "pallas_maskless"])
-def test_default_precision_raises_naming_the_flag(kgs, backend):
-    with pytest.raises(NotImplementedError, match="--eval_precision highest"):
-        TEV.make_best_ranker(_small_model(kgs[0]), 64, backend, precision="default")
-
-
 def test_cuda_device_without_card_raises(monkeypatch):
     """device='cuda' never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -11,7 +11,9 @@ form, <x, v>) in different orders, so a query's count may differ by at
 most the number of entities whose plain score lies within
 1e-5 * (1 + |t2|) of its threshold t2.
 Between the kernels the scores are bit-identical, so the maskless count
-(sweep - subtraction) equals the masked count exactly.
+(sweep - subtraction) equals the masked count exactly.  The same holds for
+the rankers' bf16 tensor-core instances (precision "default"), held
+against their plain default versions on the same bf16 operands.
 """
 
 from functools import partial
@@ -571,3 +573,158 @@ def test_gnn_wrappers_check_inputs_and_count_launches():
     with pytest.raises(TypeError, match="int32"):
         G.row_gather(x.to(dev), torch.as_tensor(ids, device=dev))
     assert S.launches["sorted_segment_sum"] == 2 and G.launches["row_gather"] == 2
+
+
+# ------------- the bf16 tensor-core instances (precision "default") -------------
+#
+# Each bf16 instance against its plain default version on the same bf16
+# operands (bf16_rows: rounded to nearest even, zero-padded to a multiple of
+# 16 features, AttRH's halves each on its own): the two sum the same exact
+# products, the card's tensor cores in float32 (their accumulator truncates
+# within a k-step), the plain version exactly (float64) then rounded once.
+# So a count may differ by the entities whose score, with the contraction
+# moved by TC_REL sum_k |q_k w_k| either way, comes within 1e-5 (1 + |t2|)
+# of t2 (score_interval, near_threshold; a cancelling contraction near the
+# ball's edge moves a score further than its own rounding).  Between the
+# bf16 sweep and its subtraction the scores are bit-identical (one mma
+# chain per pair), so maskless == masked exactly.
+
+from complexhyperbolickge_torch.kernels._ranker import (  # noqa: E402
+    TC_REL,
+    bf16_rows,
+    near_threshold,
+    score_interval,
+)
+
+DEFAULT = "default"
+
+
+# (B, N, D, L, Np, ld) with the bf16 widths D = 32, 80 (the main path's 66),
+# 80 (70), 400 (the query tile staged a chunk a stage)
+BF16_CHYP = [(48, 300, 18, 6, None, 20), (37, 1000, 66, 9, 1005, 68),
+             (500, 40_000, 66, 5, None, 68), (5, 128, 70, 3, 129, 72), (37, 600, 400, 5, None, 400)]
+
+
+def chyp_bf16_inputs(shape):
+    b, n, d, l, np_, ld = shape
+    t, _ = make_inputs(b, n, d, l, np_=np_, ld=ld)
+    t["lhs2"], t["rhs"] = bf16_rows(t["lhs2"]), bf16_rows(t["rhs"][:, :d])
+    return t, near_threshold(*score_interval("chyp", t, TC_REL), t["t2"])
+
+
+@pytest.mark.parametrize("shape", BF16_CHYP)
+def test_chyp_bf16_matches_plain_and_maskless(shape):
+    """K1, K2's sweep and its subtraction, bf16 instances: within the
+    near-threshold count of the plain default versions, and K1 == K2 sweep
+    - subtraction exactly (every 5th gold -1)."""
+    dev = _cuda_or_skip()
+    t, near = chyp_bf16_inputs(shape)
+    t["gold"][::5] = -1
+    c = _on(dev, t)
+    base, plain = [c[k] for k in BASE], [t[k] for k in BASE]
+    K.reset_launches()
+    got = {"masked": K.chyp_rank_counts(*base, c["mask"], precision=DEFAULT),
+           "nomask": K.chyp_rank_sweep_nomask(*base, c["gold"], precision=DEFAULT),
+           "filtered_sub": K.chyp_rank_filtered_sub(*base, c["fidx"], c["gold"],
+                                                    precision=DEFAULT)}
+    torch.cuda.synchronize()
+    want = {"masked": K.chyp_rank_counts_plain(*plain, t["mask"], DEFAULT),
+            "nomask": K.chyp_rank_sweep_nomask_plain(*plain, t["gold"], DEFAULT),
+            "filtered_sub": K.chyp_rank_filtered_sub_plain(*plain, t["fidx"], t["gold"],
+                                                           DEFAULT)}
+    for name in got:
+        assert ((got[name].cpu() - want[name]).abs() <= near).all(), name
+    assert torch.equal(got["masked"], got["nomask"] - got["filtered_sub"])
+    assert {k: v for k, v in K.launches.items() if v} == {
+        "chyp_rank_sweep_masked_bf16": 1, "chyp_rank_sweep_nomask_bf16": 1,
+        "chyp_rank_filtered_sub_bf16": 1}
+
+
+def test_chyp_bf16_wrappers_refuse_other_operands():
+    """precision "default" on the card launches the bf16 instance or raises:
+    float32 operands, or rows not padded to 16, never fall back."""
+    dev = _cuda_or_skip()
+    c = _on(dev, make_inputs(48, 300, 32, 6)[0])
+    with pytest.raises(TypeError, match="bfloat16"):
+        K.chyp_rank_counts(*[c[k] for k in BASE], c["mask"], precision=DEFAULT)
+    c = _on(dev, make_inputs(*SHAPES[0])[0])
+    odd = {**c, "lhs2": c["lhs2"].bfloat16(), "rhs": c["rhs"].bfloat16()}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K.chyp_rank_counts(*[odd[k] for k in BASE], c["mask"], precision=DEFAULT)
+    with pytest.raises(ValueError, match="unknown eval precision"):
+        K.chyp_rank_counts(*[c[k] for k in BASE], c["mask"], precision="bf16")
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_chyp_bf16_sweep_info(masked):
+    dev = _cuda_or_skip()
+    info = K.sweep_info(dev, 80, masked=masked, precision=DEFAULT)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+
+
+def hyp_bf16_args(kind, args):
+    """hyp_inputs' args with lhs and rhs as bf16 rows."""
+    i = 7 if kind == "attrh" else 4
+    halves = kind == "attrh"
+    out = list(args)
+    out[0], out[i] = bf16_rows(args[0], halves), bf16_rows(args[i], halves)
+    return out
+
+
+# (B, N, D, L, Np): D = 8 (one k-step), 32 (the main path), 40 and 64
+# (AttRH halves of 20 and 32), ragged Np with byte-wise mask copies
+BF16_HYP = [(48, 300, 8, 6, None), (37, 1000, 32, 9, 1005), (500, 40_000, 32, 5, None),
+            (300, 3000, 64, 11, 3001), (5, 129, 40, 3, None)]
+
+
+@pytest.mark.parametrize("shape", BF16_HYP)
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_bf16_matches_plain_and_maskless(kind, shape):
+    """K5/K7, K6/K8's sweeps and their subtractions, bf16 instances, with
+    7 curvatures shared through cid: within the near-threshold count of the
+    plain default versions, and masked == maskless sweep - subtraction
+    exactly."""
+    dev = _cuda_or_skip()
+    b, n, d, l, np_ = shape
+    rng = np.random.default_rng(5)
+    cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
+    cid = torch.as_tensor(rng.integers(0, 7, b), dtype=torch.int32)
+    args, extras, _ = hyp_inputs(kind, b, n, d, l, np_=np_, curvatures=(cvals, cid))
+    args = hyp_bf16_args(kind, args)
+    names = ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref", "bt") \
+        if kind == "attrh" else ("lhs", "x2", "c", "t2", "rhs", "un", "bt")
+    x = dict(zip(names, args))
+    near = near_threshold(*score_interval(kind, x, TC_REL), x["t2"])
+    g = "attrh" if kind == "attrh" else "hyp"
+    fam = {} if kind == "attrh" else {"family": kind}
+    fns = {}
+    for name, extra in (("masked", ("mask",)), ("nomask", ("gold",)),
+                        ("filtered_sub", ("fidx", "gold"))):
+        wrapper = {"masked": f"{g}_rank_counts", "nomask": f"{g}_rank_sweep_nomask",
+                   "filtered_sub": f"{g}_rank_filtered_sub"}[name]
+        fn, plain = (partial(getattr(K5, w), precision=DEFAULT, **fam)
+                     for w in (wrapper, wrapper + "_plain"))
+        if name != "filtered_sub":
+            fn, plain = tabled_call(kind, fn, cid, cvals), tabled_call(kind, plain, cid, cvals)
+        fns[name] = (fn, plain, extra)
+    on = [a.to(dev) for a in args]
+    e_dev = {k: v.to(dev) for k, v in extras.items()}
+    K5.reset_launches()
+    got = {}
+    for name, (fn, plain, extra) in fns.items():
+        got[name] = fn(*on, *[e_dev[k] for k in extra])
+        torch.cuda.synchronize()
+        want = plain(*args, *[extras[k] for k in extra])
+        assert ((got[name].cpu() - want).abs() <= near).all(), name
+    assert torch.equal(got["masked"], got["nomask"] - got["filtered_sub"])
+    prefix = "attrh" if kind == "attrh" else "hyp"
+    assert {k: v for k, v in K5.launches.items() if v and k != "hyp_rank_radii"} == {
+        f"{prefix}_rank_sweep_masked_bf16": 1, f"{prefix}_rank_sweep_nomask_bf16": 1,
+        f"{prefix}_rank_filtered_sub_bf16": 1}
+
+
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_hyp_bf16_sweep_info(kind):
+    dev = _cuda_or_skip()
+    info = K5.sweep_info(kind, dev, 32, masked=True, precision=DEFAULT)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0

@@ -51,14 +51,18 @@ def test_port_scripts_import_no_jax():
     """The port's scripts (scripts/torch_*.py, the rehearsal leg among
     them) stand alone too, as do the modules of the losses, SparseAdam,
     the Euclidean and complex families, the sampler (its own ctypes
-    wrapper), subgraph training, export, import and profiling."""
+    wrapper), subgraph training, export, import and profiling, and those of
+    --eval_precision default (the precision scope, the rankers' bf16
+    instances, the bf16 checkpoints, kge-serve --warm_filters)."""
     scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
     assert ROOT / "scripts" / "torch_rehearsal_leg.py" in scripts
     pkg = ROOT / "complexhyperbolickge_torch"
     new = [pkg / p for p in ("train/sparse_adam.py", "train/losses.py", "models/euclidean.py",
                              "models/complexm.py", "data/preprocess.py", "data/sampler.py",
                              "train/subgraph.py", "cli/export.py", "cli/import_ref.py",
-                             "utils/profiling.py")]
+                             "utils/profiling.py", "ops/math.py", "kernels/_ranker.py",
+                             "kernels/chyp_rank.py", "kernels/hyp_rank.py",
+                             "train/evaluate.py", "train/checkpoint.py", "cli/serve.py")]
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in scripts + new}
     assert not {k: v for k, v in bad.items() if v}
