@@ -129,6 +129,21 @@ line:
  15d export-import  cli.export of the FFT run dir equals its checkpoint; a
               reference-style config.json + model.pt of its weights through
               cli.import_ref; kge-test of the import gives the same metrics
+ 15e mesh-rank, mesh-train, mesh-1x2-train  the parallel/ path: two
+              ranks spawned on the one card under gloo (NCCL refuses two
+              ranks on a device), each counting its kernels' launches in its
+              own process: cli.run.run_rank --mesh 2x1 for 2 epochs at the
+              FFT config (K3/K4 at least once a step on each rank, the loss
+              falling), then on a 1x2 mesh the sharded rankers (K1/K2,
+              K5/K6 on RotH, K7/K8 on AttRH, K1 bf16) over the planted
+              test splits, equal to this process's fused ranks, and 3 Adam
+              steps on 2x1 and on 1x2 against one process's (PARITY_TOL);
+              the gloo all_reduce of a step's flat gradient, ms.  Correctness
+              and overhead, not a multi-GPU number
+ 15f nccl-world1  an NCCL group of one in this process (cli.run's device
+              and backend choice): 3 data-parallel steps and a sharded rank
+              call whose collectives all run through NCCL, equal to one
+              process's
  16 profile   torch.profiler over one whole-split ranking per ranker (FFTRotH
               and RotH) and over 20 training steps of each, of CompGCN and
               of FFTRotH's CE and BCE steps: wall time, device busy time and
@@ -141,7 +156,8 @@ line:
               bf16 instances, `<name>_bf16`, with their exact instance's
               time (exact_ms), the contraction's torch.mm time as
               library_ms, and the Lorentz K5/K6 instantiation under
-              "lorentz")
+              "lorentz"; each rank's launches on the mesh paths,
+              mesh_rank_launches_per_rank and mesh_train_launches_per_rank)
  18 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
@@ -2359,6 +2375,313 @@ def gnn_kernel_rows(meas, launches, smi, name):
     return rows
 
 
+# the parallel/ path: two ranks on the one card (gloo: NCCL refuses two
+# ranks on one device), a model axis of 2 for ranking and 1x2 training, a
+# data axis of 2 for the CLI run and the 2x1 steps
+MESH_RANK_CASES = (("FFTRotH", "auto", "highest"), ("FFTRotH", "pallas_maskless", "highest"),
+                   ("FFTRotH", "auto", "default"), ("RotH", "auto", "highest"),
+                   ("RotH", "pallas_maskless", "highest"), ("AttRH", "auto", "highest"),
+                   ("AttRH", "pallas_maskless", "highest"))
+# the kernels each rank must launch in mesh-rank (every K1/K2, K5/K6, K7/K8
+# wrapper and one bf16 instance) and in the data-parallel steps (K3/K4)
+MESH_RANK_KERNELS = (*RANK_KERNELS, *HYP_RANK_KERNELS, *ATTRH_KERNELS,
+                     "chyp_rank_sweep_masked_bf16")
+MESH_TRAIN_KERNELS = (*TRAIN_KERNELS, "chyp_train_lists")
+MESH_STEPS = 3  # the mesh parity windows, as train-step parity's
+MESH_TIMEOUT = 480  # seconds for the two ranks' whole run
+ALLREDUCE_REPS = 20
+
+
+def mesh_steps(seed: int, mesh=None):
+    """MESH_STEPS Adam steps of FFTRotH at the paper config (lr 3e-4, 100
+    negatives drawn by the trainer from one seeded generator) on
+    MESH_STEPS random batches of BATCH, on `mesh` or in one process: the
+    params after them (canonical, numpy), the mean loss and the launches."""
+    import numpy as np
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.parallel import gather_entity_tree
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    model = wn18rr_model(seed)
+    n_ent, n_rel = model.cfg.n_entities, model.cfg.n_relations
+    rng = np.random.default_rng(seed)
+    shape = (MESH_STEPS, BATCH)
+    batches = np.stack([rng.integers(0, n_ent, shape), rng.integers(0, n_rel, shape),
+                        rng.integers(0, n_ent, shape)], axis=-1).astype(np.int32)
+    trainer = Trainer(model, TrainConfig(**TRAIN_CONFIGS["FFTRotH"]), n_ent, n_rel, mesh=mesh)
+    KS.reset_launches()
+    loss = trainer.run_epoch(batches, np.ones(shape, np.float32),
+                             torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    launches = {k: KS.launches()[k] for k in MESH_TRAIN_KERNELS}
+    params = model.state_dict()
+    if trainer.sharded:
+        params = gather_entity_tree(params, n_ent, mesh)
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}, loss, launches
+
+
+def mesh_rank_job(mesh, dirs: dict) -> dict:
+    """Each MESH_RANK_CASES ranker of this rank's shard over the whole test
+    split (both directions): ranks, launches and seconds."""
+    import torch
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.cli.predict import load_serving_state
+    from complexhyperbolickge_torch.parallel import make_best_sharded_ranker, shard_model_
+    from complexhyperbolickge_torch.train.evaluate import get_ranking
+
+    out, loaded = {}, {}
+    for name, backend, precision in MESH_RANK_CASES:
+        if name not in loaded:
+            model, dataset = load_serving_state(dirs[name], "cuda")
+            shard_model_(model, mesh.m, mesh.n_model)
+            loaded[name] = model, dataset
+        model, dataset = loaded[name]
+        ranker = make_best_sharded_ranker(model, mesh, model.cfg.n_entities, backend, precision)
+        packs = [dataset.eval_pack("test", d) for d in ("rhs", "lhs")]
+        get_ranking(model, packs[0], BATCH, ranker)  # warm-up
+        KS.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranks = [get_ranking(model, p, BATCH, ranker) for p in packs]
+        secs = time.perf_counter() - t0
+        out[f"{name} {backend} {precision}"] = {
+            "ranks": ranks, "seconds": secs, "rows": int(model.entity.shape[0]),
+            "launches": {k: v for k, v in KS.launches().items() if v}}
+    return out
+
+
+def allreduce_ms(mesh, numel: int) -> dict:
+    """The data group's all_reduce of a float32 CUDA tensor of `numel`
+    (a 2x1 step's flat gradient), staged through the host by gloo: median
+    and min-max ms of ALLREDUCE_REPS host-timed calls; and whether gloo
+    takes reduce_scatter on CUDA tensors (the port's gathers do not need
+    it)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(numel, device=DEVICE)
+    mesh.sum_data(t)
+    ms = []
+    for _ in range(ALLREDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.sum_data(t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    ms.sort()
+    probe = torch.empty(4, device=DEVICE)
+    try:
+        dist.reduce_scatter(probe, [torch.ones(4, device=DEVICE)] * 2, group=mesh.data_group)
+        reduce_scatter = True
+    except (RuntimeError, ValueError) as e:  # a report, not a phase failure
+        reduce_scatter = f"{type(e).__name__}: {str(e)[:160]}"
+    return {"bytes": 4 * numel, "ms_median": ms[len(ms) // 2], "ms_min_max": [ms[0], ms[-1]],
+            "gloo_reduce_scatter_cuda": reduce_scatter}
+
+
+def _mesh_worker(rank: int, seed: int, ports, dirs: dict, out_dir: str):
+    """One of the two ranks on the card: the CLI's rank entry point
+    (cli.run.run_rank, as `kge-train --mesh 2x1` starts it) for EPOCHS
+    epochs at the paper config, then, in a second gloo group, mesh-rank
+    (a 1x2 mesh), the 2x1 and 1x2 parity steps and the all_reduce's time.
+    Writes its results to out_dir/rank<r>.pkl."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    import complexhyperbolickge_torch.kernels as KS
+    from complexhyperbolickge_torch.cli import run as R
+    from complexhyperbolickge_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    out = {}
+    argv = ["--dataset", "synthetic",
+            *[str(x) for k, v in WN18RR.items() for x in (f"--{k}", v)], *TRAIN_FLAGS,
+            "--max_epochs", str(EPOCHS), "--valid", "1", "--eval_batch_size", str(BATCH),
+            "--device", "cuda", "--seed", str(seed), "--save_dir", str(WORK / "mesh-train"),
+            "--mesh", "2x1"]
+    KS.reset_launches()  # the data-parallel training path starts here
+    t0 = time.perf_counter()
+    res = R.run_rank(R.build_parser().parse_args(argv), (2, 1), 2, rank,
+                     f"127.0.0.1:{ports[0]}", (rank, 2))
+    out["cli"] = {"argv": argv, "seconds": time.perf_counter() - t0, "history": res["history"],
+                  "test": res["test"], "valid": res["valid"],
+                  "launches": {k: v for k, v in KS.launches().items() if v}}  # ... ends here
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ports[1]}", world_size=2,
+                            rank=rank)
+    try:
+        dev = torch.device("cuda", 0)
+        mesh12, mesh21 = make_mesh((1, 2), dev), make_mesh((2, 1), dev)
+        out["rank"] = mesh_rank_job(mesh12, dirs)  # resets and reads the counts per case
+        out["steps_2x1"] = mesh_steps(seed, mesh21)
+        out["steps_1x2"] = mesh_steps(seed, mesh12)
+        numel = sum(p.numel() for p in wn18rr_model(seed).parameters())
+        out["allreduce"] = allreduce_ms(mesh21, numel)
+    finally:
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def _params_close(got: dict, want: dict) -> dict:
+    import numpy as np
+
+    return {k: {"max_abs_diff": float(np.abs(got[k] - v).max()),
+                "within_tolerance": bool(np.allclose(got[k], v, **PARITY_TOL))}
+            for k, v in want.items()}
+
+
+def phase_mesh(seed: int, dirs: dict, loaded: dict) -> dict:
+    """mesh-rank, mesh-train and mesh-1x2-train: two ranks spawned on the
+    card (_mesh_worker), held against this process: the sharded rankers'
+    ranks against the single-device fused rankers' (equal), the ranks'
+    params after MESH_STEPS steps against one process's (PARITY_TOL: the
+    all_reduce adds K4's two entity-gradient halves in another order).
+    Returns each rank's launches on the mesh paths, by kernel."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from complexhyperbolickge_torch.cli.run import free_port
+    from complexhyperbolickge_torch.train.evaluate import get_ranking, make_best_ranker
+
+    ref = {}
+    for name, backend, precision in MESH_RANK_CASES:
+        model, dataset = loaded[name]
+        ranker = make_best_ranker(model, BATCH, backend, precision=precision)
+        ref[f"{name} {backend} {precision}"] = [
+            get_ranking(model, dataset.eval_pack("test", d), BATCH, ranker) for d in ("rhs", "lhs")]
+    ref_steps = mesh_steps(seed)
+
+    out_dir = WORK / "mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_mesh_worker, args=(seed, (free_port(), free_port()), dirs,
+                                                 str(out_dir)),
+                             nprocs=2, join=False, start_method="spawn")
+    while not ctx.join(timeout=1.0):
+        if time.perf_counter() - t0 > MESH_TIMEOUT:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"the two mesh ranks did not finish in {MESH_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    res = [pickle.loads((out_dir / f"rank{r}.pkl").read_bytes()) for r in range(2)]
+
+    # mesh-rank
+    cases, launches = {}, [{}, {}]
+    for key, want in ref.items():
+        diff = max(float(np.abs(g - w).max()) for r in res
+                   for g, w in zip(r["rank"][key]["ranks"], want))
+        cases[key] = {"max_abs_rank_diff_vs_single_process": diff,
+                      "rows_per_shard": [r["rank"][key]["rows"] for r in res],
+                      "seconds_per_rank": [r["rank"][key]["seconds"] for r in res],
+                      "launches_per_rank": [r["rank"][key]["launches"] for r in res]}
+        for i, r in enumerate(res):
+            for k, v in r["rank"][key]["launches"].items():
+                launches[i][k] = launches[i].get(k, 0) + v
+    n_q = sum(len(x) for x in next(iter(ref.values())))
+    emit({"phase": "mesh-rank", "mesh": "1x2", "backend": "gloo, two ranks on one card",
+          "queries": n_q, "cases": cases,
+          "launches_per_rank": [{k: v[k] for k in MESH_RANK_KERNELS if k in v} for v in launches]})
+    bad = {k: c["max_abs_rank_diff_vs_single_process"] for k, c in cases.items()
+           if c["max_abs_rank_diff_vs_single_process"] != 0.0}
+    idle = [(i, k) for i, v in enumerate(launches) for k in MESH_RANK_KERNELS if not v.get(k)]
+    if bad or idle:
+        raise AssertionError(f"sharded ranks differ from one process's {bad}, or kernels a rank "
+                             f"never launched {idle}")
+
+    # mesh-train: the CLI run, the 2x1 steps, the all_reduce
+    cli = [r["cli"] for r in res]
+    steps = sum(h["steps"] for h in cli[0]["history"])
+    epochs = [dict(h, ms_per_step=1e3 * h["seconds"] / h["steps"]) for h in cli[0]["history"]]
+    p21, loss21, l21 = res[0]["steps_2x1"]
+    close21 = _params_close(p21, ref_steps[0])
+    train_launches = [{k: c["launches"].get(k, 0) for k in (*MESH_TRAIN_KERNELS,
+                                                            "chyp_rank_sweep_masked")}
+                      for c in cli]
+    out = {"phase": "mesh-train", "mesh": "2x1", "backend": "gloo, two ranks on one card "
+           "(correctness and overhead, not a multi-GPU number)", "argv": cli[0]["argv"],
+           "epochs": epochs, "train_steps": steps, "seconds_per_rank": [c["seconds"] for c in cli],
+           "test": cli[0]["test"], "launches_per_rank": train_launches,
+           "parity": {"steps": MESH_STEPS, "tolerance": PARITY_TOL, "loss": [loss21, ref_steps[1]],
+                      "launches_per_rank": [r["steps_2x1"][2] for r in res], "params": close21},
+           "allreduce_per_step": res[0]["allreduce"], "spawned_seconds": secs}
+    emit(out)
+    losses = [h["train_loss"] for h in cli[0]["history"]]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the 2x1 training loss is not finite and falling: {losses}")
+    if any(min(v[k] for k in MESH_TRAIN_KERNELS) < steps or not v["chyp_rank_sweep_masked"]
+           for v in train_launches):
+        raise AssertionError(f"K3/K4 launched fewer times than the {steps} steps on a rank, "
+                             f"or K1 never: {train_launches}")
+    if not all(c["within_tolerance"] for c in close21.values()) or any(
+            min(r["steps_2x1"][2].values()) < MESH_STEPS for r in res):
+        raise AssertionError(f"2x1 steps disagree with one process: {out['parity']}")
+
+    # mesh-1x2-train
+    p12, loss12, _ = res[0]["steps_1x2"]
+    close12 = _params_close(p12, ref_steps[0])
+    same = all(np.array_equal(res[1]["steps_1x2"][0][k], v) for k, v in p12.items())
+    emit({"phase": "mesh-1x2-train", "mesh": "1x2", "steps": MESH_STEPS,
+          "tolerance": PARITY_TOL, "loss": [loss12, ref_steps[1]],
+          "launches_per_rank": [r["steps_1x2"][2] for r in res], "params": close12,
+          "ranks_hold_one_model": same})
+    if not (same and all(c["within_tolerance"] for c in close12.values())) or any(
+            min(r["steps_1x2"][2].values()) < MESH_STEPS for r in res):
+        raise AssertionError("1x2 steps disagree with one process")
+    return {"rank": [{k: v.get(k, 0) for k in MESH_RANK_KERNELS} for v in launches],
+            "train": train_launches}
+
+
+def phase_nccl_world1(seed: int, model, dataset):
+    """An NCCL group of world size 1 through the CLI's device and backend
+    choice (cli.run.process_device) and init: a 1x1 mesh whose data and
+    model groups are that group, so every collective of MESH_STEPS
+    data-parallel steps (the normalizers, the gradient all_reduce, the
+    loss sums) and of one sharded rank call (the query rows, the counts)
+    runs through NCCL; params and ranks against one process's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from complexhyperbolickge_torch.cli.run import free_port, process_device
+    from complexhyperbolickge_torch.parallel import Mesh, make_best_sharded_ranker
+    from complexhyperbolickge_torch.train.evaluate import get_ranking, make_best_ranker
+
+    ref_steps = mesh_steps(seed)
+    pack = dataset.eval_pack("test", "rhs")
+    want = get_ranking(model, pack, BATCH, make_best_ranker(model, BATCH, "auto"))
+    dev, backend = process_device("cuda", 0, 1)
+    if backend != "nccl":
+        raise AssertionError(f"one rank with a card of its own chose {backend}, not nccl")
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        world = dist.group.WORLD
+        mesh = Mesh((1, 1), 0, dev, data_group=world, model_group=world)
+        params, loss, launches = mesh_steps(seed, mesh)
+        ranker = make_best_sharded_ranker(model, mesh, model.cfg.n_entities, "auto")
+        got = get_ranking(model, pack, BATCH, ranker)
+    finally:
+        dist.destroy_process_group()
+    close = _params_close(params, ref_steps[0])
+    out = {"phase": "nccl-world1", "backend": backend, "device": str(dev),
+           "steps": MESH_STEPS, "loss": [loss, ref_steps[1]], "launches": launches,
+           "params": close, "ranker": type(ranker).__name__,
+           "max_abs_rank_diff_vs_single_process": float(np.abs(got - want).max())}
+    emit(out)
+    if (not all(c["within_tolerance"] for c in close.values())
+            or out["max_abs_rank_diff_vs_single_process"] != 0.0
+            or min(launches.values()) < MESH_STEPS):
+        raise AssertionError(f"the NCCL world-1 mesh disagrees with one process: {out}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2476,6 +2799,13 @@ def main(argv=None) -> int:
         phase_subgraph_step_parity(a.seed, dataset)
         phase_export_import(model_dir, dataset)
 
+        # the parallel/ path: two ranks on the card (each rank's kernels
+        # counted in its own process, reset just before each of its paths
+        # and read just after), then an NCCL group of one
+        mesh_launches = phase_mesh(a.seed, {"FFTRotH": model_dir, **hyp_dirs},
+                                   {"FFTRotH": (model, dataset), **hyp})
+        phase_nccl_world1(a.seed, model, dataset)
+
         step_ms = phase_profile(
             (model, dataset, train_window(dataset, a.seed)),
             (*hyp["RotH"], train_window(hyp["RotH"][1], a.seed, "RotH")),
@@ -2486,6 +2816,11 @@ def main(argv=None) -> int:
         rows += hyp_kernel_rows(hyp, hyp_batches, hyp_launches, hyp_errors, smi, name)
         rows += gnn_kernel_rows(gnn_meas, gnn_launches, smi, name)
         rows += bf16_kernel_rows(bf16_work, default_launches, bf16_errors, smi, name)
+        for row in rows:  # each rank's launches on the mesh paths
+            for path in ("rank", "train"):
+                if any(row["name"] in v for v in mesh_launches[path]):
+                    row[f"mesh_{path}_launches_per_rank"] = [v[row["name"]]
+                                                             for v in mesh_launches[path]]
         emit({"kernels": rows})
         torch.cuda.synchronize()
     except (Exception, SystemExit):  # report, then fail without the ok line

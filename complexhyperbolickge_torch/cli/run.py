@@ -38,8 +38,35 @@ validation stay on the full graph.  --profile_dir writes a torch.profiler
 trace of the second epoch (the first when it is the only one);
 --debug_nans checks every training step and raises FloatingPointError at
 the first non-finite loss or NaN gradient (utils/profiling.py).  Runs on
-the card unless --device cpu.  --mesh and --distributed are accepted and
-raise when set: multi-device runs are ROADMAP.md Queue 1 item 15.
+the card unless --device cpu.
+
+--mesh DxM trains on D x M ranks, one process each (parallel/mesh.py):
+rank r at (d, m) = (r // M, r % M).  Each data row trains on its slice of
+every batch (the gradients summed over the data rows); with M > 1 the
+entity tables are row-sharded over the model group and validation and
+the final test rank through the entity-sharded rankers
+(parallel/ranking.py::make_best_sharded_ranker), the fused kernels on each
+rank's slice.  Results equal the one-process run's up to the order in
+which the ranks' gradients add.  Without --distributed, D x M > 1 starts
+the ranks here (torch.multiprocessing, a localhost TCP store):
+
+    python -m complexhyperbolickge_torch.cli.run ... --mesh 2x2
+
+--distributed joins a process group instead: --coordinator host:port,
+--num_processes and --process_id, or torchrun's environment (env://)
+when they are absent; D x M must equal the world size (the default mesh
+is world x 1):
+
+    torchrun --nproc_per_node 4 -m complexhyperbolickge_torch.cli.run ... \
+        --distributed --mesh 2x2
+
+Each rank takes cuda:(local rank % device count) unless --device cpu; the
+backend is NCCL when every rank of a node has a card of its own, gloo when
+ranks share a card or run on the CPU.  Rank 0 alone writes config.json,
+train.log and the checkpoints, which stay canonical (unpadded, gathered
+from the model group), so a mesh run resumes under any other mesh or none.
+--subgraph with --mesh or --distributed raises (ROADMAP.md Queue 1 item
+15c).
 """
 
 from __future__ import annotations
@@ -49,19 +76,27 @@ import json
 import logging
 import os
 import signal
+import socket
 import sys
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from complexhyperbolickge_torch.data.dataset import KGData, epoch_batches, synthetic_kg
 from complexhyperbolickge_torch.models import GNN_MODELS, ModelConfig, get_model
+from complexhyperbolickge_torch.parallel.mesh import (
+    gather_entity_tree,
+    make_mesh,
+    parse_shape,
+    shard_entity_tree,
+)
+from complexhyperbolickge_torch.parallel.ranking import make_best_sharded_ranker
 from complexhyperbolickge_torch.train.checkpoint import (
     PickledStub,
     load_checkpoint,
-    load_into,
     opt_state_from_jax,
     params_from_jax,
     save_checkpoint,
@@ -78,8 +113,6 @@ from complexhyperbolickge_torch.utils.platform import resolve_device
 from complexhyperbolickge_torch.utils.profiling import trace
 
 DATASETS = ["FB15K", "WN", "WN18RR", "FB237", "YAGO3-10", "synthetic"]
-# flags of parts not ported yet: flag -> ROADMAP.md Queue 1 item
-_UNPORTED = {"mesh": 15, "distributed": 15}
 # the GNN flags and their defaults
 _GNN_DEFAULTS = {"hidden_dim": 200, "edge_dropout": 0.3, "layers": 2,
                  "opn": "mult", "interaction": "distmult", "basis": 0,
@@ -229,13 +262,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args):
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag} has no PyTorch port yet "
-                                      f"(ROADMAP.md Queue 1 item {item})")
-
-
 def epoch_generator(seed: int, stream: int, device) -> torch.Generator:
     """The torch.Generator of one (seed, stream) pair on `device`, as the
     JAX package folds `stream` into PRNGKey(seed): stream 2 * epoch draws
@@ -244,17 +270,37 @@ def epoch_generator(seed: int, stream: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def _resume(save_dir, model, trainer):
+def _canonical(model, trainer) -> dict:
+    """The model's state_dict at canonical shapes (meta tensors for the
+    row-sharded tables): what a checkpoint is checked against."""
+    n = model.cfg.n_entities
+    return {k: torch.empty((n,) + tuple(v.shape[1:]), dtype=v.dtype, device="meta")
+            if k in trainer.sharded else v for k, v in model.state_dict().items()}
+
+
+def _load_params(model, trainer, params, mesh):
+    """Canonical checkpoint params into the model (load_state_dict casts
+    to its dtypes): padded by name and cut to this rank's rows for a
+    row-sharded model."""
+    params = params_from_jax(params, next(model.parameters()).device)
+    if trainer.sharded:
+        params = shard_entity_tree(params, model.cfg.n_entities, mesh.m, mesh.n_model)
+    model.load_state_dict(params)
+
+
+def _resume(save_dir, model, trainer, mesh=None):
     """Load the newer of latest.pkl and state.pkl (latest.pkl on a tie: it
     carries counter and best_epoch) into model and trainer; returns the
-    checkpoint, or None when there is none."""
-    found = [load_checkpoint(save_dir, expect_params=model.state_dict(), filename=fn)
+    checkpoint, or None when there is none.  On a mesh every rank loads the
+    canonical file and keeps its rows of the entity tables and moments."""
+    found = [load_checkpoint(save_dir, expect_params=_canonical(model, trainer), filename=fn,
+                             n_entities=model.cfg.n_entities)
              for fn in ("latest.pkl", "state.pkl")
              if os.path.exists(os.path.join(save_dir, fn))]
     if not found:
         return None
     st = max(found, key=lambda s: s["epoch"])
-    model.load_state_dict(params_from_jax(st["params"], next(model.parameters()).device))
+    _load_params(model, trainer, st["params"], mesh)
     opt_state = st["opt_state"]
     if opt_state is None:
         logging.info("Checkpoint has no optimizer state: warm-starting from "
@@ -262,30 +308,144 @@ def _resume(save_dir, model, trainer):
     else:
         if isinstance(opt_state, PickledStub):  # written by the JAX package
             opt_state = opt_state_from_jax(opt_state)
+        if trainer.sharded:
+            opt_state = shard_entity_tree(opt_state, model.cfg.n_entities, mesh.m, mesh.n_model)
         trainer.load_opt_state(opt_state)
     logging.info("Resumed from epoch %d", st["epoch"])
     return st
 
 
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (for a rendezvous on this host)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def train(args) -> dict:
     """Train per the run config `args` (build_parser's namespace); returns
-    the final valid and test metrics and the per-epoch history."""
-    _refuse_unported(args)
-    dev = resolve_device(getattr(args, "device", "cuda"))
+    the final valid and test metrics and the per-epoch history (rank 0's,
+    which every rank shares, on a mesh).
+
+    --distributed joins the process group the flags or torchrun's
+    environment describe; --mesh DxM alone, with D x M > 1, starts the
+    D x M ranks here (one process each, a localhost TCP store) and returns
+    rank 0's result; one process otherwise."""
+    if args.subgraph and (args.mesh or args.distributed):
+        raise NotImplementedError("--subgraph with --mesh or --distributed has no PyTorch "
+                                  "port yet (ROADMAP.md Queue 1 item 15c)")
+    shape = parse_shape(args.mesh) if args.mesh else None
+    if args.distributed:
+        if args.coordinator:
+            if args.num_processes is None or args.process_id is None:
+                raise ValueError("--coordinator needs --num_processes and --process_id")
+            world, rank = args.num_processes, args.process_id
+            return run_rank(args, shape or (world, 1), world, rank, args.coordinator)
+        # torchrun's environment
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        local = (int(os.environ.get("LOCAL_RANK", rank)),
+                 int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+        return run_rank(args, shape or (world, 1), world, rank, "env://", local)
+    if shape is not None and shape[0] * shape[1] > 1:
+        world = shape[0] * shape[1]
+        results = torch.multiprocessing.get_context("spawn").SimpleQueue()
+        ranks = torch.multiprocessing.start_processes(
+            _spawned, args=(args, shape, f"127.0.0.1:{free_port()}", results),
+            nprocs=world, join=False, start_method="spawn")
+        out = None
+        # read rank 0's result while joining (a result larger than the
+        # pipe's buffer blocks its writer until read); join re-raises a
+        # rank's exception
+        while not ranks.join(timeout=1.0):
+            if out is None and not results.empty():
+                out = results.get()
+        return results.get() if out is None else out
+    return _train(args, None)
+
+
+def _spawned(rank, args, shape, init, results):
+    """One rank of a mesh that train() started on this host."""
+    world = shape[0] * shape[1]
+    out = run_rank(args, shape, world, rank, init, (rank, world))
+    if rank == 0:
+        results.put(out)
+
+
+def process_device(device: str, local_rank: int, local_world: int):
+    """(device, backend) of a rank: cuda:(local_rank % device_count) under
+    NCCL when every rank of the node has a card of its own, under gloo when
+    ranks share a card (NCCL refuses two ranks on one device) or run on the
+    CPU."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev, "gloo"
+    count = torch.cuda.device_count()
+    dev = torch.device("cuda", local_rank % count)
+    return dev, ("nccl" if local_world <= count else "gloo")
+
+
+def node_layout(store, world: int, rank: int):
+    """(local rank, ranks on this node) of `rank`, from every rank's host
+    name set in the rendezvous store."""
+    store.set(f"host/{rank}", socket.gethostname())
+    hosts = [store.get(f"host/{r}").decode() for r in range(world)]
+    return hosts[:rank].count(hosts[rank]), hosts.count(hosts[rank])
+
+
+def run_rank(args, shape, world: int, rank: int, init: str, local=None) -> dict:
+    """Join the process group as `rank` of `world`, train on the (D, M)
+    mesh `shape`, and leave the group.  init: "env://" (torchrun's
+    environment) or the host:port of the TCP store that rank 0 hosts.
+    local: (local rank, ranks on this node); None learns it from the
+    ranks' host names through the store (node_layout), so ranks of several
+    hosts launched with --coordinator pick their card and backend right.
+    An NCCL failure raises; nothing falls back to gloo."""
+    kw = {"init_method": init}
+    if init != "env://":
+        host, port = init.rsplit(":", 1)
+        kw = {"store": dist.TCPStore(host, int(port), world, is_master=rank == 0)}
+        local = local or node_layout(kw["store"], world, rank)
+    local_rank, local_world = local
+    dev, backend = process_device(getattr(args, "device", "cuda"), local_rank, local_world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, world_size=world, rank=rank, **kw)
+    try:
+        mesh = make_mesh(shape, dev, local_size=local_world)
+        return _train(args, mesh, backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, mesh, backend: str | None = None) -> dict:
+    """The training protocol of one process, or of one rank of `mesh`:
+    rank 0 alone writes config.json, the log and the checkpoints, and the
+    other ranks log warnings to stderr."""
+    lead = mesh is None or mesh.rank == 0
+    dev = resolve_device(getattr(args, "device", "cuda")) if mesh is None else mesh.device
     save_dir = args.save_dir
-    os.makedirs(save_dir, exist_ok=True)
-    setup_logging(save_dir)
-    logging.info("Saving logs in: %s", save_dir)
+    if lead:
+        os.makedirs(save_dir, exist_ok=True)
+        setup_logging(save_dir)
+        logging.info("Saving logs in: %s", save_dir)
+    else:
+        logging.basicConfig(format="%(asctime)s rank " + str(mesh.rank) + " %(levelname)-8s "
+                            "%(message)s", level=logging.WARNING, stream=sys.stderr, force=True)
+    if mesh is not None:
+        logging.info("Mesh: data=%d model=%d over %d ranks, %s backend, rank 0 on %s",
+                     mesh.n_data, mesh.n_model, mesh.size, backend, dev)
     apply_dtype_policy(args)
 
     dataset = load_dataset(args)
     sizes = dataset.get_shape()
     logging.info("\t %s", str(sizes))
-    with open(os.path.join(save_dir, "config.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if lead:
+        with open(os.path.join(save_dir, "config.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     model = build_model(args, dataset, dev,
                         generator=torch.Generator().manual_seed(args.seed))
+    logging.info("Total number of parameters %d", count_params(model))
     tcfg = TrainConfig(
         regularizer=args.regularizer, reg=args.reg, optimizer=args.optimizer,
         learning_rate=args.learning_rate, batch_size=args.batch_size,
@@ -293,7 +453,7 @@ def train(args) -> dict:
         neg_mode=args.neg_mode, neg_pool_size=args.neg_pool_size,
         loss=args.loss, smoothing=args.smoothing, double_neg=args.double_neg,
     )
-    trainer = Trainer(model, tcfg, sizes[0], sizes[1])
+    trainer = Trainer(model, tcfg, sizes[0], sizes[1], mesh=mesh)
     trainer.debug_nans = args.debug_nans
     sub_trainer = None
     if args.subgraph:
@@ -304,7 +464,6 @@ def train(args) -> dict:
         sub_trainer.debug_nans = args.debug_nans
         logging.info("Subgraph training: %s sampler, %d steps an epoch",
                      sub_trainer.sampler.backend, sub_trainer.steps(args.batch_size))
-    logging.info("Total number of parameters %d", count_params(model))
 
     train_examples = dataset.get_examples("train")
     labels, valid_labels = None, None
@@ -314,21 +473,31 @@ def train(args) -> dict:
         _, valid_labels = dataset.label_pack("valid")
     start_epoch, best_mrr, best_epoch, counter = 1, None, None, 0
     if args.resume:
-        st = _resume(save_dir, model, trainer)
+        st = _resume(save_dir, model, trainer, mesh)
         if st is not None:
             start_epoch = st["epoch"] + 1
             best_mrr = st["best_mrr"]
             counter = st.get("counter", 0)
             best_epoch = st.get("best_epoch", None)
 
-    rank_fn = make_best_ranker(model, args.eval_batch_size, args.eval_backend,
-                               precision=args.eval_precision)
+    if trainer.sharded:
+        rank_fn = make_best_sharded_ranker(model, mesh, sizes[0], args.eval_backend,
+                                           precision=args.eval_precision)
+    else:
+        rank_fn = make_best_ranker(model, args.eval_batch_size, args.eval_backend,
+                                   precision=args.eval_precision)
     vb, vw, vlab = epoch_batches(dataset.get_examples("valid"), args.batch_size, None,
                                  valid_labels)
 
     def save(filename="state.pkl", **kw):
-        save_checkpoint(save_dir, model.state_dict(), trainer.opt_state(), epoch,
-                        best_mrr, filename=filename, **kw)
+        # every rank joins the gathers of the row-sharded leaves
+        params, opt_state = model.state_dict(), trainer.opt_state()
+        if trainer.sharded:
+            params = gather_entity_tree(params, sizes[0], mesh)
+            opt_state = gather_entity_tree(opt_state, sizes[0], mesh)
+        if lead:
+            save_checkpoint(save_dir, params, opt_state, epoch, best_mrr,
+                            filename=filename, **kw)
 
     # SIGTERM: finish the epoch, write latest.pkl, stop (resume with --resume)
     stop_signal = {"flag": False}
@@ -351,12 +520,14 @@ def train(args) -> dict:
             t0 = time.perf_counter()
             rng = np.random.default_rng([args.seed, epoch])
             gen = epoch_generator(args.seed, 2 * epoch, dev)
-            with trace(args.profile_dir if epoch == profile_epoch else None):
+            with trace(args.profile_dir if epoch == profile_epoch and lead else None):
                 if sub_trainer is not None:
                     steps = sub_trainer.steps(args.batch_size)
                     train_loss = sub_trainer.run_epoch(args.batch_size, rng, gen,
                                                        epoch_id=epoch)
                 else:
+                    # every rank builds the whole epoch; the trainer keeps
+                    # its slice of each batch
                     batches, weights, lab_b = epoch_batches(train_examples, args.batch_size,
                                                             rng, labels)
                     steps = len(batches)
@@ -378,7 +549,9 @@ def train(args) -> dict:
                 valid_metrics = avg_both(compute_metrics(
                     model, dataset, "valid", args.eval_batch_size, rank_fn=rank_fn))
                 logging.info(format_metrics(valid_metrics, split="valid"))
-                valid_mrr = valid_metrics["MRR"]
+                # rank 0's value: every rank takes the same branch below
+                valid_mrr = (valid_metrics["MRR"] if mesh is None
+                             else mesh.broadcast_float(valid_metrics["MRR"]))
                 if best_mrr is None or valid_mrr > best_mrr:
                     best_mrr, counter, best_epoch = valid_mrr, 0, epoch
                     logging.info("\t Saving model at epoch %d in %s", epoch, save_dir)
@@ -393,8 +566,10 @@ def train(args) -> dict:
                 save("latest.pkl", extra={"counter": counter, "best_epoch": best_epoch})
             if stopped_early:
                 break
-            # after the epoch's validation, so a resumed run repeats it exactly
-            if stop_signal["flag"]:
+            # after the epoch's validation, so a resumed run repeats it
+            # exactly; a signal on any rank stops every rank
+            stop = stop_signal["flag"] if mesh is None else mesh.any(stop_signal["flag"])
+            if stop:
                 save("latest.pkl", extra={"counter": counter, "best_epoch": best_epoch})
                 logging.info("\t Stopped by signal at epoch %d; latest state "
                              "saved — resume with --resume", epoch)
@@ -406,7 +581,11 @@ def train(args) -> dict:
     logging.info("\t Optimization finished")
     if best_mrr is not None:
         logging.info("\t Loading best model saved at epoch %s", best_epoch)
-        load_into(model, save_dir)
+        if mesh is not None:
+            mesh.barrier()  # rank 0's last write is complete
+        st = load_checkpoint(save_dir, expect_params=_canonical(model, trainer),
+                             cast_to_expected=True)
+        _load_params(model, trainer, st["params"], mesh)
     else:
         # the last completed epoch, which --resume continues from
         save(config={"args": vars(args)})

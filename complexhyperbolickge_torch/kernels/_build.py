@@ -5,14 +5,20 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by nvcc into
 ctypes.  Nothing is compiled or loaded at import: the first caller builds
 (`load_library`), and `build_all` starts one nvcc per source at once.  A
 library is rebuilt when the sha256 of its source and flags differs from
-the stamp written beside it.  `check_tensor`, `check_aligned`, `launch` and
+the stamp written beside it.  The check, the build and the stamp run
+under an fcntl lock on a file beside the stamp, so processes that share the
+build directory (the ranks of a mesh on one host) build each library once
+and load it only when it is complete.  `check_tensor`, `check_aligned`,
+`launch` and
 `kernel_info` are the wrappers' shared input checks, launch call and
 compiled-kernel report.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -126,9 +132,21 @@ def _finish(name: str, proc: subprocess.Popen):
     stamp.write_text(_digest(name))
 
 
+@contextlib.contextmanager
+def _file_locks(names):
+    """Exclusive fcntl locks on lib<name>.so.lock for each name, taken in
+    sorted order (so two processes never wait on each other crosswise)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with contextlib.ExitStack() as stack:
+        for n in sorted(set(names)):
+            f = stack.enter_context(open(_paths(n)[0].with_suffix(".so.lock"), "a"))
+            fcntl.flock(f, fcntl.LOCK_EX)  # released when the file closes
+        yield
+
+
 def build_all(names=SOURCES):
     """Compile every stale library, one nvcc per source, all in parallel."""
-    with _lock:
+    with _lock, _file_locks(names):
         procs = {n: _start(n) for n in names if not _is_current(n)}
         errors = []
         for n, proc in procs.items():

@@ -254,7 +254,8 @@ def save_checkpoint(path: str, params: dict, opt_state=None, epoch: int = 0,
 
 def load_checkpoint(path: str, expect_params: dict | None = None,
                     filename: str = "state.pkl",
-                    cast_to_expected: bool = False) -> dict:
+                    cast_to_expected: bool = False,
+                    n_entities: int | None = None) -> dict:
     """Load a checkpoint file without importing jax or optax.
 
     Validates the stored schema against the stored params and, when
@@ -262,7 +263,10 @@ def load_checkpoint(path: str, expect_params: dict | None = None,
     given, against the caller's shapes and dtypes, naming the parameter that
     differs.  cast_to_expected=True compares shapes only; the cast itself
     happens when the caller carries the params across with
-    params_from_jax(dtype=...).  `params` stay numpy arrays."""
+    params_from_jax(dtype=...).  `params` stay numpy arrays.  n_entities:
+    an entity-table leaf (entity, bh, bt) with more rows raises first, as
+    the JAX package's mesh resume does: checkpoints are canonical, and
+    such a file was written with mesh-padded tables."""
     with open(os.path.join(path, filename), "rb") as f:
         state = _JaxFreeUnpickler(f).load()
     ver = state.get("format_version", 0)
@@ -280,6 +284,13 @@ def load_checkpoint(path: str, expect_params: dict | None = None,
                 f"their recorded schema"
             )
         got = schema
+    for k in ("entity", "bh", "bt"):
+        v = state["params"].get(k) if isinstance(state["params"], dict) else None
+        if n_entities is not None and v is not None and np.shape(v)[0] > n_entities:
+            raise ValueError(
+                f"checkpoint leaf shape {np.shape(v)} exceeds the live layout of "
+                f"{n_entities} entities: checkpoints are canonical (unpadded) — this "
+                "one looks like it was written with mesh-padded tables")
     if expect_params is not None:
         want = _schema(expect_params)
         if cast_to_expected:

@@ -193,9 +193,11 @@ def _check_params_finite(model):
 def get_ranking(model, pack, batch_size: int = 500, rank_fn=None) -> np.ndarray:
     """Ranks (float32 numpy) of the gold entity for every query of an
     EvalPack: the split is uploaded once and ranked batch by batch on the
-    model's device, with one host sync at the end."""
-    _check_params_finite(model)
+    model's device, with one host sync at the end.  A ranker with a
+    check_params method (the sharded ones: parallel/ranking.py) checks the
+    params itself, across its group."""
     rank_fn = rank_fn or make_ranker(model)
+    getattr(rank_fn, "check_params", _check_params_finite)(model)
     device = next(model.parameters()).device
     q = torch.as_tensor(pack.queries, dtype=torch.int64, device=device)
     fidx = torch.as_tensor(pack.filter_idx, dtype=torch.int64, device=device)

@@ -13,7 +13,11 @@ Port of complexhyperbolickge_tpu/train/losses.py:
     the labelless binarycrossentropy branch.
 `weights` (B,) masks the padded rows of the static-shape batch
 (data/dataset.py::epoch_batches).  Every loss returns (loss, regularizer
-factors).
+factors).  `total` (default: the identity) maps each normalizer, a sum
+over this batch, to its value over the whole batch: a data-parallel rank
+holds a slice of the batch and divides its slice's sum by the global
+normalizer (parallel/mesh.py::Mesh.data_total), so the ranks' losses, and
+their gradients, add up to the one-process ones.
 
 double_neg corrupts the head of (h, r, t) by scoring the query
 (t, (r + n_rel/2) % n_rel), the inverse relation, against sampled head
@@ -29,6 +33,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def _same(x):
+    return x
 
 
 def _pad_col_mask(preds, n_entities):
@@ -53,7 +61,7 @@ def sample_negatives(generator, batch, n_entities: int, k: int):
 
 def neg_sampling_loss(model, batch, weights, generator, n_entities: int,
                       k: int, double_neg: bool, n_rel: int,
-                      sampler=sample_negatives):
+                      sampler=sample_negatives, total=_same):
     """-mean[logsig(pos) ++ logsig(-neg)] over the valid elements; returns
     (loss, regularizer factors).  `sampler(generator, batch, n_entities, k)`
     draws the negative ids: tails for `batch`, then heads for the inverted
@@ -80,7 +88,7 @@ def neg_sampling_loss(model, batch, weights, generator, n_entities: int,
         neg_hs = model.score(inv_q, neg_h)
         num = num + torch.sum(w * F.logsigmoid(-neg_hs))
         den = den + torch.sum(weights) * k
-    return -num / den, factors
+    return -num / total(den), factors
 
 
 def uniform_ids(generator, high: int, shape, device):
@@ -94,7 +102,8 @@ def _inverse_queries(batch, n_rel: int):
     return torch.stack([batch[:, 2], (batch[:, 1] + n_rel // 2) % n_rel], dim=1)
 
 
-def _candidate_set_loss(model, batch, weights, double_neg: bool, n_rel: int, negs):
+def _candidate_set_loss(model, batch, weights, double_neg: bool, n_rel: int, negs,
+                        total=_same):
     """The shared and pooled losses' frame: -(sum of logsig(pos) over the
     valid rows + the negatives' sums) / (valid rows + kept negatives).
     `negs(lhs, lhs_b, gold)` scores one direction's negatives and returns
@@ -113,11 +122,12 @@ def _candidate_set_loss(model, batch, weights, double_neg: bool, n_rel: int, neg
         inv_lhs, inv_b = model.get_queries(_inverse_queries(batch, n_rel))
         n_h, d_h = negs(inv_lhs, inv_b, batch[:, 0:1])
         num, den = num + n_h, den + d_h
-    return -num / den, factors
+    return -num / total(den), factors
 
 
 def neg_sampling_loss_shared(model, batch, weights, generator, n_entities: int,
-                             k: int, double_neg: bool, n_rel: int, draw=uniform_ids):
+                             k: int, double_neg: bool, n_rel: int, draw=uniform_ids,
+                             total=_same):
     """Negative sampling with ONE shared (K,) negative set a batch (and a
     second one for the heads under double_neg), scored as the all-pairs
     (B, D) x (D, K) form.  A negative equal to a query's gold is left out
@@ -131,12 +141,12 @@ def neg_sampling_loss_shared(model, batch, weights, generator, n_entities: int,
         keep = w * (neg_ids[None, :] != gold)  # gold-tail collisions out
         return torch.sum(keep * F.logsigmoid(-s)), torch.sum(keep)
 
-    return _candidate_set_loss(model, batch, weights, double_neg, n_rel, shared_negs)
+    return _candidate_set_loss(model, batch, weights, double_neg, n_rel, shared_negs, total)
 
 
 def neg_sampling_loss_pooled(model, batch, weights, generator, n_entities: int,
                              k: int, double_neg: bool, n_rel: int, pool_size: int,
-                             draw=uniform_ids):
+                             draw=uniform_ids, total=_same):
     """Per-query negatives scored through a per-step candidate pool: P
     i.i.d.-uniform entity ids, scored as one (B, D) x (D, P) all-pairs
     block; each query's K negatives are a contiguous window (mod P) of pool
@@ -159,11 +169,11 @@ def neg_sampling_loss_pooled(model, batch, weights, generator, n_entities: int,
         keep = w * in_win * (pool[None, :] != gold)
         return torch.sum(keep * F.logsigmoid(-s)), torch.sum(keep)
 
-    return _candidate_set_loss(model, batch, weights, double_neg, n_rel, pooled_negs)
+    return _candidate_set_loss(model, batch, weights, double_neg, n_rel, pooled_negs, total)
 
 
 def cross_entropy_loss(model, batch, weights, smoothing: float | None,
-                       n_entities: int | None = None):
+                       n_entities: int | None = None, total=_same):
     """All-entity CE with torch-style label smoothing eps:
     loss_i = (1 - eps)(-log p_t) + eps * mean_k(-log p_k), factored as
         lse_i - (1 - eps) * preds[i, t_i] - (eps / N) * sum_k preds[i, k]
@@ -183,7 +193,7 @@ def cross_entropy_loss(model, batch, weights, smoothing: float | None,
         nll = lse - (1 - eps) * gold - eps * (torch.sum(real, dim=-1) / n)
     else:
         nll = lse - gold
-    return torch.sum(weights * nll) / torch.sum(weights), factors
+    return torch.sum(weights * nll) / total(torch.sum(weights)), factors
 
 
 def dense_labels(label_idx, n_entities: int, dtype):
@@ -196,7 +206,8 @@ def dense_labels(label_idx, n_entities: int, dtype):
     return lab[:, :n_entities]
 
 
-def bce_loss(model, batch, weights, label_idx, n_entities: int, smoothing: float | None):
+def bce_loss(model, batch, weights, label_idx, n_entities: int, smoothing: float | None,
+             total=_same):
     """BCE(sigmoid(preds), smoothed multi-hot labels) in log space, each
     log term clamped at -100 as torch.nn.BCELoss does.  The multi-hot is
     built over the scores' (possibly padded) width by an amax scatter of
@@ -219,11 +230,12 @@ def bce_loss(model, batch, weights, label_idx, n_entities: int, smoothing: float
     per = -(y * log_p + (1.0 - y) * log_1mp)
     if valid is not None:
         per = torch.where(valid, per, 0.0)
-    total = torch.sum(weights[:, None] * per)
-    return total / (torch.sum(weights) * n_entities), factors
+    per_sum = torch.sum(weights[:, None] * per)
+    return per_sum / (total(torch.sum(weights)) * n_entities), factors
 
 
-def signed_logsigmoid_ce_loss(model, batch, weights, n_entities: int | None = None):
+def signed_logsigmoid_ce_loss(model, batch, weights, n_entities: int | None = None,
+                              total=_same):
     """The labelless binarycrossentropy branch: log_prob = logsig(-preds),
     plus logsig(p) - logsig(-p) at each row's gold; loss = -mean(log_prob).
     The (B, 1) gold bump is added to the row sums instead of scattered
@@ -239,4 +251,4 @@ def signed_logsigmoid_ce_loss(model, batch, weights, n_entities: int | None = No
     gold = torch.gather(preds, 1, tails[:, None])
     bump = F.logsigmoid(gold) - F.logsigmoid(-gold)  # (B, 1)
     row_sum = torch.sum(log_prob, dim=-1, keepdim=True) + bump
-    return -torch.sum(weights[:, None] * row_sum) / (torch.sum(weights) * n), factors
+    return -torch.sum(weights[:, None] * row_sum) / (total(torch.sum(weights)) * n), factors

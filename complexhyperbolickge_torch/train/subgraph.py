@@ -82,8 +82,8 @@ class SubgraphTrainer:
     optimizer: the torch optimizer over the model's parameters to step
     (cli/run.py passes the full-graph Trainer's, so its checkpoint and
     resume code serve both); None builds one with make_optimizer (float32
-    state for bfloat16 params).  mesh: multi-device runs are not ported
-    (ROADMAP.md Queue 1 item 15) and must be None."""
+    state for bfloat16 params).  mesh: subgraph training on a mesh is not
+    ported (ROADMAP.md Queue 1 item 15c) and must be None."""
 
     debug_nans = False  # --debug_nans: check every step (utils/profiling.py)
 
@@ -98,7 +98,7 @@ class SubgraphTrainer:
             raise ValueError(f"unknown loss {cfg.loss!r}")
         if mesh is not None:
             raise NotImplementedError("subgraph training on a mesh has no PyTorch port yet "
-                                      "(ROADMAP.md Queue 1 item 15)")
+                                      "(ROADMAP.md Queue 1 item 15c)")
         self.model = model
         self.cfg = cfg
         self.sampler = NeighborSampler(dataset, fanouts=fanouts, max_nodes=max_nodes,

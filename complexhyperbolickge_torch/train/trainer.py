@@ -37,6 +37,23 @@ With `debug_nans` set (--debug_nans), an epoch runs under
 utils/profiling.py's NanCheck: each step's loss is checked before its
 backward, which runs in anomaly mode, and the first non-finite value raises
 FloatingPointError naming the epoch and the step.
+
+On a mesh (parallel/mesh.py, `mesh` of D x M ranks) the steps are data
+parallel: run_epoch and valid_loss take the full epoch arrays, which every
+rank builds from the epoch seed, and each data row trains on its slice of
+every batch.  Each rank draws the whole batch's negatives (and a GNN its
+dropout masks, over the whole graph) from the step generator and keeps its
+rows, so the ranks train on the negatives one process draws; each divides
+its slice's sums by the global normalizers (losses.py `total`), and the
+gradients of the replicated parameters are summed over the data group
+before the optimizer step.  A regularizer term that does not depend on the
+batch (a NoMask factor: the whole entity table, a GNN's weights) is added
+by data row 0 alone.  With M > 1 the entity tables are row-sharded: the
+model holds its own rows of entity, bh and bt (and the optimizer their
+moments), and each step runs the loss through torch.func.functional_call
+on the tables gathered inside the model group, so K3 reads candidate rows
+by id and K4 writes the dense gradient of the gathered table, which the
+gather's backward sums over the data group and cuts to the rank's rows.
 """
 
 from __future__ import annotations
@@ -47,6 +64,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from complexhyperbolickge_torch.models.base import NoMask
+from complexhyperbolickge_torch.parallel.mesh import (
+    call_with_tables,
+    gather_tables,
+    shard_epoch_arrays,
+    shard_model_,
+)
 from complexhyperbolickge_torch.train import losses as L
 from complexhyperbolickge_torch.train.regularizers import get_regularizer
 from complexhyperbolickge_torch.train.sparse_adam import SparseAdam
@@ -161,12 +185,16 @@ class Trainer:
 
     sampler: the per-query negative sampler, losses.sample_negatives; draw:
     the shared and pooled modes' uniform draws, losses.uniform_ids.  Tests
-    inject others with their signatures."""
+    inject others with their signatures.  mesh: a parallel/mesh.py Mesh
+    (None, or 1 x 1 without groups: one process); with M > 1 the model's
+    entity tables are cut to this rank's rows here, before the optimizer is
+    built."""
 
     debug_nans = False  # --debug_nans: check every step (utils/profiling.py)
 
     def __init__(self, model, cfg: TrainConfig, n_entities: int,
-                 n_relations: int, sampler=L.sample_negatives, draw=L.uniform_ids):
+                 n_relations: int, sampler=L.sample_negatives, draw=L.uniform_ids,
+                 mesh=None):
         self.is_gnn = getattr(model, "is_gnn", False)
         if self.is_gnn and cfg.neg_mode in ("shared", "pool"):
             raise ValueError(f"neg_mode={cfg.neg_mode!r} is not supported for GNN models")
@@ -181,14 +209,54 @@ class Trainer:
         self.sampler = sampler
         self.draw = draw
         self.reg_fn = get_regularizer(cfg.regularizer)
+        self.mesh = mesh if mesh is not None and mesh.collective else None
+        # names of the row-sharded parameters (M > 1)
+        self.sharded = ()
+        if self.mesh is not None and self.mesh.n_model > 1:
+            self.sharded = tuple(shard_model_(model, self.mesh.m, self.mesh.n_model))
         self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate,
                                         model.parameters())
 
     # ------------------------------- loss core -------------------------------
 
     def _loss(self, batch, weights, generator, training: bool = True, labels=None):
+        if self.sharded:
+            return call_with_tables(self.model, self.gathered(), self._local_loss, batch,
+                                    weights, generator, training, labels)
+        return self._local_loss(batch, weights, generator, training, labels)
+
+    def gathered(self) -> dict:
+        """The row-sharded tables gathered to full size (differentiable)."""
+        return gather_tables(self.model, self.sharded, self.mesh)
+
+    def _full_batch_draws(self, b: int):
+        """The sampler and draw of a data-parallel rank whose batch slice
+        has b rows: each draws at the whole batch's shape and keeps this
+        rank's rows, so the generator's stream is the one process's."""
+        mesh = self.mesh
+        rows = slice(mesh.d * b, (mesh.d + 1) * b)
+        full = b * mesh.n_data
+
+        def sampler(generator, batch, n_entities, k):
+            whole = batch.new_zeros((full,) + tuple(batch.shape[1:]))
+            whole[rows] = batch
+            return self.sampler(generator, whole, n_entities, k)[rows]
+
+        def draw(generator, high, shape, device):
+            if len(shape) == 2 and shape[0] == b:  # one row per query
+                return self.draw(generator, high, (full, shape[1]), device)[rows]
+            return self.draw(generator, high, shape, device)
+
+        return sampler, draw
+
+    def _local_loss(self, batch, weights, generator, training: bool = True, labels=None):
         cfg = self.cfg
         model = self.model
+        mesh = self.mesh
+        sampler, draw, total = self.sampler, self.draw, L._same
+        if mesh is not None and mesh.data_group is not None:
+            sampler, draw = self._full_batch_draws(batch.shape[0])
+            total = mesh.data_total
         if self.is_gnn:
             from complexhyperbolickge_torch.models.gnn import BoundGNN
 
@@ -200,28 +268,35 @@ class Trainer:
         neg = (model, batch, weights, generator, self.n_entities, cfg.neg_sample_size,
                cfg.double_neg, self.n_relations)
         if cfg.neg_sample_size > 0 and cfg.neg_mode == "shared":
-            loss, factors = L.neg_sampling_loss_shared(*neg, draw=self.draw)
+            loss, factors = L.neg_sampling_loss_shared(*neg, draw=draw, total=total)
         elif cfg.neg_sample_size > 0 and cfg.neg_mode == "pool":
-            loss, factors = L.neg_sampling_loss_pooled(*neg, cfg.neg_pool_size, draw=self.draw)
+            loss, factors = L.neg_sampling_loss_pooled(*neg, cfg.neg_pool_size, draw=draw,
+                                                       total=total)
         elif cfg.neg_sample_size > 0:
-            loss, factors = L.neg_sampling_loss(*neg, sampler=self.sampler)
+            loss, factors = L.neg_sampling_loss(*neg, sampler=sampler, total=total)
         elif cfg.loss == "crossentropy":
             loss, factors = L.cross_entropy_loss(model, batch, weights, cfg.smoothing,
-                                                 n_entities=self.n_entities)
+                                                 n_entities=self.n_entities, total=total)
         elif labels is not None:
             loss, factors = L.bce_loss(model, batch, weights, labels, self.n_entities,
-                                       cfg.smoothing)
+                                       cfg.smoothing, total=total)
         else:
             loss, factors = L.signed_logsigmoid_ce_loss(model, batch, weights,
-                                                        n_entities=self.n_entities)
+                                                        n_entities=self.n_entities,
+                                                        total=total)
         if not cfg.reg:
             # reg weight 0 (every published config): no factor gathers
             return loss
+        if mesh is not None and mesh.d != 0:
+            # batch-independent terms: data row 0 adds them, once
+            factors = tuple(f for f in factors if not isinstance(f, NoMask))
+            if not factors:
+                return loss
         if self.is_gnn:
             # the factors are encoder weight matrices, normalized by the
             # first one's leading dim as the reference does
             return loss + self.reg_fn(factors, cfg.reg, factors[0].shape[0])
-        return loss + self.reg_fn(factors, cfg.reg, torch.sum(weights), weights)
+        return loss + self.reg_fn(factors, cfg.reg, total(torch.sum(weights)), weights)
 
     def _upload(self, batches, weights, labels=None):
         """The epoch's arrays on the model's device: int64 batches and
@@ -237,10 +312,36 @@ class Trainer:
     # -------------------------------- public ---------------------------------
 
     def init(self, generator: torch.Generator | None = None):
-        """Fresh params drawn from `generator` and a fresh optimizer."""
-        self.model.reset_parameters(generator)
+        """Fresh params drawn from `generator` and a fresh optimizer.  Row-
+        sharded tables are drawn at full size, as one process draws them,
+        and cut to this rank's rows again."""
+        m = self.model
+        for k in self.sharded:
+            full = m.param_specs()[k][0]
+            m._parameters[k] = torch.nn.Parameter(getattr(m, k).new_empty(full))
+        m.reset_parameters(generator)
+        if self.sharded:
+            shard_model_(m, self.mesh.m, self.mesh.n_model)
         self.optimizer = make_optimizer(self.cfg.optimizer, self.cfg.learning_rate,
-                                        self.model.parameters())
+                                        m.parameters())
+
+    def _sum_grads(self):
+        """The replicated parameters' gradients summed over the data group,
+        one flat all_reduce per dtype (the row-sharded tables' were summed
+        in the gather's backward)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_group is None:
+            return
+        by_dtype: dict = {}
+        for name, p in self.model.named_parameters():
+            if p.grad is not None and name not in self.sharded:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for dtype, grads in by_dtype.items():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            wide = flat.float() if dtype == torch.bfloat16 else flat
+            flat = mesh.sum_data(wide).to(dtype)
+            for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(v.view_as(g))
 
     def train_step(self, batch, weights, generator, apply: bool = True, labels=None,
                    check=None):
@@ -255,35 +356,55 @@ class Trainer:
         else:
             check.backward(loss)
         if apply:
+            self._sum_grads()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
         return loss.detach()
 
+    def _mean(self, losses) -> float:
+        """The mean of the batches' losses; on a mesh each rank's losses
+        are its slice's shares, summed over the data group first."""
+        losses = torch.stack(losses)
+        if self.mesh is not None:
+            losses = self.mesh.sum_data(losses.contiguous())
+        return float(losses.mean())
+
     def run_epoch(self, batches, weights, generator, labels=None, epoch_id: int = 0) -> float:
         """One epoch over batches (nb, B, 3) with weights (nb, B) and, for
         BCE, label batches (nb, B, L) (numpy, as data/dataset.py::
-        epoch_batches gives them); returns the mean loss.  epoch_id names
+        epoch_batches gives them; on a mesh the full arrays, of which this
+        rank trains on its slice); returns the mean loss.  epoch_id names
         the epoch in a --debug_nans error."""
+        if self.mesh is not None:
+            batches, weights, labels = shard_epoch_arrays(self.mesh, batches, weights, labels)
         b, w, lab = self._upload(batches, weights, labels)
         k_acc = max(1, self.cfg.update_steps)
         nb = b.shape[0]
         self.optimizer.zero_grad(set_to_none=True)
-        with nan_check(self.debug_nans, epoch_id) as check:
+        with nan_check(self.debug_nans, epoch_id, self.mesh, self.model) as check:
             losses = [self.train_step(b[i], w[i], generator,
                                       apply=(i + 1) % k_acc == 0 or i == nb - 1,
                                       labels=None if lab is None else lab[i], check=check)
                       for i in range(nb)]
-        return float(torch.stack(losses).mean())
+        return self._mean(losses)
 
     @torch.no_grad()
     def valid_loss(self, batches, weights, generator, labels=None) -> float:
         """Mean loss over validation batches (and their label batches),
-        without autograd."""
+        without autograd; on a mesh as run_epoch, with the row-sharded
+        tables gathered once for all batches."""
+        if self.mesh is not None:
+            batches, weights, labels = shard_epoch_arrays(self.mesh, batches, weights, labels)
         b, w, lab = self._upload(batches, weights, labels)
-        return float(torch.stack([
-            self._loss(b[i], w[i], generator, training=False,
-                       labels=None if lab is None else lab[i])
-            for i in range(b.shape[0])]).mean())
+
+        def losses():
+            return [self._local_loss(b[i], w[i], generator, training=False,
+                                     labels=None if lab is None else lab[i])
+                    for i in range(b.shape[0])]
+
+        if self.sharded:
+            return self._mean(call_with_tables(self.model, self.gathered(), losses))
+        return self._mean(losses())
 
     # ---------------------------- optimizer state ----------------------------
 

@@ -71,12 +71,20 @@ class NanCheck:
     it (under torch.autograd.detect_anomaly()) and calls backward(loss) in
     place of loss.backward().  A non-finite loss, or a NaN that anomaly
     mode finds in the backward, raises FloatingPointError naming the epoch
-    and the step (1-based).  Costs a host sync a step."""
+    and the step (1-based).  Costs a host sync a step.
 
-    def __init__(self, epoch: int):
+    On a mesh of several ranks no rank may raise alone (the others would
+    wait in a collective forever): the loss flag is OR-ed over the ranks
+    before the backward, which runs without anomaly mode, and the NaN flag
+    of `params`' gradients after it, so every rank raises together."""
+
+    def __init__(self, epoch: int, mesh=None, params=()):
         self.epoch = epoch
         self.step = 0
-        self._anomaly = torch.autograd.detect_anomaly()
+        self.mesh = mesh if mesh is not None and mesh.collective else None
+        self.params = params
+        self._anomaly = (torch.autograd.detect_anomaly() if self.mesh is None
+                         else contextlib.nullcontext())
 
     def __enter__(self):
         self._anomaly.__enter__()
@@ -87,9 +95,19 @@ class NanCheck:
 
     def backward(self, loss):
         self.step += 1
-        if not bool(torch.isfinite(loss).all()):
+        bad = not bool(torch.isfinite(loss).all())
+        if self.mesh is not None:
+            bad = self.mesh.any(bad)
+        if bad:
             raise FloatingPointError(f"non-finite training loss {loss.item()} at epoch "
                                      f"{self.epoch}, step {self.step} (--debug_nans)")
+        if self.mesh is not None:
+            loss.backward()
+            if self.mesh.any(any(bool(torch.isnan(p.grad).any()) for p in self.params
+                                 if p.grad is not None)):
+                raise FloatingPointError(f"NaN in the backward at epoch {self.epoch}, "
+                                         f"step {self.step} (--debug_nans)")
+            return
         try:
             loss.backward()
         except RuntimeError as e:
@@ -99,7 +117,10 @@ class NanCheck:
                                      f"{self.step} (--debug_nans): {e}") from e
 
 
-def nan_check(enabled: bool, epoch: int):
+def nan_check(enabled: bool, epoch: int, mesh=None, model=None):
     """A NanCheck for `epoch` when enabled, else a context that yields None
-    (the loop then calls loss.backward() itself)."""
-    return NanCheck(epoch) if enabled else contextlib.nullcontext()
+    (the loop then calls loss.backward() itself).  mesh (with the model
+    whose gradients to check): a parallel/mesh.py Mesh of several ranks."""
+    if not enabled:
+        return contextlib.nullcontext()
+    return NanCheck(epoch, mesh, () if model is None else tuple(model.parameters()))

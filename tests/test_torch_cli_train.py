@@ -10,7 +10,7 @@ dense ranker).  The same for the GNN path: a CompGCN run trains and
 resumes, and GNN run dirs cross between the packages both ways; with
 --subgraph a CompGCN trains on sampled subgraphs and resumes.
 --profile_dir writes a trace, --debug_nans stops at the first NaN step,
-and only the multi-device flags are left unported.
+and only --subgraph on a mesh is left unported.
 """
 
 import os
@@ -97,12 +97,22 @@ def test_port_checkpoint_evaluates_in_both_packages(continuous):
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x2"], ["--distributed"]])
 def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        run(tmp_path, "--max_epochs", "1", *flag)
+    """--mesh and --distributed run (test_torch_cli_parallel.py); only
+    subgraph training on a mesh is left, and raises before any rank
+    starts."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15c"):
+        run(tmp_path, "--max_epochs", "1", "--model", "CompGCN", "--subgraph",
+            "--neg_sample_size", "0", *flag)
 
 
 def test_only_the_multi_device_flags_are_unported():
-    assert R._UNPORTED == {"mesh": 15, "distributed": 15}
+    """No flag is refused as unported any more: the port parses every flag
+    of the JAX package's command line."""
+    from complexhyperbolickge_tpu.cli.run import build_parser as jax_parser
+
+    assert not hasattr(R, "_UNPORTED")
+    ours = {o for a in R.build_parser()._actions for o in a.option_strings}
+    assert {o for a in jax_parser()._actions for o in a.option_strings} <= ours
 
 
 @pytest.mark.parametrize("epochs", [1, 2])
