@@ -140,6 +140,14 @@ line:
               steps on 2x1 and on 1x2 against one process's (PARITY_TOL);
               the gloo all_reduce of a step's flat gradient, ms.  Correctness
               and overhead, not a multi-GPU number
+ 15e' mesh-subgraph-parity, mesh-subgraph-train  the same two ranks:
+              3 SGD steps of the subgraph path's CompGCN (dropouts on) on
+              2x1 and on 1x2 against one process's (PARITY_TOL), then 20
+              timed steps (ms, the collectives' calls and bytes, peak
+              memory, beside one process's); then cli.run.run_rank for one
+              epoch of `--subgraph --mesh 2x1` at the subgraph config (the
+              C++ sampler, 348 steps, a finite loss, K9/K10 in each rank's
+              full-graph validation and test)
  15f nccl-world1  an NCCL group of one in this process (cli.run's device
               and backend choice): 3 data-parallel steps and a sharded rank
               call whose collectives all run through NCCL, equal to one
@@ -157,7 +165,8 @@ line:
               time (exact_ms), the contraction's torch.mm time as
               library_ms, and the Lorentz K5/K6 instantiation under
               "lorentz"; each rank's launches on the mesh paths,
-              mesh_rank_launches_per_rank and mesh_train_launches_per_rank)
+              mesh_rank_launches_per_rank, mesh_train_launches_per_rank and
+              mesh_subgraph_launches_per_rank)
  18 {"ok": true, "device": {...}}
 Needs no network; the HTTP server listens on 127.0.0.1 and is shut down.
 """
@@ -2388,8 +2397,14 @@ MESH_RANK_KERNELS = (*RANK_KERNELS, *HYP_RANK_KERNELS, *ATTRH_KERNELS,
                      "chyp_rank_sweep_masked_bf16")
 MESH_TRAIN_KERNELS = (*TRAIN_KERNELS, "chyp_train_lists")
 MESH_STEPS = 3  # the mesh parity windows, as train-step parity's
-MESH_TIMEOUT = 480  # seconds for the two ranks' whole run
+MESH_TIMEOUT = 600  # seconds for the two ranks' whole run
 ALLREDUCE_REPS = 20
+# mesh-subgraph-parity: SGD, as the JAX package's mesh subgraph tests: the
+# CE loss does not move with a query's bh, so bh's gradient is rounding
+# noise, which Adam turns into lr-sized steps that differ between any two
+# runs; then a timed window of steps (ms, collective bytes, peak memory)
+MESH_SUBGRAPH_OPT = dict(optimizer="SGD", learning_rate=0.1)
+MESH_SUBGRAPH_WINDOW = 20
 
 
 def mesh_steps(seed: int, mesh=None):
@@ -2420,6 +2435,79 @@ def mesh_steps(seed: int, mesh=None):
     if trainer.sharded:
         params = gather_entity_tree(params, n_ent, mesh)
     return {k: v.detach().cpu().numpy() for k, v in params.items()}, loss, launches
+
+
+class CollectiveBytes:
+    """While active: the calls to torch.distributed's all_reduce, all_gather
+    and broadcast, and the bytes of the tensors handed to them."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self.bytes, self._saved = 0, 0, {}
+        for name in self.NAMES:
+            f = self._saved[name] = getattr(dist, name)
+
+            def wrapped(*args, _f=f, **kw):
+                self.calls += 1
+                self.bytes += sum(t.numel() * t.element_size() for a in args
+                                  for t in (a if isinstance(a, (list, tuple)) else [a])
+                                  if hasattr(t, "element_size"))
+                return _f(*args, **kw)
+
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, f in self._saved.items():
+            setattr(dist, name, f)
+
+
+def mesh_subgraph_steps(seed: int, mesh=None):
+    """The subgraph path's CompGCN (dropouts 0.1 on) through SubgraphTrainer
+    on `mesh` or in one process: MESH_STEPS steps with MESH_SUBGRAPH_OPT
+    from the seed's init, then a timed window of MESH_SUBGRAPH_WINDOW
+    steps.  Returns the params after the first steps (canonical, numpy),
+    their mean loss, and the window's wall ms a step, collective calls and
+    bytes a step, and peak device memory (absolute and above its start)."""
+    import numpy as np
+    import torch
+
+    from complexhyperbolickge_torch.cli.run import load_dataset
+    from complexhyperbolickge_torch.parallel import gather_entity_tree
+    from complexhyperbolickge_torch.train.subgraph import SubgraphTrainer
+    from complexhyperbolickge_torch.train.trainer import TrainConfig
+
+    dataset = load_dataset(argparse.Namespace(**gnn_args(seed, "CompGCN")))
+    model = gnn_model(seed, "CompGCN", dataset, **SUBGRAPH_ARGS)
+    trainer = SubgraphTrainer(model, TrainConfig(**{**SUBGRAPH_CONFIG, **MESH_SUBGRAPH_OPT}),
+                              dataset, mesh=mesh)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    loss = trainer.run_epoch(BATCH, np.random.default_rng(seed), gen, max_steps=MESH_STEPS)
+    params = model.state_dict()
+    if mesh is not None and mesh.n_model > 1:
+        params = gather_entity_tree(params, model.cfg.n_entities, mesh)
+    params = {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CollectiveBytes() as coll:
+        trainer.run_epoch(BATCH, np.random.default_rng(seed + 1), gen, epoch_id=1,
+                          max_steps=MESH_SUBGRAPH_WINDOW)
+        torch.cuda.synchronize()
+    window = {"steps": MESH_SUBGRAPH_WINDOW,
+              "wall_ms_per_step": 1e3 * (time.perf_counter() - t0) / MESH_SUBGRAPH_WINDOW,
+              "collective_calls_per_step": coll.calls / MESH_SUBGRAPH_WINDOW,
+              "collective_bytes_per_step": coll.bytes / MESH_SUBGRAPH_WINDOW,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "peak_memory_gb_above_start": (torch.cuda.max_memory_allocated() - start) / 1e9,
+              "rows_a_rank": int(model.entity.shape[0])}
+    return params, loss, window
 
 
 def mesh_rank_job(mesh, dirs: dict) -> dict:
@@ -2485,8 +2573,10 @@ def allreduce_ms(mesh, numel: int) -> dict:
 def _mesh_worker(rank: int, seed: int, ports, dirs: dict, out_dir: str):
     """One of the two ranks on the card: the CLI's rank entry point
     (cli.run.run_rank, as `kge-train --mesh 2x1` starts it) for EPOCHS
-    epochs at the paper config, then, in a second gloo group, mesh-rank
-    (a 1x2 mesh), the 2x1 and 1x2 parity steps and the all_reduce's time.
+    epochs at the paper config; then, in a second gloo group, mesh-rank
+    (a 1x2 mesh), the 2x1 and 1x2 parity steps, the all_reduce's time and
+    the subgraph steps on 2x1 and 1x2; then the rank entry point again for
+    one epoch of `kge-train --subgraph --mesh 2x1` at the subgraph config.
     Writes its results to out_dir/rank<r>.pkl."""
     import pickle
 
@@ -2521,8 +2611,22 @@ def _mesh_worker(rank: int, seed: int, ports, dirs: dict, out_dir: str):
         out["steps_1x2"] = mesh_steps(seed, mesh12)
         numel = sum(p.numel() for p in wn18rr_model(seed).parameters())
         out["allreduce"] = allreduce_ms(mesh21, numel)
+        out["subgraph_2x1"] = mesh_subgraph_steps(seed, mesh21)
+        out["subgraph_1x2"] = mesh_subgraph_steps(seed, mesh12)
     finally:
         dist.destroy_process_group()
+    argv = ["--dataset", "synthetic",
+            *[str(x) for k, v in WN18RR.items() for x in (f"--{k}", v)], *SUBGRAPH_TRAIN_FLAGS,
+            "--max_epochs", "1", "--valid", "1", "--eval_batch_size", str(BATCH),
+            "--device", "cuda", "--seed", str(seed), "--save_dir",
+            str(WORK / "mesh-subgraph-train"), "--mesh", "2x1"]
+    KS.reset_launches()  # the mesh subgraph path starts here
+    t0 = time.perf_counter()
+    res = R.run_rank(R.build_parser().parse_args(argv), (2, 1), 2, rank,
+                     f"127.0.0.1:{ports[2]}", (rank, 2))
+    out["subgraph_cli"] = {"argv": argv, "seconds": time.perf_counter() - t0,
+                           "history": res["history"], "test": res["test"],
+                           "launches": {k: v for k, v in KS.launches().items() if v}}  # ... ends
     (Path(out_dir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
 
 
@@ -2540,7 +2644,11 @@ def phase_mesh(seed: int, dirs: dict, loaded: dict) -> dict:
     ranks against the single-device fused rankers' (equal), the ranks'
     params after MESH_STEPS steps against one process's (PARITY_TOL: the
     all_reduce adds K4's two entity-gradient halves in another order).
-    Returns each rank's launches on the mesh paths, by kernel."""
+    Then mesh-subgraph-parity and mesh-subgraph-train (the subgraph steps
+    on 2x1 and 1x2 against one process's, PARITY_TOL; one epoch of
+    `kge-train --subgraph --mesh 2x1`: K9/K10 in each rank's full-graph
+    validation and test, the C++ sampler, a finite loss).  Returns each
+    rank's launches on the mesh paths, by kernel."""
     import pickle
 
     import numpy as np
@@ -2557,13 +2665,14 @@ def phase_mesh(seed: int, dirs: dict, loaded: dict) -> dict:
         ref[f"{name} {backend} {precision}"] = [
             get_ranking(model, dataset.eval_pack("test", d), BATCH, ranker) for d in ("rhs", "lhs")]
     ref_steps = mesh_steps(seed)
+    ref_subgraph = mesh_subgraph_steps(seed)
 
     out_dir = WORK / "mesh"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(_mesh_worker, args=(seed, (free_port(), free_port()), dirs,
-                                                 str(out_dir)),
+    ctx = mp.start_processes(_mesh_worker, args=(seed, (free_port(), free_port(), free_port()),
+                                                 dirs, str(out_dir)),
                              nprocs=2, join=False, start_method="spawn")
     while not ctx.join(timeout=1.0):
         if time.perf_counter() - t0 > MESH_TIMEOUT:
@@ -2635,8 +2744,47 @@ def phase_mesh(seed: int, dirs: dict, loaded: dict) -> dict:
     if not (same and all(c["within_tolerance"] for c in close12.values())) or any(
             min(r["steps_1x2"][2].values()) < MESH_STEPS for r in res):
         raise AssertionError("1x2 steps disagree with one process")
+
+    # mesh-subgraph-parity: the subgraph steps on 2x1 and 1x2
+    sub = {"phase": "mesh-subgraph-parity", "steps": MESH_STEPS, "optimizer": MESH_SUBGRAPH_OPT,
+           "tolerance": PARITY_TOL, "one_process": {"loss": ref_subgraph[1],
+                                                    "window": ref_subgraph[2]}}
+    bad = []
+    for shape in ("2x1", "1x2"):
+        close = _params_close(res[0][f"subgraph_{shape}"][0], ref_subgraph[0])
+        same = all(np.array_equal(res[1][f"subgraph_{shape}"][0][k], v)
+                   for k, v in res[0][f"subgraph_{shape}"][0].items())
+        sub[shape] = {"loss": [r[f"subgraph_{shape}"][1] for r in res],
+                      "max_abs_diff": max(c["max_abs_diff"] for c in close.values()),
+                      "worst": dict(sorted(((k, c["max_abs_diff"]) for k, c in close.items()),
+                                           key=lambda kv: -kv[1])[:3]),
+                      "ranks_hold_one_model": same,
+                      "window_per_rank": [r[f"subgraph_{shape}"][2] for r in res]}
+        if not (same and all(c["within_tolerance"] for c in close.values())):
+            bad.append(shape)
+    emit(sub)
+    if bad:
+        raise AssertionError(f"mesh subgraph steps disagree with one process: {bad}")
+
+    # mesh-subgraph-train: kge-train --subgraph --mesh 2x1, one epoch
+    cli = [r["subgraph_cli"] for r in res]
+    hist = cli[0]["history"][0]
+    log = (WORK / "mesh-subgraph-train" / "train.log").read_text()
+    sub_launches = [{k: c["launches"].get(k, 0) for k in GNN_KERNELS} for c in cli]
+    out = {"phase": "mesh-subgraph-train", "mesh": "2x1", "backend": "gloo, two ranks on one "
+           "card (correctness and overhead, not a multi-GPU number)", "argv": cli[0]["argv"],
+           "steps": hist["steps"], "train_loss": hist["train_loss"],
+           "ms_per_step": 1e3 * hist["seconds"] / hist["steps"],
+           "triples_per_s": hist["triples_per_s"], "seconds_per_rank": [c["seconds"] for c in cli],
+           "cpp_sampler": f"Subgraph training: cpp sampler, {SUBGRAPH_STEPS} steps an epoch" in log,
+           "test": cli[0]["test"], "launches_per_rank": sub_launches}
+    emit(out)
+    if not (out["cpp_sampler"] and hist["steps"] == SUBGRAPH_STEPS
+            and np.isfinite(hist["train_loss"]) and all(min(v.values()) for v in sub_launches)):
+        raise AssertionError(f"the mesh subgraph run did not run as configured, or a rank "
+                             f"launched no K9/K10: {out}")
     return {"rank": [{k: v.get(k, 0) for k in MESH_RANK_KERNELS} for v in launches],
-            "train": train_launches}
+            "train": train_launches, "subgraph": sub_launches}
 
 
 def phase_nccl_world1(seed: int, model, dataset):
@@ -2817,7 +2965,7 @@ def main(argv=None) -> int:
         rows += gnn_kernel_rows(gnn_meas, gnn_launches, smi, name)
         rows += bf16_kernel_rows(bf16_work, default_launches, bf16_errors, smi, name)
         for row in rows:  # each rank's launches on the mesh paths
-            for path in ("rank", "train"):
+            for path in ("rank", "train", "subgraph"):
                 if any(row["name"] in v for v in mesh_launches[path]):
                     row[f"mesh_{path}_launches_per_rank"] = [v[row["name"]]
                                                              for v in mesh_launches[path]]

@@ -34,11 +34,14 @@ full graph through the same loop; their flags are --hidden_dim, --layers,
 --gnn_agg_method.  With --subgraph a GNN trains on sampled subgraphs
 instead (train/subgraph.py: batches of --batch_size seed edges, CE or BCE
 over each subgraph's nodes, --neg_sample_size 0); the validation loss and
-validation stay on the full graph.  --profile_dir writes a torch.profiler
-trace of the second epoch (the first when it is the only one);
---debug_nans checks every training step and raises FloatingPointError at
-the first non-finite loss or NaN gradient (utils/profiling.py).  Runs on
-the card unless --device cpu.
+validation stay on the full graph.  It composes with --mesh and
+--distributed below: every rank samples each step's subgraph, each data
+row trains on its slice of the seed queries, and the entity tables stay
+row-sharded, a step gathering only its subgraph's rows.  --profile_dir
+writes a torch.profiler trace of the second epoch (the first when it is
+the only one); --debug_nans checks every training step and raises
+FloatingPointError at the first non-finite loss or NaN gradient
+(utils/profiling.py).  Runs on the card unless --device cpu.
 
 --mesh DxM trains on D x M ranks, one process each (parallel/mesh.py):
 rank r at (d, m) = (r // M, r % M).  Each data row trains on its slice of
@@ -65,8 +68,11 @@ backend is NCCL when every rank of a node has a card of its own, gloo when
 ranks share a card or run on the CPU.  Rank 0 alone writes config.json,
 train.log and the checkpoints, which stay canonical (unpadded, gathered
 from the model group), so a mesh run resumes under any other mesh or none.
---subgraph with --mesh or --distributed raises (ROADMAP.md Queue 1 item
-15c).
+--subgraph composes with both; a --batch_size that the data axis does not
+divide raises before any rank starts:
+
+    python -m complexhyperbolickge_torch.cli.run --model CompGCN --subgraph \
+        --neg_sample_size 0 --loss crossentropy --batch_size 500 ... --mesh 2x1
 """
 
 from __future__ import annotations
@@ -331,21 +337,23 @@ def train(args) -> dict:
     environment describe; --mesh DxM alone, with D x M > 1, starts the
     D x M ranks here (one process each, a localhost TCP store) and returns
     rank 0's result; one process otherwise."""
-    if args.subgraph and (args.mesh or args.distributed):
-        raise NotImplementedError("--subgraph with --mesh or --distributed has no PyTorch "
-                                  "port yet (ROADMAP.md Queue 1 item 15c)")
     shape = parse_shape(args.mesh) if args.mesh else None
     if args.distributed:
         if args.coordinator:
             if args.num_processes is None or args.process_id is None:
                 raise ValueError("--coordinator needs --num_processes and --process_id")
             world, rank = args.num_processes, args.process_id
-            return run_rank(args, shape or (world, 1), world, rank, args.coordinator)
-        # torchrun's environment
-        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
-        local = (int(os.environ.get("LOCAL_RANK", rank)),
-                 int(os.environ.get("LOCAL_WORLD_SIZE", world)))
-        return run_rank(args, shape or (world, 1), world, rank, "env://", local)
+            init, local = args.coordinator, None
+        else:  # torchrun's environment
+            world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+            init = "env://"
+            local = (int(os.environ.get("LOCAL_RANK", rank)),
+                     int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+        shape = shape or (world, 1)
+        _check_subgraph_batch(args, shape)
+        return run_rank(args, shape, world, rank, init, local)
+    if shape is not None:
+        _check_subgraph_batch(args, shape)
     if shape is not None and shape[0] * shape[1] > 1:
         world = shape[0] * shape[1]
         results = torch.multiprocessing.get_context("spawn").SimpleQueue()
@@ -361,6 +369,14 @@ def train(args) -> dict:
                 out = results.get()
         return results.get() if out is None else out
     return _train(args, None)
+
+
+def _check_subgraph_batch(args, shape):
+    """--subgraph splits each step's seed queries over the data axis, which
+    must divide --batch_size (SubgraphTrainer raises alike on every rank)."""
+    if args.subgraph and args.batch_size % shape[0]:
+        raise ValueError(f"--subgraph --batch_size {args.batch_size} must divide by the mesh's "
+                         f"'data' axis {shape[0]}")
 
 
 def _spawned(rank, args, shape, init, results):
@@ -460,7 +476,8 @@ def _train(args, mesh, backend: str | None = None) -> dict:
         from complexhyperbolickge_torch.train.subgraph import SubgraphTrainer
 
         # one optimizer: the checkpoint and --resume code read trainer's
-        sub_trainer = SubgraphTrainer(model, tcfg, dataset, optimizer=trainer.optimizer)
+        sub_trainer = SubgraphTrainer(model, tcfg, dataset, mesh=mesh,
+                                      optimizer=trainer.optimizer)
         sub_trainer.debug_nans = args.debug_nans
         logging.info("Subgraph training: %s sampler, %d steps an epoch",
                      sub_trainer.sampler.backend, sub_trainer.steps(args.batch_size))

@@ -6,12 +6,14 @@ from complexhyperbolickge_torch.parallel.mesh import (  # noqa: F401
     ENTITY_PARAMS,
     Mesh,
     gather_entity_tree,
+    gather_rows,
     make_mesh,
     pad_entity_tree,
     padded_rows,
     shard_entity_tree,
     shard_epoch_arrays,
     shard_model_,
+    sum_grads,
     unpad_entity_tree,
 )
 from complexhyperbolickge_torch.parallel.ranking import (  # noqa: F401

@@ -10,7 +10,8 @@ one process per device, D x M ranks, joined by torch.distributed:
     node, as JAX keeps its model axis off the slow fabric;
   * 'data': each training batch splits over the D data rows
     (shard_epoch_arrays), and the gradients of the replicated parameters
-    are summed over the data group (Mesh.sum_data);
+    are summed over the data group (sum_grads; with M > 1 over every rank,
+    divided by M, so the model group's copies stay one);
   * 'model': the entity-table leaves (entity, bh, bt) and their optimizer
     moments live as each rank's own rows only, padded by name to
     padded_rows(N, M) (shard_model_, shard_entity_tree); a training step
@@ -317,6 +318,73 @@ def gather_tables(model: nn.Module, names, mesh: Mesh) -> dict:
     differentiable through _RowGather."""
     n = model.cfg.n_entities
     return {k: _RowGather.apply(getattr(model, k), mesh, n) for k in names}
+
+
+class _OwnedRows(torch.autograd.Function):
+    """Forward: rows `ids` of a table whose rank holds rows [lo, lo + s):
+    each rank reads the ids it owns from its shard, zeros elsewhere, and the
+    model group sums (one nonzero term an element: one process's bits).
+    Backward: the (len(ids), ...) gradient, the same on every data rank's
+    peers, is summed over the data group first (the ids must be the same on
+    every rank of the mesh), then each rank adds the rows it owns into a
+    zero shard gradient.  Neither direction moves more than len(ids) rows."""
+
+    @staticmethod
+    def forward(ctx, local, ids, mesh):
+        s = local.shape[0]
+        lo = mesh.m * s
+        own = ((ids >= lo) & (ids < lo + s)).view(-1, *[1] * (local.dim() - 1))
+        idx = (ids - lo).clamp(0, s - 1)
+        rows = _wire(local.detach())[idx]
+        rows = mesh.sum_model(torch.where(own, rows, torch.zeros_like(rows)))
+        ctx.save_for_backward(idx, own)
+        ctx.mesh, ctx.rows = mesh, s
+        return rows.to(local.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, own = ctx.saved_tensors
+        g = _wire(grad)
+        if ctx.mesh.data_group is not None:
+            g = ctx.mesh.sum_data(g.clone(memory_format=torch.contiguous_format))
+        out = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
+        out.index_add_(0, idx, torch.where(own, g, torch.zeros_like(g)))
+        return out.to(grad.dtype), None, None
+
+
+def gather_rows(model: nn.Module, name: str, ids: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Rows `ids` (global entity ids, the same on every rank) of the
+    row-sharded parameter `name`, differentiable through _OwnedRows: what
+    model.<name>[ids] is in one process, without the whole table on any
+    rank.  On a mesh with M = 1 the shard is the whole table, and the
+    backward still sums only the len(ids) rows over the data group."""
+    return _OwnedRows.apply(getattr(model, name), ids, mesh)
+
+
+def sum_grads(model: nn.Module, mesh: Mesh | None, skip=()):
+    """The gradients of the model's replicated parameters summed over the
+    data group, one flat all_reduce per dtype; the parameters named in
+    `skip` (the row-gathered tables) were summed in their gather's
+    backward.  With M > 1 the all_reduce spans every rank and the sum is
+    divided by M: the model group's copies of a gradient, which a kernel
+    with atomics (index_add_ on the card) may leave an ulp apart, become
+    one value on every rank, so the ranks keep one model.  A no-op without
+    a data group or a model axis."""
+    if mesh is None or (mesh.data_group is None and mesh.n_model == 1):
+        return
+    by_dtype: dict = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None and name not in skip:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for dtype, grads in by_dtype.items():
+        flat = _wire(torch.cat([g.reshape(-1) for g in grads]))
+        if mesh.n_model > 1:
+            dist.all_reduce(flat)
+            flat /= mesh.n_model
+        else:
+            mesh.sum_data(flat)
+        for g, v in zip(grads, flat.to(dtype).split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
 
 
 class _Call(nn.Module):

@@ -30,6 +30,28 @@ order, and per-step losses stay on the device until one sync at the end of
 the epoch.  Randomness (edge and feature dropout) draws from the epoch's
 torch.Generator, where JAX splits a key per step: the bits cannot match
 across the frameworks, so the parity tests run with dropout 0.
+
+On a mesh (parallel/mesh.py, D x M ranks) the step keeps JAX's layout:
+  * every rank samples the whole step's subgraph (the epoch's rng and
+    seed_base are the same everywhere and the C++ sampler is deterministic
+    given its seed), so the node ids, edges, train mask and the encoder
+    over them are replicated; the dropouts draw from the same generator in
+    the same order on every rank, so a mesh run is one process's run;
+  * each data row keeps its slice of the query rows (queries, their global
+    form, the BCE labels, query_weight), and divides by the whole batch's
+    normalizers (Mesh.data_total);
+  * the entity tables are row-sharded over 'model' as the full-graph
+    Trainer shards them, and a step gathers only its subgraph's rows
+    (parallel/mesh.py::gather_rows: entity, bh and bt at node_ids; the
+    queries' heads are subgraph nodes, so bh[global head] is that table at
+    the local head) and runs the one-process loss on them, the tables
+    swapped in through call_with_tables with local ids; no collective of a
+    step carries more than the subgraph's rows of a table;
+  * the replicated parameters' gradients are summed over the data group
+    once per optimizer step (parallel/mesh.py::sum_grads, which also
+    averages the model group's copies: the masked convs' index_add_ sums
+    leave them an ulp apart on the card), and the encoder's regularizer,
+    which is no batch, is added by data row 0 only.
 """
 
 from __future__ import annotations
@@ -41,6 +63,14 @@ import numpy as np
 import torch
 
 from complexhyperbolickge_torch.data.sampler import NeighborSampler, Subgraph
+from complexhyperbolickge_torch.parallel.mesh import (
+    ENTITY_PARAMS,
+    batch_rows,
+    call_with_tables,
+    gather_rows,
+    shard_model_,
+    sum_grads,
+)
 from complexhyperbolickge_torch.train.regularizers import get_regularizer
 from complexhyperbolickge_torch.train.trainer import TrainConfig, make_optimizer
 from complexhyperbolickge_torch.utils.profiling import nan_check
@@ -82,8 +112,11 @@ class SubgraphTrainer:
     optimizer: the torch optimizer over the model's parameters to step
     (cli/run.py passes the full-graph Trainer's, so its checkpoint and
     resume code serve both); None builds one with make_optimizer (float32
-    state for bfloat16 params).  mesh: subgraph training on a mesh is not
-    ported (ROADMAP.md Queue 1 item 15c) and must be None."""
+    state for bfloat16 params).  mesh: a parallel/mesh.py Mesh, or None for
+    one process; with M > 1 an unsharded model's entity tables are cut to
+    this rank's rows here, before the optimizer is built (the CLI passes a
+    model the full-graph Trainer sharded).  A batch_size that the data
+    axis does not divide raises ValueError."""
 
     debug_nans = False  # --debug_nans: check every step (utils/profiling.py)
 
@@ -96,9 +129,16 @@ class SubgraphTrainer:
                              "neg_sample_size 0")
         if cfg.loss not in ("crossentropy", "binarycrossentropy"):
             raise ValueError(f"unknown loss {cfg.loss!r}")
-        if mesh is not None:
-            raise NotImplementedError("subgraph training on a mesh has no PyTorch port yet "
-                                      "(ROADMAP.md Queue 1 item 15c)")
+        if mesh is not None and cfg.batch_size % mesh.n_data:
+            raise ValueError(f"subgraph batch_size {cfg.batch_size} must divide by the mesh's "
+                             f"'data' axis {mesh.n_data}")
+        self.mesh = mesh if mesh is not None and mesh.collective else None
+        # the tables a step gathers at its subgraph's rows (on a mesh)
+        self.rows = ()
+        if self.mesh is not None:
+            self.rows = tuple(k for k in ENTITY_PARAMS if k in model._parameters)
+            if self.mesh.n_model > 1 and model.entity.shape[0] == model.cfg.n_entities:
+                shard_model_(model, self.mesh.m, self.mesh.n_model)
         self.model = model
         self.cfg = cfg
         self.sampler = NeighborSampler(dataset, fanouts=fanouts, max_nodes=max_nodes,
@@ -117,8 +157,22 @@ class SubgraphTrainer:
     def _loss(self, node_ids, edges, train_mask, queries, gqueries, labels, qw,
               generator=None):
         """The loss of one subgraph batch (tensors on the model's device, as
-        _to_device gives them; labels None for CE)."""
-        model, cfg = self.model, self.cfg
+        _to_device gives them; labels None for CE).  On a mesh: the loss of
+        this rank's query rows, over the subgraph's gathered table rows."""
+        if not self.rows:
+            return self._subgraph_loss(node_ids, edges, train_mask, queries, gqueries, labels,
+                                       qw, generator)
+        tables = {k: gather_rows(self.model, k, node_ids, self.mesh) for k in self.rows}
+        local = torch.arange(node_ids.shape[0], device=node_ids.device)
+        # in the swapped-in tables a node's id is its local id, a query's
+        # head too
+        return call_with_tables(self.model, tables, self._subgraph_loss, local, edges,
+                                train_mask, queries, queries, labels, qw, generator)
+
+    def _subgraph_loss(self, node_ids, edges, train_mask, queries, gqueries, labels, qw,
+                       generator):
+        model, cfg, mesh = self.model, self.cfg, self.mesh
+        total = mesh.data_total if mesh is not None else (lambda x: x)
         cache = model.encode_subgraph(node_ids, edges, train_mask, None, generator,
                                       training=True)
         x = cache[0]
@@ -135,7 +189,7 @@ class SubgraphTrainer:
             nll = -torch.gather(logp, 1, queries[:, 2:3])[:, 0]
             if eps:
                 nll = (1 - eps) * nll + eps * torch.sum(-logp, dim=-1) / n_nodes
-            loss = torch.sum(qw * nll) / torch.sum(qw)
+            loss = torch.sum(qw * nll) / total(torch.sum(qw))
         else:
             y = labels.to(s.dtype)
             if eps:
@@ -144,8 +198,9 @@ class SubgraphTrainer:
             log_p = torch.clamp_min(ls, -100.0)
             log_1mp = torch.clamp_min(ls - s, -100.0)
             per = -(y * log_p + (1 - y) * log_1mp)
-            loss = torch.sum(per * qw[:, None]) / (torch.sum(qw) * n_nodes)
-        if not cfg.reg:
+            loss = torch.sum(per * qw[:, None]) / (total(torch.sum(qw)) * n_nodes)
+        if not cfg.reg or (mesh is not None and mesh.d != 0):
+            # the encoder's weights are no batch: data row 0 adds them, once
             return loss
         factors = model.get_factors()
         return loss + self.reg_fn(factors, cfg.reg, factors[0].shape[0])
@@ -165,7 +220,12 @@ class SubgraphTrainer:
                        sub.node_ids[sub.queries[:, 2]]], axis=1)
         qw = (sub.query_weight if sub.query_weight is not None
               else np.ones(len(sub.queries), np.float32))
-        return sub.node_ids[:n], sub.edges[:e], sub.train_mask[:e], sub.queries, gq, labels, qw
+        queries = sub.queries
+        if self.mesh is not None:  # this data row's query rows
+            rows = batch_rows(self.mesh, len(queries))
+            queries, gq, qw = queries[rows], gq[rows], qw[rows]
+            labels = None if labels is None else labels[rows]
+        return sub.node_ids[:n], sub.edges[:e], sub.train_mask[:e], queries, gq, labels, qw
 
     def _host_tensors(self, prepped):
         """_prep_host's arrays as CPU tensors (ids int64), pinned when the
@@ -189,6 +249,7 @@ class SubgraphTrainer:
         return out
 
     def _apply(self):
+        sum_grads(self.model, self.mesh, self.rows)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
@@ -199,7 +260,8 @@ class SubgraphTrainer:
         """One epoch of seed batches shuffled by `rng` (the sampler's seeds
         derive from epoch_id), dropout drawn from `generator`; max_steps
         stops after that many batches (a profiling window).  Returns the
-        mean loss, synced once."""
+        mean loss, synced once (on a mesh, the ranks' shares summed over the
+        data group first)."""
         q: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
 
@@ -232,7 +294,7 @@ class SubgraphTrainer:
         n_pending = 0
         self.optimizer.zero_grad(set_to_none=True)
         try:
-            with nan_check(self.debug_nans, epoch_id) as check:
+            with nan_check(self.debug_nans, epoch_id, self.mesh, self.model) as check:
                 while True:
                     item = q.get()
                     if item is None:
@@ -256,4 +318,7 @@ class SubgraphTrainer:
             t.join()
         if not losses:
             return 0.0
-        return float(torch.sum(torch.stack(losses))) / len(losses)
+        losses = torch.stack(losses)
+        if self.mesh is not None:
+            losses = self.mesh.sum_data(losses)
+        return float(torch.sum(losses)) / len(losses)

@@ -46,9 +46,10 @@ dropout masks, over the whole graph) from the step generator and keeps its
 rows, so the ranks train on the negatives one process draws; each divides
 its slice's sums by the global normalizers (losses.py `total`), and the
 gradients of the replicated parameters are summed over the data group
-before the optimizer step.  A regularizer term that does not depend on the
-batch (a NoMask factor: the whole entity table, a GNN's weights) is added
-by data row 0 alone.  With M > 1 the entity tables are row-sharded: the
+before the optimizer step (parallel/mesh.py::sum_grads, which also makes
+the model group's copies one).  A regularizer term that does not depend on
+the batch (a NoMask factor: the whole entity table, a GNN's weights) is
+added by data row 0 alone.  With M > 1 the entity tables are row-sharded: the
 model holds its own rows of entity, bh and bt (and the optimizer their
 moments), and each step runs the loss through torch.func.functional_call
 on the tables gathered inside the model group, so K3 reads candidate rows
@@ -70,6 +71,7 @@ from complexhyperbolickge_torch.parallel.mesh import (
     gather_tables,
     shard_epoch_arrays,
     shard_model_,
+    sum_grads,
 )
 from complexhyperbolickge_torch.train import losses as L
 from complexhyperbolickge_torch.train.regularizers import get_regularizer
@@ -325,24 +327,6 @@ class Trainer:
         self.optimizer = make_optimizer(self.cfg.optimizer, self.cfg.learning_rate,
                                         m.parameters())
 
-    def _sum_grads(self):
-        """The replicated parameters' gradients summed over the data group,
-        one flat all_reduce per dtype (the row-sharded tables' were summed
-        in the gather's backward)."""
-        mesh = self.mesh
-        if mesh is None or mesh.data_group is None:
-            return
-        by_dtype: dict = {}
-        for name, p in self.model.named_parameters():
-            if p.grad is not None and name not in self.sharded:
-                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for dtype, grads in by_dtype.items():
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            wide = flat.float() if dtype == torch.bfloat16 else flat
-            flat = mesh.sum_data(wide).to(dtype)
-            for g, v in zip(grads, flat.split([g.numel() for g in grads])):
-                g.copy_(v.view_as(g))
-
     def train_step(self, batch, weights, generator, apply: bool = True, labels=None,
                    check=None):
         """Loss and backward of one batch (gradients add to those already
@@ -356,7 +340,7 @@ class Trainer:
         else:
             check.backward(loss)
         if apply:
-            self._sum_grads()
+            sum_grads(self.model, self.mesh, self.sharded)
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
         return loss.detach()

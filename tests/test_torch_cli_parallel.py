@@ -10,7 +10,9 @@ The checkpoints are canonical, so the JAX package loads and ranks them,
 and the port resumes a run dir that JAX wrote on a mesh (--mesh 4x2: the
 JAX CLI lays its mesh over all 8 of the tests' virtual devices).  A pair of
 processes launched with --distributed (--coordinator, or torchrun's
-environment) matches the spawned 2x1 run.  Every multi-process run has a deadline.
+environment) matches the spawned 2x1 run, and a --subgraph --distributed
+pair trains a CompGCN as one process does.  Every multi-process run has a
+deadline.
 """
 
 import os
@@ -25,7 +27,7 @@ import pytest
 from complexhyperbolickge_torch.cli import run as R
 from complexhyperbolickge_torch.cli.run import free_port
 from complexhyperbolickge_torch.cli.test import test as torch_test
-from complexhyperbolickge_torch.train.checkpoint import load_checkpoint
+from complexhyperbolickge_torch.train.checkpoint import flatten, load_checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
 N_ENT = 61
@@ -168,10 +170,54 @@ def test_distributed_pair_matches_the_spawned_run(runs, tmp_path, rendezvous):
         np.testing.assert_array_equal(pair["params"][k], v)
 
 
-def test_subgraph_on_a_mesh_raises_before_any_rank_starts(tmp_path):
-    for flags in (["--mesh", "1x2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="item 15c"):
-            run(tmp_path, "--model", "CompGCN", "--subgraph", "--neg_sample_size", "0", *flags)
+SUBGRAPH = ["--dataset", "synthetic", "--synthetic_entities", str(N_ENT), "--model", "CompGCN",
+            "--rank", "8", "--hidden_dim", "8", "--layers", "1", "--edge_dropout", "0.3",
+            "--subgraph", "--neg_sample_size", "0", "--loss", "crossentropy", "--batch_size",
+            "64", "--eval_batch_size", "128", "--optimizer", "Adam", "--learning_rate", "0.01",
+            "--bias", "learn", "--multi_c", "--dtype", "float64", "--valid", "1", "--seed", "3",
+            "--max_epochs", "1", "--device", "cpu"]
+
+
+def test_subgraph_distributed_pair_matches_one_process(tmp_path, monkeypatch):
+    """kge-train --subgraph --distributed on two processes (the default
+    mesh: world x 1, each data row half of every step's seed queries)
+    trains, validates and writes the checkpoint one process writes: the
+    loss and the metrics to rel 1e-9, the params to rtol 1e-7 with an
+    absolute floor of 1e-7 (Adam turns the two halves' other order of
+    addition into ~1e-9 steps on nearly cancelled entries, and bh, whose
+    CE gradient is zero up to rounding, holds Adam's ~1e-11 steps of
+    rounding noise in both runs)."""
+    from complexhyperbolickge_torch.data import sampler as S
+
+    lib = S.build_library(tmp_path / "native")
+    monkeypatch.setenv("KGSAMPLER_LIB", str(lib))
+    monkeypatch.setattr(S, "_LIB", None)
+    one = R.train(R.build_parser().parse_args(SUBGRAPH + ["--save_dir", str(tmp_path / "one")]))
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "complexhyperbolickge_torch.cli.run", *SUBGRAPH, "--save_dir",
+           str(tmp_path / "pair"), "--distributed", "--coordinator", f"127.0.0.1:{port}",
+           "--num_processes", "2"]
+    procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=str(tmp_path), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs[0][-3000:] + outs[1][-3000:]
+    log = (tmp_path / "pair" / "train.log").read_text()
+    assert "Mesh: data=2 model=1 over 2 ranks" in log and "cpp sampler" in log
+    want, got = load_checkpoint(str(tmp_path / "one")), load_checkpoint(str(tmp_path / "pair"))
+    assert got["epoch"] == want["epoch"] == 1
+    got_params = flatten(got["params"])
+    for k, v in flatten(want["params"]).items():
+        np.testing.assert_allclose(got_params[k], v, rtol=1e-7, atol=1e-7, err_msg=k)
+    pair = torch_test(str(tmp_path / "pair"), device="cpu")
+    for k in ("MR", "MRR", "hits@[1,3,10]"):
+        _close(pair[k], one["test"][k])
+    assert "average train loss: %.4f" % one["history"][0]["train_loss"] in log
 
 
 def test_world_size_must_equal_the_mesh(tmp_path):

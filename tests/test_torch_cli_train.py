@@ -10,7 +10,7 @@ dense ranker).  The same for the GNN path: a CompGCN run trains and
 resumes, and GNN run dirs cross between the packages both ways; with
 --subgraph a CompGCN trains on sampled subgraphs and resumes.
 --profile_dir writes a trace, --debug_nans stops at the first NaN step,
-and only --subgraph on a mesh is left unported.
+and --subgraph on a mesh refuses a batch its data axis does not divide.
 """
 
 import os
@@ -95,14 +95,16 @@ def test_port_checkpoint_evaluates_in_both_packages(continuous):
     assert abs(got["MRR"] - want["MRR"]) < 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x2"], ["--distributed"]])
-def test_unported_flags_raise(flag, tmp_path):
-    """--mesh and --distributed run (test_torch_cli_parallel.py); only
-    subgraph training on a mesh is left, and raises before any rank
-    starts."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15c"):
+@pytest.mark.parametrize("flag", [["--mesh", "2x1"],
+                                  ["--distributed", "--coordinator", "127.0.0.1:1",
+                                   "--num_processes", "2", "--process_id", "0"]])
+def test_subgraph_batch_the_data_axis_does_not_divide_raises(flag, tmp_path):
+    """--subgraph runs on a mesh (tests/test_torch_parallel_subgraph.py);
+    a --batch_size that the data axis does not divide is refused before any
+    rank starts or joins a group, as JAX's SubgraphTrainer refuses it."""
+    with pytest.raises(ValueError, match="'data' axis 2"):
         run(tmp_path, "--max_epochs", "1", "--model", "CompGCN", "--subgraph",
-            "--neg_sample_size", "0", *flag)
+            "--neg_sample_size", "0", "--batch_size", "255", *flag)
 
 
 def test_only_the_multi_device_flags_are_unported():

@@ -28,6 +28,7 @@ import torch
 from complexhyperbolickge_torch.data import sampler as S
 from complexhyperbolickge_torch.data.dataset import synthetic_kg
 from complexhyperbolickge_torch.models import ModelConfig, get_model
+from complexhyperbolickge_torch.parallel import Mesh
 from complexhyperbolickge_torch.train.checkpoint import params_from_jax
 from complexhyperbolickge_torch.train.subgraph import SubgraphTrainer
 from complexhyperbolickge_torch.train.trainer import TrainConfig
@@ -210,8 +211,9 @@ def test_subgraph_trainer_refuses_what_jax_refuses(data):
     _, _, tm = build(data, "CompGCN")
     with pytest.raises(ValueError, match="neg_sample_size 0"):
         SubgraphTrainer(tm, TrainConfig(neg_sample_size=5), data[0], **SAMPLER)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        SubgraphTrainer(tm, TrainConfig(neg_sample_size=0), data[0], mesh=object(), **SAMPLER)
+    with pytest.raises(ValueError, match="'data' axis 2"):
+        SubgraphTrainer(tm, TrainConfig(neg_sample_size=0, batch_size=33), data[0],
+                        mesh=Mesh((2, 1)), **SAMPLER)
     shallow = get_model("RotH")(ModelConfig(n_entities=60, n_relations=8, rank=4))
     with pytest.raises(ValueError, match="GNN-only"):
         SubgraphTrainer(shallow, TrainConfig(neg_sample_size=0), data[0], **SAMPLER)
