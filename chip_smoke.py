@@ -86,6 +86,11 @@ line:
               RotLH, AttRH, D 32) against their plain default versions on
               each model's first test batch (inputs from the default
               rankers' kernel_inputs); maskless == masked exactly
+ 10b bf16-bits  the bits of AttRH's branch-free bf16 epilogue: its square
+              root against __fsqrt_rn over every non-negative finite float32,
+              its division against __fdiv_rn over 2^32 drawn pairs, and the
+              K7/K8 bf16 sweep's scores against score_from_radii's for every
+              pair of AttRH's first test batch; mismatch counts, any > 0 fails
  11 launches  each path's kernel launches; a kernel of a path that never
               launched there fails the run, K3/K4 (and chyp_train_lists,
               K4's index preparation) must launch at least once
@@ -163,7 +168,9 @@ line:
               bfloat16 instances under "bfloat16"; the rows of the rankers'
               bf16 instances, `<name>_bf16`, with their exact instance's
               time (exact_ms), the contraction's torch.mm time as
-              library_ms, and the Lorentz K5/K6 instantiation under
+              library_ms, the bound's winning term (bound_term: the
+              epilogue on the fp32 cores, the tensor cores or the bytes),
+              and the Lorentz K5/K6 instantiation under
               "lorentz"; each rank's launches on the mesh paths,
               mesh_rank_launches_per_rank, mesh_train_launches_per_rank and
               mesh_subgraph_launches_per_rank)
@@ -353,6 +360,49 @@ SFU_PER_PAIR = {"chyp": 3, "poincare": 7, "lorentz": 4, "attrh": 14}
 # transcendental call as one: a floor, since a tanhf or log1pf is ~20
 # instructions
 EPILOGUE_OPS = {"poincare": 54, "lorentz": 23, "attrh": 93}
+# bf16-bits: the drawn pairs of the division's proof (2^32)
+BITS_QUOT_PAIRS = 1 << 32
+
+
+def bound_ms(peaks, nbytes, f32_ops=0, f64_ops=0, tc_ops=0):
+    """The least time (ms) a card of `peaks` (a PEAKS entry) takes for a
+    kernel's work: the largest of its fp32 and fp64 operations over those
+    rates (one term: both issue on the SMs' cores), its tensor-core
+    operations over the bf16 tensor-core rate (a separate unit), and its
+    bytes over the memory rate.  Returns (ms, "operations" or "bytes", the
+    term that wins: "cores", "tensor_cores" or "bytes")."""
+    f32_peak, bw_peak, f64_peak, bf16_peak = peaks
+    terms = {"cores": (f32_ops / f32_peak + f64_ops / f64_peak) * 1e3,
+             "tensor_cores": tc_ops / bf16_peak * 1e3, "bytes": nbytes / bw_peak * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], ("bytes" if term == "bytes" else "operations"), term
+
+
+def bf16_row_work(kname, family, b, n, d, kept=0, n_rows=0, l=0, n_c=0, table_width=0):
+    """(tensor-core operations, fp32 operations, bytes) of a bf16 instance
+    `kname` (`<kernel>_bf16`) of `family` ("chyp", "poincare", "lorentz" or
+    "attrh") at the model's N entities and D features, for B queries: the
+    contraction's 2 M N D on the tensor cores (M = 2B query rows for the FFT
+    family, B otherwise; a subtraction only its `kept` filter ids, of
+    `n_rows` distinct rows, L a query); the family's EPILOGUE_OPS a pair in
+    fp32, as the exact rows count them (none for the FFT family); bytes
+    each input once: bf16 operands, f32 per-query and per-row vectors, the
+    int8 mask or the gold, the radius table's real rows of its n_c
+    curvatures (table_width floats an entry) and cvals, the counts."""
+    chyp = family == "chyp"
+    m_rows = 2 * b if chyp else b
+    names = HYP_ARGS["attrh" if family == "attrh" else "hyp"]
+    n_pq = 2 if chyp else names.index("rhs") - 1  # per-query vectors
+    n_pr = 2 if chyp else len(names) - names.index("rhs") - 1  # per-row vectors
+    epi = EPILOGUE_OPS.get(family, 0)
+    if "_sweep_" in kname:
+        nbytes = (2 * (m_rows + n) * d + 4 * (b * n_pq + n * n_pr) + 4 * b
+                  + (b * n if kname.endswith("masked_bf16") else 4 * b))
+        if not chyp:
+            nbytes += 4 * (n_c * table_width * n + n_c + b)
+        return 2 * m_rows * n * d, b * n * epi, nbytes
+    nbytes = 2 * (m_rows + n_rows) * d + 4 * (b * n_pq + n_rows * n_pr) + 4 * b * l + 8 * b
+    return 2 * (2 if chyp else 1) * kept * d, kept * epi, nbytes
 
 
 def emit(obj):
@@ -1265,7 +1315,6 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     b, d = base[0].shape[0] // 2, base[0].shape[1]
     np_, ld = base[3].shape  # the table's rows padded to ld >= d floats
     l = xn["fidx"].shape[1]
-    f32_peak, bw_peak, f64_peak, _ = peak_rates(name)
     # whole rankers per batch, query prep included (~200 launches a call)
     dense = make_ranker(model)
     dense_ms = busy_ms(lambda: dense(q, f))
@@ -1325,8 +1374,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     lists_ms = cuda_ms(lambda: CT.chyp_train_lists(g, ids.reshape(-1), *res, tn), reps=50)
     rows = []
     for kname, (kernel, plain, args, f32_ops, f64_ops, nbytes) in work.items():
-        t_ops = (f32_ops / f32_peak + f64_ops / f64_peak) * 1e3
-        t_bytes = nbytes / bw_peak * 1e3
+        bound, bound_by, _ = bound_ms(peak_rates(name), nbytes, f32_ops, f64_ops)
         row = {
             "name": kname, "route": "cuda",
             "source": SOURCES["chyp_train" if kname in TRAIN_KERNELS else "chyp_rank"],
@@ -1334,9 +1382,7 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
             "max_abs_err": errors[kname],
             "ms": cuda_ms(lambda: kernel(*args), reps=50),
             "plain_ms": cuda_ms(lambda: plain(*args)),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "card": smi,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "card": smi,
         }
         if kname in TRAIN_KERNELS:
             row.update(step_ms=step_ms, shape={"B": tb, "K": ids.shape[1], "N": tn, "D": td,
@@ -1374,7 +1420,6 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
     from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker, sweep_info
     from complexhyperbolickge_torch.train.evaluate import make_ranker
 
-    f32_peak, bw_peak, _, _ = peak_rates(name)
     timed = {}
     for mname, (model, _) in hyp.items():
         family = HYP_MODELS[mname]
@@ -1405,13 +1450,12 @@ def hyp_kernel_rows(hyp, batches, launches, errors, smi, name):
         for kname, (kernel, plain, argnames) in fns.items():
             args = [x[k] for k in argnames]
             ops, nbytes = work[kname]
-            t_ops, t_bytes = ops / f32_peak * 1e3, nbytes / bw_peak * 1e3
+            bound, bound_by, _ = bound_ms(peak_rates(name), nbytes, ops)
             timed[(kname, family)] = {
                 "model": mname, "family": family, "max_abs_err": errors[(kname, family)],
                 "ms": cuda_ms(lambda: kernel(*args), reps=50),
                 "plain_ms": cuda_ms(lambda: plain(*args)),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": bound, "bound_by": bound_by,
                 "dense_ms": dense_ms, "ranker_ms": ranker_ms[kname.endswith("_masked")],
                 "shape": {"B": b, "Np": np_, "D": d, "L": l}}
             if "_sweep_" in kname:
@@ -1525,6 +1569,41 @@ def phase_bf16_kernels(model, dataset, hyp: dict):
     return work, errors
 
 
+def phase_bf16_bits(hyp: dict, seed: int):
+    """The bits of AttRH's bf16 epilogue (K7/K8 bf16, branch-free with a
+    range flag a pair) on the card: (i) its square root against __fsqrt_rn
+    over every non-negative finite float32, (ii) its division against
+    __fdiv_rn over BITS_QUOT_PAIRS pairs drawn across the epilogue's
+    operand ranges and the edge cases (hyp_rank.fast_arith_sweep), (iii)
+    the sweep's scores through the batched epilogue against
+    score_from_radii's for every pair of the AttRH run's first test batch
+    (B 500 x Np 40,960, every curvature of the run; attrh_scores_bf16).
+    Any differing bit fails the run."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import hyp_rank as H
+
+    t0 = time.perf_counter()
+    out = {"phase": "bf16-bits", **H.fast_arith_sweep(DEVICE, BITS_QUOT_PAIRS, seed)}
+    out["arith_seconds"] = time.perf_counter() - t0
+    model, data = hyp["AttRH"]
+    pack = data.eval_pack("test", "rhs")
+    q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=DEVICE)
+    f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=DEVICE)
+    x = H.AttRHRanker(model, masked=False, precision="default").kernel_inputs(q, f)
+    args = [x[k] for k in HYP_SWEEP_ARGS["attrh"] if k != "t2"]
+    fast, ieee = H.attrh_scores_bf16(*args), H.attrh_scores_bf16(*args, ieee=True)
+    torch.cuda.synchronize()
+    out.update(score_pairs=fast.numel(), n_curvatures=int(x["cvals"].numel()),
+               score_mismatches=int((fast.view(torch.int32) != ieee.view(torch.int32)).sum()),
+               scores_finite=bool(torch.isfinite(fast[:, :model.cfg.n_entities]).all()))
+    emit(out)
+    bad = {k: out[k] for k in ("sqrt_mismatches", "quot_mismatches", "score_mismatches")
+           if out[k]}
+    if bad or not out["scores_finite"]:
+        raise AssertionError(f"the AttRH bf16 epilogue's bits differ from IEEE's: {out}")
+
+
 def dense_default_scores(gnn_dir: str, dataset) -> dict:
     """The dense default path's score region on one card batch: the
     CompGCN run's score_all inside eval_matmul_precision("default") is not
@@ -1627,25 +1706,23 @@ def phase_default_kge_test(runs: dict, gnn_dir: str, dataset):
 def bf16_kernel_rows(work, launches, errors, smi, name):
     """The kernels line's rows of the bf16 instances, timed on the batches
     of phase_bf16_kernels beside their exact instances (exact_ms, same
-    call).  Bound, at the model's own width and entity count (D features,
-    N entities: the zero features padding a row to the mma k-step and the
-    pad rows of the table are the kernel's, not the function's): the
-    contraction's 2 M N D operations (M = 2B query rows for the FFT
-    family, B otherwise; a subtraction only this batch's kept filter ids)
-    over the card's dense bf16 tensor-core rate, or the bytes each input
-    once (bf16 operands, f32 vectors, the mask or the gold, the radius
-    table) over its memory rate, whichever is larger;
-    the epilogue's transcendental calls, divisions and square roots a pair
-    beside it (SFU_PER_PAIR: the radius tables hold the rest).  library_ms:
-    torch.mm of the bf16 operands with a float32 output for the same
-    (M x Dp) x (Dp x Np) contraction of the kernel's padded inputs, the
-    contraction alone (no PyTorch call computes the count)."""
+    call).  Bound (bound_ms on bf16_row_work), at the model's own width
+    and entity count (D features, N entities: the zero features padding a
+    row to the mma k-step and the pad rows of the table are the kernel's,
+    not the function's): the largest of the contraction on the tensor
+    cores, the epilogue's EPILOGUE_OPS a pair on the fp32 cores (the exact
+    rows' epilogue term; the radius tables hold part of it) and the bytes
+    each input once; bound_term names the winner.  The epilogue's
+    transcendental calls, divisions and square roots a pair beside it
+    (SFU_PER_PAIR).  library_ms: torch.mm of the bf16 operands with a
+    float32 output for the same (M x Dp) x (Dp x Np) contraction of the
+    kernel's padded inputs, the contraction alone (no PyTorch call
+    computes the count)."""
     import torch
 
     from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
-    _, bw_peak, _, bf16_peak = peak_rates(name)
     rows = []
     for (kname, family), (kernel, plain, exact, x, ranker_ms, n, d) in work.items():
         chyp = family == "chyp"
@@ -1655,27 +1732,18 @@ def bf16_kernel_rows(work, launches, errors, smi, name):
         b = m_rows // 2 if chyp else m_rows
         fidx, gold = x["fidx"].long(), x["gold"].long()
         kept = (fidx >= 0) & (fidx < n) & (fidx != gold[:, None])
-        n_rows = int(torch.unique(fidx[kept]).numel())
-        names = HYP_ARGS["attrh" if family == "attrh" else "hyp"]
-        n_pq = 2 if chyp else names.index("rhs") - 1  # per-query vectors
-        n_pr = 2 if chyp else len(names) - names.index("rhs") - 1  # per-row vectors
-        if "_sweep_" in kname:
-            ops = 2 * m_rows * n * d
-            nbytes = (2 * (m_rows + n) * d + 4 * (b * n_pq + n * n_pr) + 4 * b
-                      + (b * n if kname.endswith("masked_bf16") else 4 * b))
-            if not chyp:  # the radius table's rows of the real entities
-                nbytes += 4 * (x["radii"].numel() // np_ * n + x["cvals"].numel() + b)
-        else:
-            ops = 2 * (2 if chyp else 1) * int(kept.sum()) * d
-            nbytes = (2 * (m_rows + n_rows) * d + 4 * (b * n_pq + n_rows * n_pr)
-                      + 4 * fidx.numel() + 8 * b)
-        t_ops, t_bytes = ops / bf16_peak * 1e3, nbytes / bw_peak * 1e3
+        n_c = 0 if chyp else int(x["cvals"].numel())
+        tc_ops, f32_ops, nbytes = bf16_row_work(
+            kname, family, b, n, d, kept=int(kept.sum()),
+            n_rows=int(torch.unique(fidx[kept]).numel()), l=int(fidx.shape[1]), n_c=n_c,
+            table_width=0 if chyp else x["radii"].shape[-1])
+        bound, bound_by, bound_term = bound_ms(peak_rates(name), nbytes, f32_ops,
+                                               tc_ops=tc_ops)
         row = {"name": kname, "route": "cuda", "source": SOURCES["chyp_rank" if chyp else "hyp_rank"],
                "replaces": KERNEL_META[kname.removesuffix("_bf16")] + ' (precision="default")',
                "launches": launches[kname], "max_abs_err": errors[(kname, family)],
                "ms": cuda_ms(kernel, reps=50), "plain_ms": cuda_ms(plain),
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bound_ms": bound, "bound_by": bound_by, "bound_term": bound_term,
                "library_ms": None, "card": smi, "family": family,
                "exact_ms": cuda_ms(exact, reps=50), "ranker_ms": ranker_ms,
                "epilogue_sfu_per_pair": SFU_PER_PAIR[family],
@@ -2359,21 +2427,15 @@ def gnn_kernel_rows(meas, launches, smi, name):
     each input read once (msgs, row_ptr; the table, ids) and the output
     written once, K10's table as the distinct rows its ids fetch; K9's E H
     fp32 additions as operations."""
-    f32_peak, bw_peak, _, _ = peak_rates(name)
+    def bounded(m):
+        m = dict(m)
+        bound, bound_by, _ = bound_ms(peak_rates(name), m.pop("nbytes"), m.pop("ops"))
+        return {**m, "bound_ms": bound, "bound_by": bound_by}
+
     rows = []
     for kname in GNN_KERNELS:
-        by_h = {}
-        for h in GNN_WIDTHS:
-            m = dict(meas[(kname, h)])
-            t_ops, t_bytes = m.pop("ops") / f32_peak * 1e3, m.pop("nbytes") / bw_peak * 1e3
-            by_h[h] = {**m, "bound_ms": max(t_ops, t_bytes),
-                       "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        bf16 = {}
-        for h in GNN_WIDTHS:
-            m = dict(meas[(kname, h, "bfloat16")])
-            t_ops, t_bytes = m.pop("ops") / f32_peak * 1e3, m.pop("nbytes") / bw_peak * 1e3
-            bf16[h] = {**m, "bound_ms": max(t_ops, t_bytes),
-                       "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        by_h = {h: bounded(meas[(kname, h)]) for h in GNN_WIDTHS}
+        bf16 = {h: bounded(meas[(kname, h, "bfloat16")]) for h in GNN_WIDTHS}
         main = by_h[GNN_WIDTHS[-1]]
         rows.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                      "replaces": KERNEL_META[kname], "launches": launches[kname], **main,
@@ -2859,6 +2921,7 @@ def main(argv=None) -> int:
         hyp = {m: load_serving_state(d, "cuda") for m, d in hyp_dirs.items()}
         hyp_batches, hyp_errors = phase_hyp_kernels(hyp)
         bf16_work, bf16_errors = phase_bf16_kernels(model, dataset, hyp)
+        phase_bf16_bits(hyp, a.seed)
 
         KS.reset_launches()  # the FFT serving and evaluation path starts here
         phase_kge_test(model_dir, model, dataset)

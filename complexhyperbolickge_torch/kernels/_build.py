@@ -34,7 +34,7 @@ SOURCES = ("chyp_rank", "chyp_train", "hyp_rank", "segsum", "gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
 _IP = ctypes.POINTER(ctypes.c_int)
 
 
@@ -73,6 +73,9 @@ SIGNATURES = {
         "hyp_rank_radii": [_P] * 4 + [_I] * 3 + [_F, _P],
         "hyp_rank_sweep_info": [_I] * 3 + [_IP] * 4,
         "hyp_rank_sweep_bf16_info": [_I] * 3 + [_IP] * 4,
+        # the proofs of AttRH's bf16 epilogue and of its fast paths
+        "attrh_rank_scores_bf16": [_P] * 13 + [_I] * 5 + [_P],
+        "hyp_rank_fast_arith_sweep": [_U64, _U64, _P, _P],
     },
     "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
     "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},

@@ -55,7 +55,11 @@ lhs (B, Dp) and rhs (Np, Dp) bfloat16, Dp a multiple of 16, zero past D
 (bf16_rows; AttRH: each half padded on its own, so Dp = 2 round_up(D / 2,
 16)); every other input stays float32, un from the unrounded rows.  The
 radius tables do not change: they depend on un and c only.  The plain
-versions also take float32 operands and round them.
+versions also take float32 operands and round them.  AttRH's bf16 sweeps
+score from a shared-memory tile with a branch-free epilogue whose
+divisions and square roots give __fdiv_rn's / __fsqrt_rn's bits
+(csrc/hyp_rank.cu, bf16 namespace); attrh_scores_bf16 and
+fast_arith_sweep prove that on the card and are not path kernels.
 """
 
 from __future__ import annotations
@@ -78,7 +82,9 @@ KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_
            "attrh_rank_sweep_masked", "attrh_rank_sweep_nomask", "attrh_rank_filtered_sub")
 # launches of each CUDA kernel since the last reset_launches(): the exact
 # instances, the bf16 ones (precision "default") and the radius launcher
-launches = {**{k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS}, "hyp_rank_radii": 0}
+launches = {**{k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS}, "hyp_rank_radii": 0,
+            # the proofs of AttRH's bf16 epilogue (attrh_scores_bf16, fast_arith_sweep)
+            "attrh_rank_scores_bf16": 0, "hyp_rank_fast_arith_sweep": 0}
 
 
 def reset_launches():
@@ -531,6 +537,50 @@ def attrh_rank_counts_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot,
                                     bt, radii, gold, precision)
     return sweep - attrh_rank_filtered_sub(lhs, x2r, x2f, c, w0, w1, t2, rhs, un_rot, un_ref,
                                            bt, fidx, gold, precision)
+
+
+# ---------------------- proofs of AttRH's bf16 epilogue -----------------------
+
+# the non-negative finite float32 values, 0 .. 0x7f7fffff
+ROOT_INPUTS = 0x7F800000
+
+
+def attrh_scores_bf16(lhs, x2r, x2f, cid, cvals, w0, w1, rhs, un_rot, un_ref, bt, radii,
+                      ieee: bool = False):
+    """Every pair's AttRH score, float32 (B, Np), from K7/K8's bf16 sweep
+    (inputs as attrh_rank_sweep_nomask takes them at precision "default",
+    without t2 and gold): through its batched epilogue, or (ieee) through
+    score_from_radii's __fdiv_rn / __fsqrt_rn on the same score tile.  The
+    two are equal bit for bit.  A proof of the card's kernel: a CPU tensor
+    raises."""
+    if lhs.device.type != "cuda":
+        raise ValueError(f"attrh_scores_bf16 proves the card's kernel, got {lhs.device}")
+    b, np_, d = _check_attrh(lhs, (x2r, x2f, w0, w1), rhs, (un_rot, un_ref, bt), "default")
+    n_c = _check_sweep(b, np_, cid, cvals, radii, "attrh", lhs.device)
+    check_aligned(un_rot=un_rot, un_ref=un_ref, bt=bt, radii=radii)
+    scores = torch.empty((b, np_), dtype=torch.float32, device=lhs.device)
+    launch("hyp_rank", "attrh_rank_scores_bf16", lhs.device, lhs, x2r, x2f, cid, cvals, w0, w1,
+           rhs, un_rot, un_ref, bt, radii, scores, b, np_, d, n_c, int(ieee))
+    launches["attrh_rank_scores_bf16"] += 1
+    return scores
+
+
+def fast_arith_sweep(device, n_quot: int = 2 ** 32, seed: int = 0) -> dict:
+    """The proof of the epilogue's fast paths on the card: the square root
+    as the epilogue takes it against __fsqrt_rn over every non-negative
+    finite float32, and the division against __fdiv_rn over n_quot pairs
+    drawn from `seed` across the epilogue's operand ranges, zeros,
+    subnormals, the ranges' edges, overflow, infinities and NaN.  Returns
+    the inputs, the mismatches (bits) and the inputs the fast path took."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"fast_arith_sweep proves the card's fast paths, got {dev}")
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    launch("hyp_rank", "hyp_rank_fast_arith_sweep", dev, n_quot, seed, counts)
+    launches["hyp_rank_fast_arith_sweep"] += 1
+    c = counts.tolist()
+    return {"sqrt_inputs": ROOT_INPUTS, "sqrt_mismatches": c[0], "sqrt_fast": c[1],
+            "quot_pairs": n_quot, "quot_mismatches": c[2], "quot_fast": c[3]}
 
 
 # ---------------------------------- rankers -----------------------------------

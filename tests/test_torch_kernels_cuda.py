@@ -672,9 +672,13 @@ def hyp_bf16_args(kind, args):
 
 
 # (B, N, D, L, Np): D = 8 (one k-step), 32 (the main path), 40 and 64
-# (AttRH halves of 20 and 32), ragged Np with byte-wise mask copies
+# (AttRH halves of 20 and 32: two k-steps a half), ragged Np with byte-wise
+# mask copies, D = 200 (two staged chunks: AttRH's halves of 112 one each)
+# and D = 280 (three chunks of 96 features: AttRH's second half starts
+# inside the second chunk)
 BF16_HYP = [(48, 300, 8, 6, None), (37, 1000, 32, 9, 1005), (500, 40_000, 32, 5, None),
-            (300, 3000, 64, 11, 3001), (5, 129, 40, 3, None)]
+            (300, 3000, 64, 11, 3001), (5, 129, 40, 3, None), (37, 700, 200, 5, 701),
+            (21, 517, 280, 4, 530)]
 
 
 @pytest.mark.parametrize("shape", BF16_HYP)
@@ -728,3 +732,46 @@ def test_hyp_bf16_sweep_info(kind):
     dev = _cuda_or_skip()
     info = K5.sweep_info(kind, dev, 32, masked=True, precision=DEFAULT)
     assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+
+
+# ------------- AttRH's bf16 epilogue: its bits against IEEE's -------------
+
+
+@pytest.mark.parametrize("shape", [(37, 1000, 32, 9, 1005), (500, 4000, 32, 5, None),
+                                   (45, 600, 64, 5, 601), (21, 517, 280, 4, 530)])
+def test_attrh_bf16_scores_bitwise(shape):
+    """K7/K8 bf16's scores through the batched epilogue (FastArith, the
+    flagged pairs again through IEEE) equal score_from_radii's for every
+    pair, pad rows, ragged tiles and queries past B included; the real
+    rows' scores are finite.  (Their counts against the plain default
+    version: test_hyp_bf16_matches_plain_and_maskless.)"""
+    dev = _cuda_or_skip()
+    b, n, d, l, np_ = shape
+    rng = np.random.default_rng(3)
+    cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
+    cid = torch.as_tensor(rng.integers(0, 7, b), dtype=torch.int32)
+    args, _, _ = hyp_inputs("attrh", b, n, d, l, np_=np_, curvatures=(cvals, cid))
+    args = hyp_bf16_args("attrh", args)
+    lhs, x2r, x2f, _, w0, w1, _, rhs, un_rot, un_ref, bt = [a.to(dev) for a in args]
+    cv, ids = cvals.to(dev), cid.to(dev)
+    radii = K5.hyp_rank_radii(cv, un_rot, "attrh", un_ref)
+    call = [lhs, x2r, x2f, ids, cv, w0, w1, rhs, un_rot, un_ref, bt, radii]
+    fast, ieee = K5.attrh_scores_bf16(*call), K5.attrh_scores_bf16(*call, ieee=True)
+    torch.cuda.synchronize()
+    assert fast.shape == (b, rhs.shape[0])
+    assert torch.equal(fast.view(torch.int32), ieee.view(torch.int32))
+    assert torch.isfinite(fast[:, :n]).all()
+
+
+def test_fast_arith_matches_ieee_on_edge_sample():
+    """The epilogue's division and square root (the fast path where its
+    range flag is clear, else __fdiv_rn / __fsqrt_rn) equal __fdiv_rn and
+    __fsqrt_rn bit for bit: the square root over every non-negative finite
+    float32, the division over 10^6 pairs drawn edge-heavy (the
+    epilogue's operand ranges, both fast ranges' edges, any bits, zeros,
+    subnormals, overflow, infinities and NaN); the fast path takes most of
+    both."""
+    dev = _cuda_or_skip()
+    out = K5.fast_arith_sweep(dev, 10 ** 6, seed=11)
+    assert out["sqrt_mismatches"] == 0 and out["quot_mismatches"] == 0
+    assert out["sqrt_fast"] > out["sqrt_inputs"] // 2 and out["quot_fast"] > 10 ** 6 // 2
