@@ -86,11 +86,13 @@ line:
               RotLH, AttRH, D 32) against their plain default versions on
               each model's first test batch (inputs from the default
               rankers' kernel_inputs); maskless == masked exactly
- 10b bf16-bits  the bits of AttRH's branch-free bf16 epilogue: its square
-              root against __fsqrt_rn over every non-negative finite float32,
-              its division against __fdiv_rn over 2^32 drawn pairs, and the
-              K7/K8 bf16 sweep's scores against score_from_radii's for every
-              pair of AttRH's first test batch; mismatch counts, any > 0 fails
+ 10b bf16-bits  the bits of the bf16 sweeps' branch-free epilogue: its
+              square root against __fsqrt_rn over every non-negative finite
+              float32, its division against __fdiv_rn over 2^32 drawn pairs,
+              and the K5/K6 (RotH, RotLH) and K7/K8 (AttRH) bf16 sweeps'
+              scores against score_from_radii's for every pair of each
+              model's first test batch; mismatch counts per family, any > 0
+              fails
  11 launches  each path's kernel launches; a kernel of a path that never
               launched there fails the run, K3/K4 (and chyp_train_lists,
               K4's index preparation) must launch at least once
@@ -1570,15 +1572,16 @@ def phase_bf16_kernels(model, dataset, hyp: dict):
 
 
 def phase_bf16_bits(hyp: dict, seed: int):
-    """The bits of AttRH's bf16 epilogue (K7/K8 bf16, branch-free with a
-    range flag a pair) on the card: (i) its square root against __fsqrt_rn
-    over every non-negative finite float32, (ii) its division against
-    __fdiv_rn over BITS_QUOT_PAIRS pairs drawn across the epilogue's
-    operand ranges and the edge cases (hyp_rank.fast_arith_sweep), (iii)
-    the sweep's scores through the batched epilogue against
-    score_from_radii's for every pair of the AttRH run's first test batch
-    (B 500 x Np 40,960, every curvature of the run; attrh_scores_bf16).
-    Any differing bit fails the run."""
+    """The bits of the bf16 sweeps' epilogue (K5-K8 bf16, branch-free with
+    a range flag a pair) on the card: (i) its square root against
+    __fsqrt_rn over every non-negative finite float32, (ii) its division
+    against __fdiv_rn over BITS_QUOT_PAIRS pairs drawn across the
+    epilogue's operand ranges and the edge cases
+    (hyp_rank.fast_arith_sweep), (iii) each sweep's scores through the
+    batched epilogue against score_from_radii's for every pair of the
+    RotH, RotLH and AttRH runs' first test batch (B 500 x Np 40,960, every
+    curvature of the run; hyp_scores_bf16, attrh_scores_bf16).  Any
+    differing bit fails the run."""
     import torch
 
     from complexhyperbolickge_torch.kernels import hyp_rank as H
@@ -1586,22 +1589,30 @@ def phase_bf16_bits(hyp: dict, seed: int):
     t0 = time.perf_counter()
     out = {"phase": "bf16-bits", **H.fast_arith_sweep(DEVICE, BITS_QUOT_PAIRS, seed)}
     out["arith_seconds"] = time.perf_counter() - t0
-    model, data = hyp["AttRH"]
-    pack = data.eval_pack("test", "rhs")
-    q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=DEVICE)
-    f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=DEVICE)
-    x = H.AttRHRanker(model, masked=False, precision="default").kernel_inputs(q, f)
-    args = [x[k] for k in HYP_SWEEP_ARGS["attrh"] if k != "t2"]
-    fast, ieee = H.attrh_scores_bf16(*args), H.attrh_scores_bf16(*args, ieee=True)
-    torch.cuda.synchronize()
-    out.update(score_pairs=fast.numel(), n_curvatures=int(x["cvals"].numel()),
-               score_mismatches=int((fast.view(torch.int32) != ieee.view(torch.int32)).sum()),
-               scores_finite=bool(torch.isfinite(fast[:, :model.cfg.n_entities]).all()))
+    out["families"] = {}
+    for mname, family in HYP_MODELS.items():
+        model, data = hyp[mname]
+        pack = data.eval_pack("test", "rhs")
+        q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=DEVICE)
+        f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=DEVICE)
+        attrh = family == "attrh"
+        ranker = (H.AttRHRanker if attrh else H.HypRanker)(model, masked=False,
+                                                          precision="default")
+        x = ranker.kernel_inputs(q, f)
+        args = [x[k] for k in HYP_SWEEP_ARGS["attrh" if attrh else "hyp"] if k != "t2"]
+        fn = H.attrh_scores_bf16 if attrh else partial(H.hyp_scores_bf16, family=family)
+        fast, ieee = fn(*args), fn(*args, ieee=True)
+        torch.cuda.synchronize()
+        out["families"][family] = {
+            "model": mname, "score_pairs": fast.numel(), "n_curvatures": int(x["cvals"].numel()),
+            "score_mismatches": int((fast.view(torch.int32) != ieee.view(torch.int32)).sum()),
+            "scores_finite": bool(torch.isfinite(fast[:, :model.cfg.n_entities]).all())}
     emit(out)
-    bad = {k: out[k] for k in ("sqrt_mismatches", "quot_mismatches", "score_mismatches")
-           if out[k]}
-    if bad or not out["scores_finite"]:
-        raise AssertionError(f"the AttRH bf16 epilogue's bits differ from IEEE's: {out}")
+    bad = {k: out[k] for k in ("sqrt_mismatches", "quot_mismatches") if out[k]}
+    bad.update({f: r for f, r in out["families"].items()
+                if r["score_mismatches"] or not r["scores_finite"]})
+    if bad:
+        raise AssertionError(f"the bf16 sweeps' epilogue bits differ from IEEE's: {bad}")
 
 
 def dense_default_scores(gnn_dir: str, dataset) -> dict:

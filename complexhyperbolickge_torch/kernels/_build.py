@@ -73,7 +73,8 @@ SIGNATURES = {
         "hyp_rank_radii": [_P] * 4 + [_I] * 3 + [_F, _P],
         "hyp_rank_sweep_info": [_I] * 3 + [_IP] * 4,
         "hyp_rank_sweep_bf16_info": [_I] * 3 + [_IP] * 4,
-        # the proofs of AttRH's bf16 epilogue and of its fast paths
+        # the proofs of the bf16 sweeps' epilogue and of its fast paths
+        "hyp_rank_scores_bf16": [_P] * 9 + [_I] * 6 + [_P],
         "attrh_rank_scores_bf16": [_P] * 13 + [_I] * 5 + [_P],
         "hyp_rank_fast_arith_sweep": [_U64, _U64, _P, _P],
     },

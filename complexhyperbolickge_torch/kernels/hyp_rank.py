@@ -55,11 +55,11 @@ lhs (B, Dp) and rhs (Np, Dp) bfloat16, Dp a multiple of 16, zero past D
 (bf16_rows; AttRH: each half padded on its own, so Dp = 2 round_up(D / 2,
 16)); every other input stays float32, un from the unrounded rows.  The
 radius tables do not change: they depend on un and c only.  The plain
-versions also take float32 operands and round them.  AttRH's bf16 sweeps
-score from a shared-memory tile with a branch-free epilogue whose
-divisions and square roots give __fdiv_rn's / __fsqrt_rn's bits
-(csrc/hyp_rank.cu, bf16 namespace); attrh_scores_bf16 and
-fast_arith_sweep prove that on the card and are not path kernels.
+versions also take float32 operands and round them.  The bf16 sweeps of
+every family score from a shared-memory tile with a branch-free epilogue
+whose divisions and square roots give __fdiv_rn's / __fsqrt_rn's bits
+(csrc/hyp_rank.cu, bf16 namespace); hyp_scores_bf16, attrh_scores_bf16
+and fast_arith_sweep prove that on the card and are not path kernels.
 """
 
 from __future__ import annotations
@@ -83,8 +83,10 @@ KERNELS = ("hyp_rank_sweep_masked", "hyp_rank_sweep_nomask", "hyp_rank_filtered_
 # launches of each CUDA kernel since the last reset_launches(): the exact
 # instances, the bf16 ones (precision "default") and the radius launcher
 launches = {**{k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS}, "hyp_rank_radii": 0,
-            # the proofs of AttRH's bf16 epilogue (attrh_scores_bf16, fast_arith_sweep)
-            "attrh_rank_scores_bf16": 0, "hyp_rank_fast_arith_sweep": 0}
+            # the proofs of the bf16 sweeps' epilogue (hyp_scores_bf16,
+            # attrh_scores_bf16, fast_arith_sweep)
+            "hyp_rank_scores_bf16": 0, "attrh_rank_scores_bf16": 0,
+            "hyp_rank_fast_arith_sweep": 0}
 
 
 def reset_launches():
@@ -539,10 +541,31 @@ def attrh_rank_counts_nomask(lhs, x2r, x2f, cid, cvals, w0, w1, t2, rhs, un_rot,
                                            bt, fidx, gold, precision)
 
 
-# ---------------------- proofs of AttRH's bf16 epilogue -----------------------
+# --------------------- proofs of the bf16 sweeps' epilogue ---------------------
 
 # the non-negative finite float32 values, 0 .. 0x7f7fffff
 ROOT_INPUTS = 0x7F800000
+
+
+def hyp_scores_bf16(lhs, x2, cid, cvals, rhs, un, bt, radii, family: str = "poincare",
+                    ieee: bool = False):
+    """Every pair's score of `family` ("poincare" or "lorentz"), float32
+    (B, Np), from K5/K6's bf16 sweep (inputs as hyp_rank_sweep_nomask
+    takes them at precision "default", without t2 and gold): through its
+    batched epilogue, or (ieee) through score_from_radii's __fdiv_rn /
+    __fsqrt_rn on the same score tile.  The two are equal bit for bit.  A
+    proof of the card's kernel: a CPU tensor raises."""
+    if lhs.device.type != "cuda":
+        raise ValueError(f"hyp_scores_bf16 proves the card's kernel, got {lhs.device}")
+    fam = _family(family)
+    b, np_, d = _check_common(lhs, (x2,), rhs, (un, bt), "default")
+    n_c = _check_sweep(b, np_, cid, cvals, radii, family, lhs.device)
+    check_aligned(un=un, bt=bt, radii=radii)
+    scores = torch.empty((b, np_), dtype=torch.float32, device=lhs.device)
+    launch("hyp_rank", "hyp_rank_scores_bf16", lhs.device, lhs, x2, cid, cvals, rhs, un, bt,
+           radii, scores, b, np_, d, n_c, fam, int(ieee))
+    launches["hyp_rank_scores_bf16"] += 1
+    return scores
 
 
 def attrh_scores_bf16(lhs, x2r, x2f, cid, cvals, w0, w1, rhs, un_rot, un_ref, bt, radii,

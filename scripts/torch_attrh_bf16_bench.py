@@ -1,36 +1,42 @@
 #!/usr/bin/env python3
-"""AttRH's bf16 rank sweeps (K7 and K8 at --eval_precision default) of the
-PyTorch/CUDA port on one NVIDIA GPU, at the WN18RR eval shape (B = 500
-queries, 40,943 entities padded to 40,960 rows, D = 32 in two bf16 halves
-of 16, 22 curvatures, 5 filtered ids a query; inputs from
-scripts/torch_hyp_rank_bench.py's `inputs` at --seed).
+"""The bf16 rank sweeps of the real-hyperbolic families (K5/K6 for
+--family poincare or lorentz, K7/K8 for attrh, at --eval_precision
+default) of the PyTorch/CUDA port on one NVIDIA GPU, at the WN18RR eval
+shape (B = 500 queries, 40,943 entities padded to 40,960 rows, D = 32 in
+bf16 rows (AttRH: two halves of 16), 22 curvatures, 5 filtered ids a
+query; inputs from scripts/torch_hyp_rank_bench.py's `inputs` at --seed).
 
-    python3 scripts/torch_attrh_bf16_bench.py [--tree DIR] [--seed 0] [--reps 50]
-        [--sass] [--proofs] [--clocks]
+    python3 scripts/torch_attrh_bf16_bench.py [--family attrh] [--tree DIR]
+        [--seed 0] [--reps 50] [--sass] [--proofs] [--clocks]
 
 --tree runs the port found in DIR (for instance an unpacked older commit),
 so two versions can be timed in one run.  Prints JSON lines:
 
-  times     device times (CUDA events, interleaved K7, K8, K8, K7) of the
-            bf16 masked sweep (K7), the maskless sweep and its subtraction
-            (K8) and the exact instances of both; K7 bf16 against its plain
+  times     device times (CUDA events, interleaved masked, maskless,
+            maskless, masked) of the family's bf16 masked sweep (K5 / K7),
+            the maskless sweep and its subtraction (K6 / K8) and the exact
+            instances of both; the bf16 masked sweep against its plain
             default version (within the bf16 near-threshold count) and
-            K7 == K8 sweep - subtraction; the sweeps' registers, spill
-            bytes, shared memory and blocks an SM; the AttRH default ranker's busy time a call (masked and
-            maskless; torch.profiler, 5 calls) on a model of the shape;
+            masked == maskless sweep - subtraction; the sweeps' registers,
+            spill bytes, shared memory and blocks an SM; the family's
+            default ranker's busy time a call (masked and maskless;
+            torch.profiler, 5 calls) on a model of the shape (RotH, RotLH,
+            AttRH);
   proofs    (--proofs, trees that have them) the fast paths against
             __fsqrt_rn / __fdiv_rn (fast_arith_sweep) and the batched
             epilogue's scores against score_from_radii's on this batch,
-            bit for bit (attrh_scores_bf16);
+            bit for bit (hyp_scores_bf16 / attrh_scores_bf16);
   sass      (--sass) cuobjdump -sass of the tree's libhyp_rank.so: each bf16
             sweep kernel's instructions, in all and between barriers (the
             segment with the most MUFU is the epilogue's), and, compiled
-            from scripts/attrh_epilogue_probe.cu, the instructions of one
-            pair through score_from_radii (IEEE, the epilogue scored in
-            place) and through attrh_score with FastArith (a pair of the
-            batched epilogue), less the probes' loads and store;
+            from the tree's scripts/attrh_epilogue_probe.cu, the
+            instructions of one pair of each family through
+            score_from_radii (IEEE, the epilogue scored in place) and with
+            FastArith (a pair of the batched epilogue), less the probes'
+            loads and store;
   clocks    (--clocks) the SM clock and power draw (nvidia-smi every 200 ms)
-            while K7 bf16 runs back to back for 3 s, and its launches;
+            while the bf16 masked sweep runs back to back for 3 s, and its
+            launches;
 then the card's name and power limit.
 """
 
@@ -43,10 +49,14 @@ import shutil
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = Path(__file__).resolve().parent
+FAMILIES = ("poincare", "lorentz", "attrh")
+# the masked and the maskless kernel of each family
+NAMES = {"poincare": ("K5", "K6"), "lorentz": ("K5", "K6"), "attrh": ("K7", "K8")}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -65,43 +75,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bf16_inputs(seed: int) -> dict:
-    """torch_hyp_rank_bench's AttRH inputs at the WN18RR shape, with lhs and
-    rhs as the default rankers' bf16 rows (each half padded on its own) and
-    the exact instances' float32 rows beside them."""
+def bf16_inputs(family: str, seed: int) -> dict:
+    """torch_hyp_rank_bench's inputs of `family` at the WN18RR shape, with
+    lhs and rhs as the default rankers' bf16 rows (AttRH: each half padded
+    on its own) and the exact instances' float32 rows beside them."""
     import torch_hyp_rank_bench as HB
 
     from complexhyperbolickge_torch.kernels._ranker import bf16_rows
 
-    t = HB.inputs("attrh", "wn18rr", seed)
+    t = HB.inputs(family, "wn18rr", seed)
     t["lhs_f32"], t["rhs_f32"] = t["lhs"], t["rhs"]
-    t["lhs"], t["rhs"] = bf16_rows(t["lhs"], True), bf16_rows(t["rhs"], True)
+    halves = family == "attrh"
+    t["lhs"], t["rhs"] = bf16_rows(t["lhs"], halves), bf16_rows(t["rhs"], halves)
     return t
 
 
-SWEEP = ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot", "un_ref", "bt",
-         "radii")
-SUB = ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref", "bt")
+SWEEP = {"attrh": ("lhs", "x2r", "x2f", "cid", "cvals", "w0", "w1", "t2", "rhs", "un_rot",
+                   "un_ref", "bt", "radii"),
+         "hyp": ("lhs", "x2", "cid", "cvals", "t2", "rhs", "un", "bt", "radii")}
+SUB = {"attrh": ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "un_ref", "bt"),
+       "hyp": ("lhs", "x2", "c", "t2", "rhs", "un", "bt")}
 
 
-def calls(t: dict) -> dict:
+def _group(family: str) -> str:
+    return "attrh" if family == "attrh" else "hyp"
+
+
+def calls(family: str, t: dict) -> dict:
     """name -> a function of no arguments."""
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
+    g = _group(family)
     d = {"precision": "default"}
-    sw, sb = [t[k] for k in SWEEP], [t[k] for k in SUB]
+    fam = {} if g == "attrh" else {"family": family}
+    sw, sb = [t[k] for k in SWEEP[g]], [t[k] for k in SUB[g]]
     ex = {**t, "lhs": t["lhs_f32"], "rhs": t["rhs_f32"]}
-    esw, esb = [ex[k] for k in SWEEP], [ex[k] for k in SUB]
+    esw = [ex[k] for k in SWEEP[g]]
+    masked = H.attrh_rank_counts if g == "attrh" else H.hyp_rank_counts
+    nomask = H.attrh_rank_sweep_nomask if g == "attrh" else H.hyp_rank_sweep_nomask
+    sub = H.attrh_rank_filtered_sub if g == "attrh" else H.hyp_rank_filtered_sub
+    km, kn = NAMES[family]
     return {
-        "K7_bf16": lambda: H.attrh_rank_counts(*sw, t["mask"], **d),
-        "K8_bf16_sweep": lambda: H.attrh_rank_sweep_nomask(*sw, t["gold"], **d),
-        "K8_bf16_sub": lambda: H.attrh_rank_filtered_sub(*sb, t["fidx"], t["gold"], **d),
-        "K7_exact": lambda: H.attrh_rank_counts(*esw, t["mask"]),
-        "K8_exact_sweep": lambda: H.attrh_rank_sweep_nomask(*esw, t["gold"]),
+        f"{km}_bf16": lambda: masked(*sw, t["mask"], **fam, **d),
+        f"{kn}_bf16_sweep": lambda: nomask(*sw, t["gold"], **fam, **d),
+        f"{kn}_bf16_sub": lambda: sub(*sb, t["fidx"], t["gold"], **fam, **d),
+        f"{km}_exact": lambda: masked(*esw, t["mask"], **fam),
+        f"{kn}_exact_sweep": lambda: nomask(*esw, t["gold"], **fam),
     }
 
 
-def times(t: dict, reps: int, seed: int) -> dict:
+def times(family: str, t: dict, reps: int, seed: int) -> dict:
     import torch
 
     import chip_smoke as S
@@ -113,38 +136,45 @@ def times(t: dict, reps: int, seed: int) -> dict:
         score_interval,
     )
 
-    fns = calls(t)
-    masked, sweep, sub = fns["K7_bf16"](), fns["K8_bf16_sweep"](), fns["K8_bf16_sub"]()
-    plain = H.attrh_rank_counts_plain(*[t[k] for k in SWEEP], t["mask"], "default")
-    near = near_threshold(*score_interval("attrh", t, TC_REL), t["t2"])
+    g = _group(family)
+    km, kn = NAMES[family]
+    fns = calls(family, t)
+    masked, sweep, sub = fns[f"{km}_bf16"](), fns[f"{kn}_bf16_sweep"](), fns[f"{kn}_bf16_sub"]()
+    if g == "attrh":
+        plain = H.attrh_rank_counts_plain(*[t[k] for k in SWEEP[g]], t["mask"], "default")
+    else:
+        plain = H.hyp_rank_counts_plain(*[t[k] for k in SWEEP[g]], t["mask"], family, "default")
+    near = near_threshold(*score_interval(family, t, TC_REL), t["t2"])
     torch.cuda.synchronize()
+    order = [f"{km}_bf16", f"{kn}_bf16_sweep", f"{kn}_bf16_sub", f"{km}_exact",
+             f"{kn}_exact_sweep"]
     ms = {}
-    for name in ("K7_bf16", "K8_bf16_sweep", "K8_bf16_sub", "K7_exact", "K8_exact_sweep",
-                 "K8_exact_sweep", "K7_exact", "K8_bf16_sub", "K8_bf16_sweep", "K7_bf16"):
+    for name in (*order, *order[::-1]):
         ms.setdefault(name, []).append(cuda_ms(fns[name], reps))
     dev = torch.device("cuda")
     width = {"default": int(t["lhs"].shape[1]), "highest": int(t["lhs_f32"].shape[1])}
     info = {f"{'masked' if m else 'maskless'}_{p}": H.sweep_info(
-        "attrh", dev, width[p], masked=m, precision=p)
+        family, dev, width[p], masked=m, precision=p)
         for m in (True, False) for p in ("default", "highest")}
-    model, q, f = HB.model_and_batch("attrh", "wn18rr", seed)
+    model, q, f = HB.model_and_batch(family, "wn18rr", seed)
+    ranker_cls = H.AttRHRanker if g == "attrh" else H.HypRanker
     busy = {}
     for m in (True, False):
-        ranker = H.AttRHRanker(model, masked=m, precision="default")
+        ranker = ranker_cls(model, masked=m, precision="default")
         ranker(q, f)  # tables and warm-up
         prof = S.profile_window(lambda: [ranker(q, f) for _ in range(5)])
         busy["masked" if m else "maskless"] = prof["device_busy_ms"] / 5
-    return {"ms": ms, "sweep_info": info,
+    return {"family": family, "ms": ms, "sweep_info": info,
             "masked_equals_sweep_minus_sub": bool(torch.equal(masked, sweep - sub)),
             "max_abs_err_vs_plain": int((masked - plain).abs().max()),
             "within_near_threshold": bool(((masked - plain).abs() <= near).all()),
             "ranker_busy_ms_per_call": busy}
 
 
-def clocks(t: dict, seconds: float = 3.0) -> dict:
+def clocks(family: str, t: dict, seconds: float = 3.0) -> dict:
     import torch
 
-    fn = calls(t)["K7_bf16"]
+    fn = calls(family, t)[f"{NAMES[family][0]}_bf16"]
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                             "--format=csv,noheader,nounits", "-lms", "200"],
                            stdout=subprocess.PIPE, text=True)
@@ -163,14 +193,16 @@ def clocks(t: dict, seconds: float = 3.0) -> dict:
             "sm_mhz": [v[0] for v in samples], "power_w": [v[1] for v in samples]}
 
 
-def proofs(t: dict) -> dict:
+def proofs(family: str, t: dict) -> dict:
     import torch
 
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
     out = {"fast_arith": H.fast_arith_sweep("cuda")}
-    args = [t[k] for k in SWEEP if k != "t2"]
-    fast, ieee = H.attrh_scores_bf16(*args), H.attrh_scores_bf16(*args, ieee=True)
+    g = _group(family)
+    args = [t[k] for k in SWEEP[g] if k != "t2"]
+    fn = H.attrh_scores_bf16 if g == "attrh" else partial(H.hyp_scores_bf16, family=family)
+    fast, ieee = fn(*args), fn(*args, ieee=True)
     torch.cuda.synchronize()
     out["scores"] = {"pairs": fast.numel(),
                      "mismatches": int((fast.view(torch.int32) != ieee.view(torch.int32)).sum())}
@@ -178,6 +210,12 @@ def proofs(t: dict) -> dict:
                  and out["fast_arith"]["quot_mismatches"] == 0
                  and out["scores"]["mismatches"] == 0)
     return out
+
+
+def has_proofs(family: str) -> bool:
+    from complexhyperbolickge_torch.kernels import hyp_rank as H
+
+    return hasattr(H, "attrh_scores_bf16" if family == "attrh" else "hyp_scores_bf16")
 
 
 # ------------------------------- SASS counts -------------------------------
@@ -235,8 +273,9 @@ def demangle(names):
     return dict(zip(names, lines)) if len(lines) == len(names) else {n: n for n in names}
 
 
-def sass(lib: Path) -> dict:
-    """The AttRH bf16 sweeps' instructions, and the one-pair probes'."""
+def sass(tree: Path, lib: Path) -> dict:
+    """The bf16 sweeps' instructions, and the one-pair probes' of each
+    family the tree's probe holds."""
     from complexhyperbolickge_torch.kernels import _build
 
     out = {"kernels": {}}
@@ -255,25 +294,32 @@ def sass(lib: Path) -> dict:
         out["kernels"][pretty] = {
             "instructions": len(ops), "between_barriers": [len(s) for s in segs],
             "epilogue_segment": len(epi), "epilogue_histogram": histogram(epi)}
-    probe = ROOT / "build" / "attrh_probe" / "attrh_epilogue_probe.cubin"
+    probe = tree / "build" / "attrh_probe" / "attrh_epilogue_probe.cubin"
     probe.parent.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(probe),
-                    str(SCRIPTS / "attrh_epilogue_probe.cu")], check=True, capture_output=True)
+                    str(tree / "scripts" / "attrh_epilogue_probe.cu")], check=True,
+                   capture_output=True)
     pf = sass_functions(probe)
-    base = main_body(pf["attrh_pair_base"])
-    overhead = len(base) - sum(op.startswith("FADD") for op in base)
-    out["probes"] = {"overhead": overhead}
-    for name in ("attrh_pair_ieee", "attrh_pair_fast"):
-        ops = main_body(pf[name])
-        out["probes"][name] = {"instructions": len(ops), "per_pair": len(ops) - overhead,
-                               "branches": sum(op.startswith(("BRA", "CALL")) for op in ops),
-                               "histogram": histogram(ops)}
+    out["probes"] = {}
+    for family in FAMILIES:
+        if f"{family}_pair_base" not in pf:
+            continue
+        base = main_body(pf[f"{family}_pair_base"])
+        overhead = len(base) - sum(op.startswith("FADD") for op in base)
+        row = {"overhead": overhead}
+        for kind in ("ieee", "fast"):
+            ops = main_body(pf[f"{family}_pair_{kind}"])
+            row[kind] = {"instructions": len(ops), "per_pair": len(ops) - overhead,
+                         "branches": sum(op.startswith(("BRA", "CALL")) for op in ops),
+                         "histogram": histogram(ops)}
+        out["probes"][family] = row
     return out
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--family", choices=FAMILIES, default="attrh")
     p.add_argument("--tree", default=str(ROOT))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=50)
@@ -284,29 +330,30 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SCRIPTS))
     import torch_hyp_rank_bench  # noqa: F401  (puts this tree first on sys.path)
 
-    sys.path.insert(0, str(Path(a.tree).resolve()))
+    tree = Path(a.tree).resolve()
+    sys.path.insert(0, str(tree))
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_attrh_bf16_bench: needs a CUDA card")
     from complexhyperbolickge_torch.kernels import _build
-    from complexhyperbolickge_torch.kernels import hyp_rank as H
 
     _build.build_all(["hyp_rank"])
-    t = bf16_inputs(a.seed)
+    t = bf16_inputs(a.family, a.seed)
     ok = True
-    row = {"tree": a.tree, **times(t, a.reps, a.seed)}
+    row = {"tree": a.tree, **times(a.family, t, a.reps, a.seed)}
     print(json.dumps(row), flush=True)
     ok &= row["masked_equals_sweep_minus_sub"] and row["within_near_threshold"]
-    if a.proofs and hasattr(H, "fast_arith_sweep"):
-        row = {"tree": a.tree, "proofs": proofs(t)}
+    if a.proofs and has_proofs(a.family):
+        row = {"tree": a.tree, "family": a.family, "proofs": proofs(a.family, t)}
         print(json.dumps(row), flush=True)
         ok &= row["proofs"]["ok"]
     if a.clocks:
-        print(json.dumps({"tree": a.tree, "clocks": clocks(t)}), flush=True)
+        print(json.dumps({"tree": a.tree, "family": a.family, "clocks": clocks(a.family, t)}),
+              flush=True)
     if a.sass:
         lib = Path(_build.BUILD_DIR) / "libhyp_rank.so"
-        print(json.dumps({"tree": a.tree, "sass": sass(lib)}), flush=True)
+        print(json.dumps({"tree": a.tree, "sass": sass(tree, lib)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0 if ok else 1

@@ -45,6 +45,23 @@ def test_k7_bf16_bound_at_wn18rr():
     assert nbytes / H100[1] * 1e3 == pytest.approx(0.0092, rel=0.01)
 
 
+@pytest.mark.parametrize("kname,family,want_ms,want_term", [
+    ("hyp_rank_sweep_masked_bf16", "poincare", 0.0165, "cores"),
+    ("hyp_rank_sweep_nomask_bf16", "poincare", 0.0165, "cores"),
+    ("hyp_rank_sweep_masked_bf16", "lorentz", 0.0092, "bytes"),
+    ("hyp_rank_sweep_nomask_bf16", "lorentz", 0.0070, "cores")])
+def test_k5_k6_bf16_bounds_at_wn18rr(kname, family, want_ms, want_term):
+    """K5 / K6 bf16's sweeps at B 500, N 40,943, D 32: Poincare's 54 fp32
+    epilogue operations a pair over 67 TFLOP/s, 0.0165 ms; Lorentz's 23,
+    0.0070 ms, below the masked sweep's bytes (the int8 mask and the
+    float2 radius table, 0.0092 ms)."""
+    tc, f32, nbytes = _work(kname, family)
+    assert tc == 2 * B * N * 32 and f32 == B * N * S.EPILOGUE_OPS[family]
+    ms, _, term = S.bound_ms(H100, nbytes, f32, tc_ops=tc)
+    assert ms == pytest.approx(want_ms, rel=0.02)
+    assert term == want_term
+
+
 @pytest.mark.parametrize("kname,family", BF16_ROWS)
 def test_bf16_bound_not_below_exact_epilogue(kname, family):
     """No bf16 row's bound lies below its exact row's epilogue term (the

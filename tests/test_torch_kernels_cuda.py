@@ -734,29 +734,38 @@ def test_hyp_bf16_sweep_info(kind):
     assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
 
 
-# ------------- AttRH's bf16 epilogue: its bits against IEEE's -------------
+# ------------- the bf16 sweeps' epilogue: its bits against IEEE's -------------
 
 
 @pytest.mark.parametrize("shape", [(37, 1000, 32, 9, 1005), (500, 4000, 32, 5, None),
                                    (45, 600, 64, 5, 601), (21, 517, 280, 4, 530)])
-def test_attrh_bf16_scores_bitwise(shape):
-    """K7/K8 bf16's scores through the batched epilogue (FastArith, the
-    flagged pairs again through IEEE) equal score_from_radii's for every
-    pair, pad rows, ragged tiles and queries past B included; the real
-    rows' scores are finite.  (Their counts against the plain default
-    version: test_hyp_bf16_matches_plain_and_maskless.)"""
+@pytest.mark.parametrize("kind", HYP_KINDS)
+def test_bf16_scores_bitwise(kind, shape):
+    """K5/K6 (poincare, lorentz) and K7/K8 (attrh) bf16's scores through
+    the batched epilogue (FastArith, the flagged pairs again through IEEE)
+    equal score_from_radii's for every pair, pad rows, ragged tiles and
+    queries past B included, at D 32, 64 (AttRH: two k-steps a half) and
+    280 (three staged chunks); the real rows' scores are finite.  (Their
+    counts against the plain default version:
+    test_hyp_bf16_matches_plain_and_maskless.)"""
     dev = _cuda_or_skip()
     b, n, d, l, np_ = shape
     rng = np.random.default_rng(3)
     cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
     cid = torch.as_tensor(rng.integers(0, 7, b), dtype=torch.int32)
-    args, _, _ = hyp_inputs("attrh", b, n, d, l, np_=np_, curvatures=(cvals, cid))
-    args = hyp_bf16_args("attrh", args)
-    lhs, x2r, x2f, _, w0, w1, _, rhs, un_rot, un_ref, bt = [a.to(dev) for a in args]
+    args, _, _ = hyp_inputs(kind, b, n, d, l, np_=np_, curvatures=(cvals, cid))
+    args = [a.to(dev) for a in hyp_bf16_args(kind, args)]
     cv, ids = cvals.to(dev), cid.to(dev)
-    radii = K5.hyp_rank_radii(cv, un_rot, "attrh", un_ref)
-    call = [lhs, x2r, x2f, ids, cv, w0, w1, rhs, un_rot, un_ref, bt, radii]
-    fast, ieee = K5.attrh_scores_bf16(*call), K5.attrh_scores_bf16(*call, ieee=True)
+    if kind == "attrh":
+        lhs, x2r, x2f, _, w0, w1, _, rhs, un_rot, un_ref, bt = args
+        radii = K5.hyp_rank_radii(cv, un_rot, "attrh", un_ref)
+        call = partial(K5.attrh_scores_bf16, lhs, x2r, x2f, ids, cv, w0, w1, rhs, un_rot, un_ref,
+                       bt, radii)
+    else:
+        lhs, x2, _, _, rhs, un, bt = args
+        radii = K5.hyp_rank_radii(cv, un, kind)
+        call = partial(K5.hyp_scores_bf16, lhs, x2, ids, cv, rhs, un, bt, radii, family=kind)
+    fast, ieee = call(), call(ieee=True)
     torch.cuda.synchronize()
     assert fast.shape == (b, rhs.shape[0])
     assert torch.equal(fast.view(torch.int32), ieee.view(torch.int32))
