@@ -89,10 +89,11 @@ line:
  10b bf16-bits  the bits of the bf16 sweeps' branch-free epilogue: its
               square root against __fsqrt_rn over every non-negative finite
               float32, its division against __fdiv_rn over 2^32 drawn pairs,
-              and the K5/K6 (RotH, RotLH) and K7/K8 (AttRH) bf16 sweeps'
-              scores against score_from_radii's for every pair of each
-              model's first test batch; mismatch counts per family, any > 0
-              fails
+              and the K1/K2 (FFTRotH), K5/K6 (RotH, RotLH) and K7/K8 (AttRH)
+              bf16 sweeps' scores against chyp_score()'s / score_from_radii's
+              for every pair of each model's first test batch; mismatch
+              counts per family (and FFTRotH's pairs the fast path
+              flagged), any > 0 fails
  11 launches  each path's kernel launches; a kernel of a path that never
               launched there fails the run, K3/K4 (and chyp_train_lists,
               K4's index preparation) must launch at least once
@@ -142,7 +143,7 @@ line:
               own process: cli.run.run_rank --mesh 2x1 for 2 epochs at the
               FFT config (K3/K4 at least once a step on each rank, the loss
               falling), then on a 1x2 mesh the sharded rankers (K1/K2,
-              K5/K6 on RotH, K7/K8 on AttRH, K1 bf16) over the planted
+              K5/K6 on RotH, K7/K8 on AttRH, K1/K2 bf16) over the planted
               test splits, equal to this process's fused ranks, and 3 Adam
               steps on 2x1 and on 1x2 against one process's (PARITY_TOL);
               the gloo all_reduce of a step's flat gradient, ms.  Correctness
@@ -358,10 +359,10 @@ BF16_KERNELS = tuple(f"{k}_bf16" for k in (*RANK_KERNELS, *HYP_RANK_KERNELS, *AT
 # (csrc/chyp_rank.cu chyp_score, csrc/hyp_rank.cu score_from_radii)
 SFU_PER_PAIR = {"chyp": 3, "poincare": 7, "lorentz": 4, "attrh": 14}
 # fp32 operations of one pair's epilogue after the contraction, counted in
-# csrc/hyp_rank.cu (pair_score) with every +, -, *, /, sqrt, clamp and
-# transcendental call as one: a floor, since a tanhf or log1pf is ~20
-# instructions
-EPILOGUE_OPS = {"poincare": 54, "lorentz": 23, "attrh": 93}
+# csrc/hyp_rank.cu (pair_score) and csrc/epilogue.cuh (chyp_score) with
+# every +, -, *, /, sqrt, clamp and transcendental call as one: a floor,
+# since a tanhf, log1pf or logf is ~20 instructions
+EPILOGUE_OPS = {"poincare": 54, "lorentz": 23, "attrh": 93, "chyp": 16}
 # bf16-bits: the drawn pairs of the division's proof (2^32)
 BITS_QUOT_PAIRS = 1 << 32
 
@@ -380,6 +381,23 @@ def bound_ms(peaks, nbytes, f32_ops=0, f64_ops=0, tc_ops=0):
     return terms[term], ("bytes" if term == "bytes" else "operations"), term
 
 
+def chyp_row_work(kname, b, n, d, kept=0, n_rows=0, l=0):
+    """(fp32 operations, bytes) of the exact K1 / K2 instance `kname` at the
+    model's N entities and D features, for B queries: per pair the
+    contraction's 2 (2D) operations (re and im) and chyp_score's
+    EPILOGUE_OPS; a subtraction only its `kept` filter ids, of `n_rows`
+    distinct rows, L a query.  Bytes each input once: lhs2, zn, t2, the
+    table's real rows, wn, bt, the int8 mask (masked) or the gold, the
+    counts."""
+    pair_ops = 2 * (2 * d) + EPILOGUE_OPS["chyp"]
+    vec = 4 * (2 * b * d + 2 * b + 2 * n + n * d)  # lhs2, zn, t2, wn, bt, rhs
+    if kname == "chyp_rank_sweep_masked":
+        return b * n * pair_ops, vec + b * n + 4 * b
+    if kname == "chyp_rank_sweep_nomask":
+        return b * n * pair_ops, vec + 4 * b + 4 * b
+    return kept * pair_ops, 4 * (2 * b * d + 2 * b + n_rows * (d + 2)) + 4 * b * l + 8 * b
+
+
 def bf16_row_work(kname, family, b, n, d, kept=0, n_rows=0, l=0, n_c=0, table_width=0):
     """(tensor-core operations, fp32 operations, bytes) of a bf16 instance
     `kname` (`<kernel>_bf16`) of `family` ("chyp", "poincare", "lorentz" or
@@ -387,7 +405,7 @@ def bf16_row_work(kname, family, b, n, d, kept=0, n_rows=0, l=0, n_c=0, table_wi
     contraction's 2 M N D on the tensor cores (M = 2B query rows for the FFT
     family, B otherwise; a subtraction only its `kept` filter ids, of
     `n_rows` distinct rows, L a query); the family's EPILOGUE_OPS a pair in
-    fp32, as the exact rows count them (none for the FFT family); bytes
+    fp32, as the exact rows count them; bytes
     each input once: bf16 operands, f32 per-query and per-row vectors, the
     int8 mask or the gold, the radius table's real rows of its n_c
     curvatures (table_width floats an entry) and cvals, the counts."""
@@ -396,7 +414,7 @@ def bf16_row_work(kname, family, b, n, d, kept=0, n_rows=0, l=0, n_c=0, table_wi
     names = HYP_ARGS["attrh" if family == "attrh" else "hyp"]
     n_pq = 2 if chyp else names.index("rhs") - 1  # per-query vectors
     n_pr = 2 if chyp else len(names) - names.index("rhs") - 1  # per-row vectors
-    epi = EPILOGUE_OPS.get(family, 0)
+    epi = EPILOGUE_OPS[family]
     if "_sweep_" in kname:
         nbytes = (2 * (m_rows + n) * d + 4 * (b * n_pq + n * n_pr) + 4 * b
                   + (b * n if kname.endswith("masked_bf16") else 4 * b))
@@ -1330,21 +1348,20 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     fidx, gold = xn["fidx"].long(), xn["gold"].long()
     kept = (fidx >= 0) & (fidx < n) & (fidx != gold[:, None])
     n_rows = int(torch.unique(fidx[kept]).numel())
-    vec = 4 * (2 * b * d + 2 * b + 2 * n + n * d)  # lhs2, zn, t2, wn, bt, rhs
-    # name -> (kernel, plain, args, fp32 ops, fp64 ops, bytes)
-    work = {
+    # name -> (kernel, plain, args)
+    calls = {
         "chyp_rank_sweep_masked": (K.chyp_rank_counts, K.chyp_rank_counts_plain,
-                                   [*base, xm["mask"]], 4 * b * n * d, 0,
-                                   vec + b * n + 4 * b),
+                                   [*base, xm["mask"]]),
         "chyp_rank_sweep_nomask": (K.chyp_rank_sweep_nomask,
-                                   K.chyp_rank_sweep_nomask_plain, [*base, xn["gold"]],
-                                   4 * b * n * d, 0, vec + 4 * b + 4 * b),
+                                   K.chyp_rank_sweep_nomask_plain, [*base, xn["gold"]]),
         "chyp_rank_filtered_sub": (K.chyp_rank_filtered_sub,
                                    K.chyp_rank_filtered_sub_plain,
-                                   [*base, xn["fidx"], xn["gold"]], 4 * int(kept.sum()) * d, 0,
-                                   4 * (2 * b * d + 2 * b + n_rows * (d + 2))
-                                   + 4 * b * l + 8 * b),
+                                   [*base, xn["fidx"], xn["gold"]]),
     }
+    work = {}  # name -> (kernel, plain, args, fp32 ops, fp64 ops, bytes)
+    for kname, call in calls.items():
+        f32_ops, nbytes = chyp_row_work(kname, b, n, d, int(kept.sum()), n_rows, l)
+        work[kname] = (*call, f32_ops, 0, nbytes)
     # the train distance in the id form of the training step, at the
     # published init scale: B x (1 + NEG) ids over the N x D table.  K3:
     # per pair three fp64 dots of D FMAs and ~16 fp32 epilogue operations;
@@ -1571,42 +1588,51 @@ def phase_bf16_kernels(model, dataset, hyp: dict):
     return work, errors
 
 
-def phase_bf16_bits(hyp: dict, seed: int):
-    """The bits of the bf16 sweeps' epilogue (K5-K8 bf16, branch-free with
-    a range flag a pair) on the card: (i) its square root against
-    __fsqrt_rn over every non-negative finite float32, (ii) its division
-    against __fdiv_rn over BITS_QUOT_PAIRS pairs drawn across the
+def phase_bf16_bits(model, dataset, hyp: dict, seed: int):
+    """The bits of the bf16 sweeps' epilogue (K1/K2 and K5-K8 bf16,
+    branch-free with a range flag a pair) on the card: (i) its square root
+    against __fsqrt_rn over every non-negative finite float32, (ii) its
+    division against __fdiv_rn over BITS_QUOT_PAIRS pairs drawn across the
     epilogue's operand ranges and the edge cases
     (hyp_rank.fast_arith_sweep), (iii) each sweep's scores through the
-    batched epilogue against score_from_radii's for every pair of the
-    RotH, RotLH and AttRH runs' first test batch (B 500 x Np 40,960, every
-    curvature of the run; hyp_scores_bf16, attrh_scores_bf16).  Any
-    differing bit fails the run."""
+    batched epilogue against score_from_radii's / chyp_score()'s for every
+    pair of the FFTRotH (`model`), RotH, RotLH and AttRH runs' first test
+    batch (B 500 x Np 40,960, every curvature of the run; chyp_scores_bf16,
+    which also counts the pairs the fast path flagged, hyp_scores_bf16,
+    attrh_scores_bf16).  Any differing bit fails the run."""
     import torch
 
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
     t0 = time.perf_counter()
     out = {"phase": "bf16-bits", **H.fast_arith_sweep(DEVICE, BITS_QUOT_PAIRS, seed)}
     out["arith_seconds"] = time.perf_counter() - t0
     out["families"] = {}
-    for mname, family in HYP_MODELS.items():
-        model, data = hyp[mname]
+    for mname, family in {"FFTRotH": "chyp", **HYP_MODELS}.items():
+        m, data = (model, dataset) if family == "chyp" else hyp[mname]
         pack = data.eval_pack("test", "rhs")
         q = torch.as_tensor(pack.queries[:BATCH], dtype=torch.int64, device=DEVICE)
         f = torch.as_tensor(pack.filter_idx[:BATCH], dtype=torch.int64, device=DEVICE)
-        attrh = family == "attrh"
-        ranker = (H.AttRHRanker if attrh else H.HypRanker)(model, masked=False,
-                                                          precision="default")
-        x = ranker.kernel_inputs(q, f)
-        args = [x[k] for k in HYP_SWEEP_ARGS["attrh" if attrh else "hyp"] if k != "t2"]
-        fn = H.attrh_scores_bf16 if attrh else partial(H.hyp_scores_bf16, family=family)
-        fast, ieee = fn(*args), fn(*args, ieee=True)
+        cls = {"chyp": K.ChypRanker, "attrh": H.AttRHRanker}.get(family, H.HypRanker)
+        x = cls(m, masked=False, precision="default").kernel_inputs(q, f)
+        res = {"model": mname}
+        if family == "chyp":
+            args = [x[k] for k in ("lhs2", "zn", "rhs", "wn", "bt")]
+            (fast, res["flagged_pairs"]), (ieee, _) = (K.chyp_scores_bf16(*args),
+                                                       K.chyp_scores_bf16(*args, ieee=True))
+        else:
+            args = [x[k] for k in HYP_SWEEP_ARGS["attrh" if family == "attrh" else "hyp"]
+                    if k != "t2"]
+            fn = (H.attrh_scores_bf16 if family == "attrh"
+                  else partial(H.hyp_scores_bf16, family=family))
+            fast, ieee = fn(*args), fn(*args, ieee=True)
+            res["n_curvatures"] = int(x["cvals"].numel())
         torch.cuda.synchronize()
         out["families"][family] = {
-            "model": mname, "score_pairs": fast.numel(), "n_curvatures": int(x["cvals"].numel()),
+            **res, "score_pairs": fast.numel(),
             "score_mismatches": int((fast.view(torch.int32) != ieee.view(torch.int32)).sum()),
-            "scores_finite": bool(torch.isfinite(fast[:, :model.cfg.n_entities]).all())}
+            "scores_finite": bool(torch.isfinite(fast[:, :m.cfg.n_entities]).all())}
     emit(out)
     bad = {k: out[k] for k in ("sqrt_mismatches", "quot_mismatches") if out[k]}
     bad.update({f: r for f, r in out["families"].items()
@@ -2461,13 +2487,14 @@ def gnn_kernel_rows(meas, launches, smi, name):
 # ranks on one device), a model axis of 2 for ranking and 1x2 training, a
 # data axis of 2 for the CLI run and the 2x1 steps
 MESH_RANK_CASES = (("FFTRotH", "auto", "highest"), ("FFTRotH", "pallas_maskless", "highest"),
-                   ("FFTRotH", "auto", "default"), ("RotH", "auto", "highest"),
+                   ("FFTRotH", "auto", "default"), ("FFTRotH", "pallas_maskless", "default"),
+                   ("RotH", "auto", "highest"),
                    ("RotH", "pallas_maskless", "highest"), ("AttRH", "auto", "highest"),
                    ("AttRH", "pallas_maskless", "highest"))
 # the kernels each rank must launch in mesh-rank (every K1/K2, K5/K6, K7/K8
-# wrapper and one bf16 instance) and in the data-parallel steps (K3/K4)
+# wrapper and K1/K2's bf16 instances) and in the data-parallel steps (K3/K4)
 MESH_RANK_KERNELS = (*RANK_KERNELS, *HYP_RANK_KERNELS, *ATTRH_KERNELS,
-                     "chyp_rank_sweep_masked_bf16")
+                     *(f"{k}_bf16" for k in RANK_KERNELS))
 MESH_TRAIN_KERNELS = (*TRAIN_KERNELS, "chyp_train_lists")
 MESH_STEPS = 3  # the mesh parity windows, as train-step parity's
 MESH_TIMEOUT = 600  # seconds for the two ranks' whole run
@@ -2932,7 +2959,7 @@ def main(argv=None) -> int:
         hyp = {m: load_serving_state(d, "cuda") for m, d in hyp_dirs.items()}
         hyp_batches, hyp_errors = phase_hyp_kernels(hyp)
         bf16_work, bf16_errors = phase_bf16_kernels(model, dataset, hyp)
-        phase_bf16_bits(hyp, a.seed)
+        phase_bf16_bits(model, dataset, hyp, a.seed)
 
         KS.reset_launches()  # the FFT serving and evaluation path starts here
         phase_kge_test(model_dir, model, dataset)

@@ -54,6 +54,8 @@ SIGNATURES = {
         }),
         "chyp_rank_sweep_info": [_I] * 2 + [_IP] * 4,
         "chyp_rank_sweep_bf16_info": [_I] * 2 + [_IP] * 4,
+        # the proof of the bf16 sweep's epilogue
+        "chyp_rank_scores_bf16": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
     },
     "chyp_train": {
         "chyp_train_fwd": [_P] * 9 + [_I] * 4 + [_F, _F, _P],

@@ -37,6 +37,9 @@ each kernel's bf16 tensor-core instance (launch counters `<name>_bf16`):
 lhs2 (2B, Dp) and rhs (Np, Dp) bfloat16 with Dp a multiple of 16, zero
 past D (bf16_rows); zn, t2, wn and bt stay float32, from the unrounded
 rows.  Its plain versions also take float32 operands and round them.
+Its sweep scores pairs in a branch-free batched epilogue whose bits equal
+the exact arithmetic's (csrc/chyp_rank.cu, bf16 namespace);
+chyp_scores_bf16 proves that on the card and is not a path kernel.
 """
 
 from __future__ import annotations
@@ -59,7 +62,9 @@ from complexhyperbolickge_torch.ops.math import ball_eps, check_precision, round
 KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask", "chyp_rank_filtered_sub")
 # launches of each CUDA kernel since the last reset_launches(): the exact
 # instances and the bf16 ones (precision "default")
-launches = {k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS}
+launches = {**{k + sfx: 0 for sfx in ("", "_bf16") for k in KERNELS},
+            # the proof of the bf16 sweep's epilogue (chyp_scores_bf16)
+            "chyp_rank_scores_bf16": 0}
 
 
 def reset_launches():
@@ -222,6 +227,26 @@ def sweep_info(device, d: int, masked: bool = True, precision: str = "highest") 
     fn = "chyp_rank_sweep_bf16_info" if precision == "default" else "chyp_rank_sweep_info"
     vals = kernel_info("chyp_rank", fn, device, int(masked), d)
     return dict(zip(("regs_per_thread", "local_bytes", "blocks_per_sm", "smem_bytes"), vals))
+
+
+def chyp_scores_bf16(lhs2, zn, rhs, wn, bt, ieee: bool = False):
+    """Every pair's score, float32 (B, Np), from K1/K2's bf16 sweep (inputs
+    as chyp_rank_sweep_nomask takes them at precision "default", without t2
+    and gold): through its batched epilogue, or (ieee) through chyp_score()'s
+    __fdiv_rn / __fsqrt_rn / logf on the same score tile; and the pairs of
+    the batch (queries < B, rows < Np) whose FastArith range flag sent them
+    through chyp_score() again (0 for ieee).  The two give the same scores
+    bit for bit.  A proof of the card's kernel: a CPU tensor raises."""
+    if lhs2.device.type != "cuda":
+        raise ValueError(f"chyp_scores_bf16 proves the card's kernel, got {lhs2.device}")
+    b, np_, d, ld = _check_common(lhs2, zn, zn, rhs, wn, bt, "default")
+    check_aligned(wn=wn, bt=bt)
+    scores = torch.empty((b, np_), dtype=torch.float32, device=lhs2.device)
+    flagged = torch.zeros(1, dtype=torch.int32, device=lhs2.device)
+    launch("chyp_rank", "chyp_rank_scores_bf16", lhs2.device, lhs2, zn, rhs, wn, bt, scores,
+           flagged, b, np_, d, ld, X_MIN, int(ieee))
+    launches["chyp_rank_scores_bf16"] += 1
+    return scores, int(flagged.item())
 
 
 def chyp_rank_counts_nomask(lhs2, zn, t2, rhs, wn, bt, fidx, gold, precision: str = "highest"):

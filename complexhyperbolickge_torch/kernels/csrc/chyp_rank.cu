@@ -19,9 +19,9 @@
 //
 // Bit-identical scores across the three kernels: every kernel accumulates
 // k = 0..D-1 in ascending order, one __fmaf_rn per term from 0.0f, and
-// finishes with chyp_score(), whose arithmetic is spelled out in
-// round-to-nearest intrinsics so that no contraction choice of the compiler
-// can differ between call sites.  wn[j] = clamp(|w_j|^2 - 1, -1, -eps) is an
+// finishes with chyp_score() (epilogue.cuh), whose arithmetic is spelled
+// out in round-to-nearest intrinsics so that no contraction choice of the
+// compiler can differ between call sites.  wn[j] = clamp(|w_j|^2 - 1, -1, -eps) is an
 // input, computed once per params version by the caller (the TPU kernel
 // recomputed it per tile).  So a filtered entity that the maskless sweep
 // counted is subtracted exactly, and the JAX kernel's residual +-1 on exact
@@ -80,11 +80,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue.cuh"
 #include "sweep.cuh"
 
 namespace {
 
 using rank_sweeps::aligned16;
+using rank_sweeps::chyp_score;
 using rank_sweeps::cp_async16;
 using rank_sweeps::cp_async4;
 using rank_sweeps::cp_async_commit;
@@ -117,21 +119,6 @@ __device__ __forceinline__ void chyp_accumulate(float& acc_re, float& acc_im,
                                                 float w) {
   acc_re = __fmaf_rn(q_re, w, acc_re);
   acc_im = __fmaf_rn(q_im, w, acc_im);
-}
-
-// The score epilogue shared by all kernels (the JAX _chyp_scores epilogue).
-// acosh is taken as log(x + sqrt(x^2 - 1)) as in the TPU kernel and the
-// plain version, not acoshf, which differs by ulps.  The clamp keeps NaN
-// (as jnp.maximum does; fmaxf would drop it).
-__device__ __forceinline__ float chyp_score(float acc_re, float acc_im,
-                                            float zn, float wn, float bt,
-                                            float x_min) {
-  const float sr = __fsub_rn(acc_re, 1.0f);
-  const float a2 = __fadd_rn(__fmul_rn(sr, sr), __fmul_rn(acc_im, acc_im));
-  float x = __fsub_rn(__fdiv_rn(__fmul_rn(2.0f, a2), __fmul_rn(zn, wn)), 1.0f);
-  x = (x < x_min) ? x_min : x;
-  const float d = logf(__fadd_rn(x, __fsqrt_rn(__fsub_rn(__fmul_rn(x, x), 1.0f))));
-  return __fsub_rn(bt, __fmul_rn(d, d));
 }
 
 // ------------------------------ sweeps (K1, K2) ------------------------------
@@ -486,42 +473,91 @@ int launch_sweep(SweepArgs a, cudaStream_t stream) {
 // Hermitian form's contraction rounded to bf16 (the wrapper passes lhs2
 // and the table as bf16 rows of D features, a multiple of 16, zero past
 // the model's width), their products summed in f32 by the tensor cores
-// (mma_bf16, sweep.cuh); zn, wn, bt, t2 and chyp_score() stay f32.
+// (mma_bf16, sweep.cuh); zn, wn, bt, t2 and the epilogue stay f32.
 //
-// The sweep (K1, K2) keeps the exact sweep's pipeline: persistent blocks
-// over (query tile, entity tile) items, each stage an entity tile's rows
-// (at most kMaxChunk features of them; D = 80 at rank 33: one stage an
-// item) with its wn, bt and, masked, its 64 x 128 mask slice, copied with
-// 16-byte cp.async into one of two buffers while the other computes, the
-// query tile's rows staged once per query tile (per stage when too wide).
-// A block tile is 64 queries x 128 entities, 16 warps; warp w takes the 8
-// queries of group w % 8 against the 64 entities of half w / 8.  Its A
-// tile holds the 8 queries' re rows at rows 0-7 and their swapped im rows
-// at rows 8-15, so a thread's accumulators c0..c3 of an 8-entity n-tile
-// are (acc_re, acc_re, acc_im, acc_im) of its query g against entities 2t
-// and 2t + 1: chyp_score() runs on them as they are, 16 pairs a thread.
-// Staged rows are bf16_row_words() words apart: conflict-free fragment
-// loads, 6 words of shared loads per mma.
+// What bounds the sweep (K1, K2) on an H100 (80GB HBM3, 700 W) is not the
+// contraction (6.6 GFLOP at rank 33, ~7 us of tensor-core time) nor the
+// bytes (the 6.6 MB bf16 table and 20.5 MB mask, ~8 us) but the
+// instructions around them: a WN18RR batch's 20.5 M pairs of one division,
+// one square root and one logf each, and the staging, fragment loads,
+// barriers and counts of its 5,120 items.  Scored in place from the mma
+// fragments, each __fdiv_rn / __fsqrt_rn and logf's special-argument check
+// would end a basic block, so a thread's pairs would run one after
+// another, its accumulators live through the epilogue.  The design, on
+// K5-K8 bf16's (hyp_rank.cu):
+//   * persistent blocks over (query tile, entity tile) items, 64 queries x
+//     64 entities an item, 8 warps, 3 resident an SM (79-80 registers, no
+//     spill; 74 KB of shared memory); each stage an entity tile's rows (at
+//     most kMaxChunk features of them; D = 80 at rank 33: one stage an
+//     item) with its wn, bt and, masked, its 64 x 64 mask slice, copied
+//     with 16-byte cp.async into one buffer while the other computes; the
+//     query tile's rows staged once per query tile (a chunk per stage when
+//     too wide); two barriers an item: after a stage's copies (then the
+//     next stage's copies start into the buffer no thread reads any more)
+//     and after the score tile's stores;
+//   * warp w contracts the 16 queries of group w % 4 against the 32
+//     entities of half w / 4: two A tiles, each 8 queries' re rows at rows
+//     0-7 and their swapped im rows at rows 8-15, so a thread's c0, c1 are
+//     acc_re and c2, c3 acc_im of one query against entities 2t and 2t + 1;
+//     fragments from shared memory by ldmatrix_x4 (one instruction an A
+//     tile or an n-tile pair a k-step), rows bf16_row_words() apart;
+//   * after an item's k-steps each thread stores chyp_a2 of its 16 pairs
+//     (the score's first step, from both accumulators) as float2s into a
+//     shared f32 tile of 64 x 64 (rows padded to 72 floats: conflict-free),
+//     then one barrier; no accumulator is live through the epilogue;
+//   * the epilogue walks the tile entity-major: a half-warp takes a query,
+//     a lane 4 consecutive entities (float4 tile, wn, bt reads; the mask's
+//     4 bytes one word), 4 queries a lane; each batch of 4 pairs runs
+//     chyp_x, chyp_arg, ln and chyp_end with FastArith, each step for all
+//     its pairs, branch-free; after the batches one warp-uniform
+//     __any_sync sends the flagged pairs through chyp_score_a2's IeeeArith
+//     again.  Every rounding step is chyp_score()'s, so a score's bits are
+//     chyp_score()'s (chyp_rank_scores_bf16 writes either for the proof)
+//     and masked == maskless - subtraction holds exactly.
+// An mma output depends only on its A row, B column and chain of k-steps
+// (sweep.cuh), so each pair's a2 is the former in-place sweep's.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): K1 0.1165 -> 0.1000 ms,
+// K2's sweep 0.1140 -> 0.1028, against the in-place sweep of one 512-thread
+// block an SM; the parts add up: with the epilogue cut to bt + a2 the
+// sweep takes 0.049 ms (0.030 of it without the k-steps: staging, barriers,
+// tile and counts), the epilogue the other 0.051 (85 SASS instructions a
+// pair with loads, mask, flags and count).  2 blocks an SM: 0.1053; three
+// barriers an item: 0.1013; the 4-query loop rolled (2 blocks): 0.1138.
 //
 // The subtraction gives each filtered id the same chain: one block per
 // query, a warp an n-tile of 8 of its filtered ids, the query's re row in
 // A rows 0-7 and its im row in rows 8-15, the same k-steps from a zero
-// accumulator.  So each (query, filtered id) score equals the sweep's bit
-// for bit, and K2 == K1 - subtraction holds in this instance too.
-//
-// Bound on an H100 SXM at the WN18RR eval shape (B = 500, Np = 40,960,
-// D = 80): 2 (2B) Np D = 6.6 GFLOP of bf16 tensor-core work (~7 us at 989
-// TFLOP/s dense), the 6.6 MB bf16 table and 20.5 MB mask (~8 us at 3.35
-// TB/s); the epilogue's 20.5 M pairs of one division, one square root and
-// one logf each (SFU work) stay as in the exact sweep.
+// accumulator, then chyp_score().  So each (query, filtered id) score
+// equals the sweep's bit for bit, and K2 == K1 - subtraction holds in this
+// instance too.
 namespace bf16 {
 
-constexpr int kTQ = 64;         // queries per block tile: 8 groups of 8
-constexpr int kTN = 128;        // entities per block tile: 16 n-tiles of 8
-constexpr int kThreads = 512;   // 16 warps: query group (warp % 8) x entity half (warp / 8)
-constexpr int kNT = 8;          // n-tiles a warp (64 entities)
+using rank_sweeps::chyp_a2;
+using rank_sweeps::chyp_arg;
+using rank_sweeps::chyp_end;
+using rank_sweeps::chyp_score_a2;
+using rank_sweeps::chyp_x;
+using rank_sweeps::FastArith;
+using rank_sweeps::IeeeArith;
+using rank_sweeps::kCounts;
+using rank_sweeps::kScoresFast;
+using rank_sweeps::kScoresIeee;
+using rank_sweeps::ldmatrix_x4;
+
+constexpr int kTQ = 64;         // queries per block tile: 4 groups of 16
+constexpr int kTN = 64;         // entities per block tile: 8 n-tiles of 8
+constexpr int kThreads = 256;   // 8 warps: query group (warp % 4) x entity half (warp / 4)
+constexpr int kMT = 2;          // A tiles a warp (8 queries each)
+constexpr int kNT = 4;          // n-tiles a warp (32 entities)
 constexpr int kMaxChunk = 128;  // features of a staged chunk (8 k-steps)
 constexpr int kMaxSmem = 200 * 1024;
+constexpr int kBlocks = 3;      // resident blocks an SM the kernel is compiled for
+constexpr int kQPL = 4;         // the epilogue's queries a lane: 8 w + 2 i + lane / 16
+constexpr int kEPL = 4;         // its consecutive entities: 4 (lane % 16) ..
+constexpr int kTileLd = kTN + 8;  // floats a score-tile row: conflict-free float2 stores
+static_assert(kThreads / 32 * 2 * kQPL == kTQ && 16 * kEPL == kTN, "a half-warp a query row");
+static_assert(kQPL * kEPL <= 32, "a lane's flags fit one word");
+static_assert(kTQ * (kTN / 16) == kThreads, "one 16-byte mask copy a thread");
 
 struct Args {
   const uint32_t* lhs2;  // (2B, D) bf16, two features a word
@@ -539,22 +575,35 @@ struct Args {
   bool q_per_stage;  // the whole query tile does not fit: a chunk per stage
   bool vec_mask;
   int off_wn, off_bt, off_mask, off_q, stage_bytes;  // a stage's layout, bytes
+  int off_tile;      // the score tile's byte offset
+  float* scores;     // kOut != kCounts: (B, Np) scores in place of counts
+  int* n_flagged;    // kScoresFast: adds the pairs the fast path flagged
 };
 
+// The launch geometry on D features (D % 16 == 0) and the shared bytes.
 // One stage: w[kTN][ws] words, wn[kTN], bt[kTN], masked mask[kTQ][kTN],
-// per-stage queries q[2 kTQ][ws] words (re rows, then im rows).
+// per-stage queries q[2 kTQ][ws] words (re rows, then im rows); after two
+// stages the whole query tile's rows (2 kTQ x qs words) unless per stage,
+// then the score tile, [kTQ][kTileLd] floats.
 template <bool kMasked>
-void layout(Args& a) {
-  a.off_wn = kTN * a.ws * 4;
-  a.off_bt = a.off_wn + kTN * 4;
-  a.off_mask = a.off_bt + kTN * 4;
-  a.off_q = a.off_mask + (kMasked ? kTQ * kTN : 0);
-  a.stage_bytes = a.off_q + (a.q_per_stage ? 2 * kTQ * a.ws * 4 : 0);
-}
-
-template <bool kMasked>
-size_t smem_bytes(const Args& a) {
-  return 2 * (size_t)a.stage_bytes + (a.q_per_stage ? 0 : (size_t)2 * kTQ * a.qs * 4);
+size_t plan(Args& a) {
+  a.n_chunks = (a.D + kMaxChunk - 1) / kMaxChunk;
+  a.kc = ((a.D + a.n_chunks - 1) / a.n_chunks + 15) / 16 * 16;  // <= kMaxChunk
+  a.ws = rank_sweeps::bf16_row_words(a.kc);
+  a.qs = rank_sweeps::bf16_row_words(a.D);
+  size_t smem = 0;
+  for (int per_stage = 0; per_stage < 2; ++per_stage) {
+    a.q_per_stage = per_stage;
+    a.off_wn = kTN * a.ws * 4;
+    a.off_bt = a.off_wn + kTN * 4;
+    a.off_mask = a.off_bt + kTN * 4;
+    a.off_q = a.off_mask + (kMasked ? kTQ * kTN : 0);
+    a.stage_bytes = a.off_q + (a.q_per_stage ? 2 * kTQ * a.ws * 4 : 0);
+    a.off_tile = 2 * a.stage_bytes + (a.q_per_stage ? 0 : 2 * kTQ * a.qs * 4);
+    smem = (size_t)a.off_tile + kTQ * kTileLd * 4;
+    if (smem <= (size_t)kMaxSmem) break;
+  }
+  return smem;
 }
 
 // The query tile qt's rows, words [w0, w0 + nw), re rows then im rows, into
@@ -586,7 +635,6 @@ __device__ __forceinline__ void load_stage(const Args& a, unsigned char* st, Sta
   if constexpr (kMasked) {
     int8_t* mask = reinterpret_cast<int8_t*>(st + a.off_mask);
     if (a.vec_mask) {
-      static_assert(kTQ * (kTN / 16) == kThreads, "one 16-byte mask copy a thread");
       const int r = tid / (kTN / 16), p = tid % (kTN / 16), qq = q0 + r, j = j0 + 16 * p;
       const bool ok = qq < a.B && j < a.Np;
       cp_async16(mask + r * kTN + 16 * p, a.mask + (ok ? (size_t)qq * a.Np + j : 0), ok ? 16 : 0);
@@ -600,110 +648,212 @@ __device__ __forceinline__ void load_stage(const Args& a, unsigned char* st, Sta
   }
 }
 
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads, 1) chyp_sweep_bf16_kernel(const Args a) {
+// An item's epilogue: queries q0, q0 + 2, q0 + 4, q0 + 6 of the tile (q0 =
+// 8 warp + lane / 16) against the lane's entities el .. el + 3, one query
+// a batch, each step of the score for the batch's 4 pairs before the next;
+// counts into cnt (kCounts) or writes the scores.  A pair whose FastArith
+// flag is set (bit i kEPL + e of `flagged`) is left out and scored again
+// after the batches through IeeeArith, one rolled loop a thread, when a
+// lane of the warp has one.
+template <bool kMasked, int kOut>
+__device__ __forceinline__ void tile_epilogue(const Args& a, const unsigned char* st,
+                                              const float* tile, const TileQuery* tq, int qt,
+                                              int j0, int q0, int el, int (&cnt)[kQPL]) {
+  const float* s_wn = reinterpret_cast<const float*>(st + a.off_wn);
+  const float* s_bt = reinterpret_cast<const float*>(st + a.off_bt);
+  const int8_t* s_mask = reinterpret_cast<const int8_t*>(st + a.off_mask);
+  const float4 wnv = *reinterpret_cast<const float4*>(s_wn + el);
+  const float4 btv = *reinterpret_cast<const float4*>(s_bt + el);
+  bool valid[kEPL];  // rows of the table
+#pragma unroll
+  for (int e = 0; e < kEPL; ++e) valid[e] = j0 + el + e < a.Np;
+  unsigned flagged = 0;
+#pragma unroll
+  for (int i = 0; i < kQPL; ++i) {
+    const int ql = q0 + 2 * i;
+    const TileQuery tt = tq[ql];
+    const float4 a2 = *reinterpret_cast<const float4*>(tile + ql * kTileLd + el);
+    float s[kEPL];
+    if constexpr (kOut == kScoresIeee) {
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) {
+        IeeeArith ar;
+        s[e] = chyp_score_a2(lane_of(a2, e), tt.zn, lane_of(wnv, e), lane_of(btv, e), a.x_min, ar);
+      }
+    } else {
+      FastArith ar[kEPL];
+      float v[kEPL];
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e)
+        v[e] = chyp_x(lane_of(a2, e), tt.zn, lane_of(wnv, e), a.x_min, ar[e]);
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) v[e] = chyp_arg(v[e], ar[e]);
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) v[e] = ar[e].ln(v[e]);
+#pragma unroll
+      for (int e = 0; e < kEPL; ++e) {
+        s[e] = chyp_end(v[e], lane_of(btv, e));
+        if (ar[e].bad && valid[e] && tt.ok) flagged |= 1u << (i * kEPL + e);
+      }
+    }
+    uint32_t mw = 0;  // the pairs' mask bytes
+    if constexpr (kOut == kCounts && kMasked)
+      mw = *reinterpret_cast<const uint32_t*>(s_mask + ql * kTN + el);
+    int hits = 0;
+#pragma unroll
+    for (int e = 0; e < kEPL; ++e) {
+      const bool ok = valid[e] && !((flagged >> (i * kEPL + e)) & 1u);
+      if constexpr (kOut == kCounts) {
+        const bool keep = kMasked ? ((mw >> (8 * e)) & 0xffu) == 0 : j0 + el + e != tt.gold;
+        hits += (ok && keep && s[e] >= tt.t2) ? 1 : 0;
+      } else if (ok && tt.ok) {
+        a.scores[(size_t)(qt * kTQ + ql) * a.Np + j0 + el + e] = s[e];
+      }
+    }
+    cnt[i] += hits;
+  }
+  // the flagged pairs again, through __fdiv_rn / __fsqrt_rn / logf
+  if (kOut != kScoresIeee && __any_sync(0xffffffffu, flagged != 0)) {
+#pragma unroll 1
+    for (unsigned f = flagged; f; f &= f - 1) {
+      const int p = __ffs(f) - 1, i = p / kEPL, e = el + p % kEPL;
+      const int ql = q0 + 2 * i, j = j0 + e;
+      const TileQuery tt = tq[ql];
+      IeeeArith ar;
+      const float sc = chyp_score_a2(tile[ql * kTileLd + e], tt.zn, s_wn[e], s_bt[e], a.x_min, ar);
+      if constexpr (kOut == kCounts) {
+        const bool keep = kMasked ? s_mask[ql * kTN + e] == 0 : j != tt.gold;
+        const int hit = (keep && sc >= tt.t2) ? 1 : 0;
+#pragma unroll
+        for (int k = 0; k < kQPL; ++k) cnt[k] += k == i ? hit : 0;  // cnt stays in registers
+      } else {
+        a.scores[(size_t)(qt * kTQ + ql) * a.Np + j] = sc;
+      }
+    }
+  }
+  if constexpr (kOut == kScoresFast) {
+    const unsigned c = __reduce_add_sync(0xffffffffu, (unsigned)__popc(flagged));
+    if ((threadIdx.x & 31) == 0 && c && a.n_flagged) atomicAdd(a.n_flagged, (int)c);
+  }
+}
+
+// K1 (kMasked) and K2's sweep, bf16 instance; kOut != kCounts: the scores.
+// An item's accumulators live only through its chunks' k-steps and the
+// store of their a2 to the score tile.
+template <bool kMasked, int kOut>
+__global__ void __launch_bounds__(kThreads, kBlocks) chyp_sweep_bf16_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ TileQuery tq[kTQ];
   uint32_t* q_whole = reinterpret_cast<uint32_t*>(smem_raw + 2 * a.stage_bytes);
+  float* tile = reinterpret_cast<float*>(smem_raw + a.off_tile);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int q_local = (warp & 7) * 8 + g;  // this thread's query in the tile
-  const int e_base = (warp >> 3) * (kNT * 8);  // this warp's first entity in the tile
+  const int m_base = (warp & 3) * (kMT * 8);   // this warp's first query in the tile
+  const int e_base = (warp >> 2) * (kNT * 8);  // this warp's first entity in the tile
+  // ldmatrix_x4's rows: lane l gives row l % 8 of matrix l / 8; an A tile's
+  // matrices are re (k 0-7), im (k 0-7), re (k 8-15), im (k 8-15), an
+  // n-tile pair's (2p, k 0-7), (2p, k 8-15), (2p + 1, k 0-7), (2p + 1, k 8-15)
+  const int a_row = ((lane >> 3) & 1) * kTQ + m_base + (lane & 7), a_word = 4 * (lane >> 4);
+  const int b_row = e_base + (lane >> 4) * 8 + (lane & 7), b_word = 4 * ((lane >> 3) & 1);
+  const int q0 = 8 * warp + (lane >> 4), el = kEPL * (lane & 15);  // the epilogue's
   int item_begin, item_end;
   rank_sweeps::block_items(a.n_items, &item_begin, &item_end);
   if (item_begin >= item_end) return;
   const int s_begin = item_begin * a.n_chunks, s_end = item_end * a.n_chunks;
 
-  float acc[kNT][4];
+  int cnt[kQPL];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
-  int cnt = 0, cur_qt = -1;
+  for (int i = 0; i < kQPL; ++i) cnt[i] = 0;
+  int cur_qt = -1;
 
   StagePos pos{item_begin / a.n_et, item_begin % a.n_et, 0};
   load_stage<kMasked>(a, smem_raw, pos, tid);
   cp_async_commit();
-  for (int s = s_begin; s < s_end; ++s) {
-    const int buf = (s - s_begin) & 1;
-    const unsigned char* st = smem_raw + buf * a.stage_bytes;
-    const int chunk = pos.chunk, qt = pos.qt, j0 = pos.et * kTN;
-    // a new query tile: its rows replace the last tile's, which no thread
-    // reads after the previous iteration's closing barrier
-    if (!a.q_per_stage && qt != cur_qt) load_queries(a, q_whole, a.qs, qt, 0, a.D / 2, tid);
-    cp_async_commit();
-    if (s + 1 < s_end) {  // the next stage streams in while this one computes
-      load_stage<kMasked>(a, smem_raw + (buf ^ 1) * a.stage_bytes,
-                          next_pos(pos, a.n_chunks, a.n_et), tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if (qt != cur_qt) {  // a new query tile: its scalars into shared memory
-      cur_qt = qt;
-      if (tid < kTQ) {
-        const int q = qt * kTQ + tid;
-        const int ok = q < a.B;
-        tq[tid] = TileQuery{ok ? a.zn[q] : -1.0f, ok ? a.t2[q] : 0.0f,
-                            (!kMasked && ok) ? a.gold[q] : -1, ok};
+  for (int s = s_begin; s < s_end;) {  // an item a trip
+    const int qt = pos.qt, j0 = pos.et * kTN;
+    float acc[kMT][kNT][4];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.0f;
+    const unsigned char* st = smem_raw;
+    for (int chunk = 0; chunk < a.n_chunks; ++chunk, ++s) {
+      const int buf = (s - s_begin) & 1;
+      st = smem_raw + buf * a.stage_bytes;
+      // a new query tile: its rows replace the last tile's, whose k-steps
+      // every thread finished before the last item's tile barrier
+      if (!a.q_per_stage && qt != cur_qt) {
+        load_queries(a, q_whole, a.qs, qt, 0, a.D / 2, tid);
+        cp_async_commit();
       }
-    }
-    __syncthreads();  // this stage's copies and the tile's queries are visible
+      cp_async_wait<0>();  // this stage, issued a stage ago, and the query rows
+      __syncthreads();  // ... are visible, and no thread reads the other buffer any more
+      if (s + 1 < s_end) {  // the next stage streams into it while this one computes
+        load_stage<kMasked>(a, smem_raw + (buf ^ 1) * a.stage_bytes,
+                            next_pos(pos, a.n_chunks, a.n_et), tid);
+        cp_async_commit();
+      }
+      if (qt != cur_qt) {  // a new query tile: its scalars, read after the tile barrier
+        cur_qt = qt;
+        if (tid < kTQ) {
+          const int q = qt * kTQ + tid;
+          const int ok = q < a.B;
+          tq[tid] = TileQuery{ok ? a.zn[q] : -1.0f, (kOut == kCounts && ok) ? a.t2[q] : 0.0f,
+                              (!kMasked && kOut == kCounts && ok) ? a.gold[q] : -1, ok};
+        }
+      }
 
-    const int k0 = chunk * a.kc, kn = min(a.kc, a.D - k0);
-    const uint32_t* q = a.q_per_stage ? reinterpret_cast<const uint32_t*>(st + a.off_q)
-                                      : q_whole + k0 / 2;
-    const int qs = a.q_per_stage ? a.ws : a.qs;
-    const uint32_t* q_re = q + q_local * qs + t;
-    const uint32_t* q_im = q + (kTQ + q_local) * qs + t;
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(st) + (e_base + g) * a.ws + t;
+      const int k0 = chunk * a.kc, kn = min(a.kc, a.D - k0);
+      const uint32_t* q = a.q_per_stage ? reinterpret_cast<const uint32_t*>(st + a.off_q)
+                                        : q_whole + k0 / 2;
+      const int qs = a.q_per_stage ? a.ws : a.qs;
+      const uint32_t* qa = q + a_row * qs + a_word;
+      const uint32_t* wb = reinterpret_cast<const uint32_t*>(st) + b_row * a.ws + b_word;
 #pragma unroll 1
-    for (int kw = 0; kw < kn / 2; kw += 8) {  // one k-step of 16 features
-      const uint32_t a0 = q_re[kw], a1 = q_im[kw], a2 = q_re[kw + 4], a3 = q_im[kw + 4];
+      for (int kw = 0; kw < kn / 2; kw += 8) {  // one k-step of 16 features
+        uint32_t af[kMT][4];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const uint32_t* wr = w + n * 8 * a.ws + kw;
-        mma_bf16(acc[n], a0, a1, a2, a3, wr[0], wr[4]);
-      }
-    }
-
-    if (chunk == a.n_chunks - 1) {
-      const float* wn = reinterpret_cast<const float*>(st + a.off_wn);
-      const float* bt = reinterpret_cast<const float*>(st + a.off_bt);
-      const int8_t* mask = reinterpret_cast<const int8_t*>(st + a.off_mask);
-      const TileQuery tqq = tq[q_local];
+        for (int m = 0; m < kMT; ++m) ldmatrix_x4(af[m], qa + 8 * m * qs + kw);
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
+        for (int p = 0; p < kNT / 2; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, wb + 16 * p * a.ws + kw);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int el = e_base + n * 8 + 2 * t + h, j = j0 + el;
-          if (j < a.Np) {
-            const float s_ij = chyp_score(acc[n][h], acc[n][2 + h], tqq.zn, wn[el], bt[el],
-                                          a.x_min);
-            bool keep;
-            if constexpr (kMasked) {
-              keep = mask[q_local * kTN + el] == 0;
-            } else {
-              keep = j != tqq.gold;
-            }
-            cnt += (keep && s_ij >= tqq.t2) ? 1 : 0;
+          for (int m = 0; m < kMT; ++m) {
+            mma_bf16(acc[m][2 * p], af[m][0], af[m][1], af[m][2], af[m][3], bf[0], bf[1]);
+            mma_bf16(acc[m][2 * p + 1], af[m][0], af[m][1], af[m][2], af[m][3], bf[2], bf[3]);
           }
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
       }
-      const bool last_of_tile = s + 1 == s_end || next_pos(pos, a.n_chunks, a.n_et).qt != qt;
-      if (last_of_tile) {  // the 4 lanes of a query group hold its counts
-        cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
-        cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
-        if (t == 0 && tqq.ok && cnt) atomicAdd(&a.out[qt * kTQ + q_local], cnt);
-        cnt = 0;
+      pos = next_pos(pos, a.n_chunks, a.n_et);
+    }
+
+    // a2 of the fragments' pairs into the score tile: (query g, entities
+    // 2t, 2t + 1) of each A tile and n-tile, from c0, c1 (re) and c2, c3 (im)
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int row = m_base + 8 * m + g, col = e_base + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(tile + row * kTileLd + col) =
+            make_float2(chyp_a2(acc[m][n][0], acc[m][n][2]), chyp_a2(acc[m][n][1], acc[m][n][3]));
+      }
+    __syncthreads();  // the tile is whole
+    tile_epilogue<kMasked, kOut>(a, st, tile, tq, qt, j0, q0, el, cnt);
+    if (kOut == kCounts && (s == s_end || pos.qt != qt)) {  // the tile's last item
+#pragma unroll
+      for (int i = 0; i < kQPL; ++i) {  // a half-warp's 16 lanes hold a query's counts
+        int c = cnt[i];
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+        const int ql = q0 + 2 * i;
+        if ((lane & 15) == 0 && tq[ql].ok && c) atomicAdd(&a.out[qt * kTQ + ql], c);
+        cnt[i] = 0;
       }
     }
-    pos = next_pos(pos, a.n_chunks, a.n_et);
-    __syncthreads();  // this buffer and the tile's queries are free again
   }
 }
 
@@ -758,45 +908,31 @@ chyp_filtered_sub_bf16_kernel(const uint32_t* __restrict__ lhs2, const float* __
   }
 }
 
-template <bool kMasked>
+
+template <bool kMasked, int kOut>
 int blocks_per_sm(size_t smem, int* sms) {
   static rank_sweeps::Occupancy cache;
-  return rank_sweeps::blocks_per_sm(cache, chyp_sweep_bf16_kernel<kMasked>, kThreads, smem,
+  return rank_sweeps::blocks_per_sm(cache, chyp_sweep_bf16_kernel<kMasked, kOut>, kThreads, smem,
                                     kMaxSmem, sms);
 }
 
-// The launch geometry of a sweep on D features (D % 16 == 0): chunks,
-// strides and the shared-memory layout.
-template <bool kMasked>
-void plan(Args& a) {
-  a.n_chunks = (a.D + kMaxChunk - 1) / kMaxChunk;
-  a.kc = ((a.D + a.n_chunks - 1) / a.n_chunks + 15) / 16 * 16;  // <= kMaxChunk
-  a.ws = rank_sweeps::bf16_row_words(a.kc);
-  a.qs = rank_sweeps::bf16_row_words(a.D);
-  a.q_per_stage = false;
-  layout<kMasked>(a);
-  if (smem_bytes<kMasked>(a) > (size_t)kMaxSmem) {
-    a.q_per_stage = true;
-    layout<kMasked>(a);
-  }
-}
-
-template <bool kMasked>
+template <bool kMasked, int kOut>
 int launch_sweep(Args a, cudaStream_t stream) {
   if (a.B <= 0 || a.Np <= 0 || a.D <= 0) return 0;
   if (a.D % 16 || a.ld < a.D || a.ld % 8 || !aligned16(a.lhs2) || !aligned16(a.rhs) ||
-      !aligned16(a.wn) || !aligned16(a.bt) || (kMasked ? a.mask == nullptr : a.gold == nullptr))
+      !aligned16(a.wn) || !aligned16(a.bt) ||
+      (kOut != kCounts ? a.scores == nullptr : (kMasked ? a.mask == nullptr : a.gold == nullptr)))
     return (int)cudaErrorInvalidValue;
-  plan<kMasked>(a);
-  const size_t smem = smem_bytes<kMasked>(a);
+  const size_t smem = plan<kMasked>(a);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   int sms = 0;
-  const int per_sm = blocks_per_sm<kMasked>(smem, &sms);
+  const int per_sm = blocks_per_sm<kMasked, kOut>(smem, &sms);
   if (per_sm < 0) return -per_sm;
   a.n_et = (a.Np + kTN - 1) / kTN;
   a.n_items = (a.B + kTQ - 1) / kTQ * a.n_et;
   a.vec_mask = kMasked && a.Np % 16 == 0 && aligned16(a.mask);
   const int grid = rank_sweeps::grid_size(a.n_items, per_sm, sms);
-  chyp_sweep_bf16_kernel<kMasked><<<grid, kThreads, smem, stream>>>(a);
+  chyp_sweep_bf16_kernel<kMasked, kOut><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -804,19 +940,28 @@ template <bool kMasked>
 int info(int D, int* regs, int* local_bytes, int* per_sm_out, int* smem_out) {
   Args a{};
   a.D = D;
-  plan<kMasked>(a);
-  const size_t smem = smem_bytes<kMasked>(a);
+  const size_t smem = plan<kMasked>(a);
   int sms = 0;
-  const int per_sm = blocks_per_sm<kMasked>(smem, &sms);
+  const int per_sm = blocks_per_sm<kMasked, kCounts>(smem, &sms);
   if (per_sm < 0) return -per_sm;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, chyp_sweep_bf16_kernel<kMasked>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, chyp_sweep_bf16_kernel<kMasked, kCounts>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   *per_sm_out = per_sm;
   *smem_out = (int)(smem + attr.sharedSizeBytes);
   return 0;
+}
+
+// Args of a bf16 sweep from the C interface's arguments.
+Args from(const void* lhs2, const float* zn, const float* t2, const void* rhs, const float* wn,
+          const float* bt, int B, int Np, int D, int ld, float x_min) {
+  Args a{};
+  a.lhs2 = static_cast<const uint32_t*>(lhs2);
+  a.zn = zn, a.t2 = t2, a.rhs = static_cast<const uint32_t*>(rhs), a.wn = wn, a.bt = bt;
+  a.B = B, a.Np = Np, a.D = D, a.ld = ld, a.x_min = x_min;
+  return a;
 }
 
 }  // namespace bf16
@@ -893,22 +1038,18 @@ extern "C" int chyp_rank_sweep_masked_bf16(const void* lhs2, const float* zn, co
                                            const void* rhs, const float* wn, const float* bt,
                                            const int8_t* mask, int* counts, int B, int Np,
                                            int D, int ld, float x_min, cudaStream_t stream) {
-  bf16::Args a{};
-  a.lhs2 = static_cast<const uint32_t*>(lhs2);
-  a.zn = zn, a.t2 = t2, a.rhs = static_cast<const uint32_t*>(rhs), a.wn = wn, a.bt = bt;
-  a.mask = mask, a.out = counts, a.B = B, a.Np = Np, a.D = D, a.ld = ld, a.x_min = x_min;
-  return bf16::launch_sweep<true>(a, stream);
+  bf16::Args a = bf16::from(lhs2, zn, t2, rhs, wn, bt, B, Np, D, ld, x_min);
+  a.mask = mask, a.out = counts;
+  return bf16::launch_sweep<true, bf16::kCounts>(a, stream);
 }
 
 extern "C" int chyp_rank_sweep_nomask_bf16(const void* lhs2, const float* zn, const float* t2,
                                            const void* rhs, const float* wn, const float* bt,
                                            const int* gold, int* counts, int B, int Np, int D,
                                            int ld, float x_min, cudaStream_t stream) {
-  bf16::Args a{};
-  a.lhs2 = static_cast<const uint32_t*>(lhs2);
-  a.zn = zn, a.t2 = t2, a.rhs = static_cast<const uint32_t*>(rhs), a.wn = wn, a.bt = bt;
-  a.gold = gold, a.out = counts, a.B = B, a.Np = Np, a.D = D, a.ld = ld, a.x_min = x_min;
-  return bf16::launch_sweep<false>(a, stream);
+  bf16::Args a = bf16::from(lhs2, zn, t2, rhs, wn, bt, B, Np, D, ld, x_min);
+  a.gold = gold, a.out = counts;
+  return bf16::launch_sweep<false, bf16::kCounts>(a, stream);
 }
 
 extern "C" int chyp_rank_filtered_sub_bf16(const void* lhs2, const float* zn, const float* t2,
@@ -931,4 +1072,20 @@ extern "C" int chyp_rank_sweep_bf16_info(int masked, int D, int* regs, int* loca
   if (D <= 0 || D % 16) return (int)cudaErrorInvalidValue;
   return masked ? bf16::info<true>(D, regs, local_bytes, blocks_per_sm, smem_bytes)
                 : bf16::info<false>(D, regs, local_bytes, blocks_per_sm, smem_bytes);
+}
+
+// The bf16 maskless sweep writing every pair's score (B, Np) float32 in
+// place of counts, through the batched epilogue (ieee 0; *flagged, zeroed
+// by the caller, gains the pairs its fast path flagged) or through
+// chyp_score()'s __fdiv_rn / __fsqrt_rn / logf on the same score tile
+// (ieee 1): the proof that both give the same bits.  The arguments of the
+// bf16 sweeps with no t2, mask or gold.
+extern "C" int chyp_rank_scores_bf16(const void* lhs2, const float* zn, const void* rhs,
+                                     const float* wn, const float* bt, float* scores,
+                                     int* flagged, int B, int Np, int D, int ld, float x_min,
+                                     int ieee, cudaStream_t stream) {
+  bf16::Args a = bf16::from(lhs2, zn, nullptr, rhs, wn, bt, B, Np, D, ld, x_min);
+  a.scores = scores, a.n_flagged = flagged;
+  return ieee ? bf16::launch_sweep<false, bf16::kScoresIeee>(a, stream)
+              : bf16::launch_sweep<false, bf16::kScoresFast>(a, stream);
 }

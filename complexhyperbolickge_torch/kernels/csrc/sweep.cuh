@@ -4,7 +4,9 @@
 // buffer computes, and launch one persistent grid sized by the occupancy
 // API: blocks_per_sm resident blocks on each SM, each a contiguous range
 // of (query tile, entity tile) items.  Their bf16 instances (precision
-// "default") contract with the warp-level tensor-core product mma_bf16.
+// "default") contract with the warp-level tensor-core product mma_bf16
+// (K1/K2's loading its fragments with ldmatrix_x4); the arithmetic of their
+// epilogues is in epilogue.cuh.
 
 #pragma once
 
@@ -83,6 +85,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into mma fragments, by
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16: lane l gives the address of row
+// l % 8 of matrix l / 8 (8 bf16 = 16 bytes, 16-byte aligned), and gets in
+// r[i] the two features 2t, 2t + 1 of row g of matrix i -- the a0..a3 of an
+// A tile whose matrices are (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows
+// 0-7, k 8-15), (rows 8-15, k 8-15), or the b0, b1 of two n-tiles whose
+// matrices are (columns 0-7, k 0-7), (0-7, k 8-15), (8-15, k 0-7), (8-15, k
+// 8-15) of B stored column by column.  Rows bf16_row_words() apart are
+// conflict-free: the 8 rows of a matrix fall in 8 distinct 16-byte bank
+// groups.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint32_t* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
 // Copy words [w0, w0 + nw) (nw a multiple of 4) of rows [r0, r0 + kRows) of

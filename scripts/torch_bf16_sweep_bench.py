@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""The bf16 rank sweeps of the real-hyperbolic families (K5/K6 for
---family poincare or lorentz, K7/K8 for attrh, at --eval_precision
-default) of the PyTorch/CUDA port on one NVIDIA GPU, at the WN18RR eval
-shape (B = 500 queries, 40,943 entities padded to 40,960 rows, D = 32 in
-bf16 rows (AttRH: two halves of 16), 22 curvatures, 5 filtered ids a
-query; inputs from scripts/torch_hyp_rank_bench.py's `inputs` at --seed).
+"""The bf16 rank sweeps (--eval_precision default) of the PyTorch/CUDA
+port on one NVIDIA GPU: K5/K6 for --family poincare or lorentz, K7/K8 for
+attrh, K1/K2 for chyp, at the WN18RR eval shape (B = 500 queries, 40,943
+entities padded to 40,960 rows, 5 filtered ids a query).  The real-
+hyperbolic families: D = 32 in bf16 rows (AttRH: two halves of 16), 22
+curvatures, inputs from scripts/torch_hyp_rank_bench.py's `inputs` at
+--seed; chyp: FFTRotH at rank 33, D = 66 in bf16 rows of 80 (the exact
+instance's float32 rows padded to 68), inputs from ChypRanker's
+kernel_inputs on torch_hyp_rank_bench's model_and_batch.
 
-    python3 scripts/torch_attrh_bf16_bench.py [--family attrh] [--tree DIR]
+    python3 scripts/torch_bf16_sweep_bench.py [--family attrh] [--tree DIR]
         [--seed 0] [--reps 50] [--sass] [--proofs] [--clocks]
 
 --tree runs the port found in DIR (for instance an unpacked older commit),
@@ -17,23 +20,26 @@ so two versions can be timed in one run.  Prints JSON lines:
             the maskless sweep and its subtraction (K6 / K8) and the exact
             instances of both; the bf16 masked sweep against its plain
             default version (within the bf16 near-threshold count) and
-            masked == maskless sweep - subtraction; the sweeps' registers,
-            spill bytes, shared memory and blocks an SM; the family's
-            default ranker's busy time a call (masked and maskless;
-            torch.profiler, 5 calls) on a model of the shape (RotH, RotLH,
-            AttRH);
+            masked == maskless sweep - subtraction; the counts' sums (equal
+            across trees: every score is the exact arithmetic's bits); the
+            sweeps' registers, spill bytes, shared memory and blocks an SM;
+            the family's default ranker's busy time a call (masked and
+            maskless; torch.profiler, 5 calls) on a model of the shape
+            (RotH, RotLH, AttRH, FFTRotH);
   proofs    (--proofs, trees that have them) the fast paths against
             __fsqrt_rn / __fdiv_rn (fast_arith_sweep) and the batched
-            epilogue's scores against score_from_radii's on this batch,
-            bit for bit (hyp_scores_bf16 / attrh_scores_bf16);
-  sass      (--sass) cuobjdump -sass of the tree's libhyp_rank.so: each bf16
-            sweep kernel's instructions, in all and between barriers (the
-            segment with the most MUFU is the epilogue's), and, compiled
-            from the tree's scripts/attrh_epilogue_probe.cu, the
-            instructions of one pair of each family through
-            score_from_radii (IEEE, the epilogue scored in place) and with
-            FastArith (a pair of the batched epilogue), less the probes'
-            loads and store;
+            epilogue's scores against score_from_radii's / chyp_score()'s
+            on this batch, bit for bit (hyp_scores_bf16 /
+            attrh_scores_bf16 / chyp_scores_bf16, which also counts the
+            pairs the fast path flagged);
+  sass      (--sass) cuobjdump -sass of the tree's libhyp_rank.so (chyp:
+            libchyp_rank.so): each bf16 sweep kernel's instructions, in all
+            and between barriers (the segment with the most MUFU is the
+            epilogue's), and, compiled from the tree's
+            scripts/bf16_epilogue_probe.cu, the instructions of one pair
+            of each family through score_from_radii / chyp_score() (IEEE,
+            the epilogue scored in place) and with FastArith (a pair of the
+            batched epilogue), less the probes' loads and store;
   clocks    (--clocks) the SM clock and power draw (nvidia-smi every 200 ms)
             while the bf16 masked sweep runs back to back for 3 s, and its
             launches;
@@ -54,9 +60,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = Path(__file__).resolve().parent
-FAMILIES = ("poincare", "lorentz", "attrh")
+FAMILIES = ("poincare", "lorentz", "attrh", "chyp")
 # the masked and the maskless kernel of each family
-NAMES = {"poincare": ("K5", "K6"), "lorentz": ("K5", "K6"), "attrh": ("K7", "K8")}
+NAMES = {"poincare": ("K5", "K6"), "lorentz": ("K5", "K6"), "attrh": ("K7", "K8"),
+         "chyp": ("K1", "K2")}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -78,11 +85,22 @@ def cuda_ms(fn, reps: int) -> float:
 def bf16_inputs(family: str, seed: int) -> dict:
     """torch_hyp_rank_bench's inputs of `family` at the WN18RR shape, with
     lhs and rhs as the default rankers' bf16 rows (AttRH: each half padded
-    on its own) and the exact instances' float32 rows beside them."""
+    on its own) and the exact instances' float32 rows beside them; chyp:
+    the exact and the default ChypRanker's kernel_inputs (masked and
+    maskless) on FFTRotH."""
     import torch_hyp_rank_bench as HB
 
     from complexhyperbolickge_torch.kernels._ranker import bf16_rows
 
+    if family == "chyp":
+        from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
+
+        model, q, f = HB.model_and_batch("fft", "wn18rr", seed)
+        x = {}
+        for prec in ("highest", "default"):
+            r = ChypRanker(model, precision=prec)
+            x[prec] = {**r.kernel_inputs(q, f, masked=False), **r.kernel_inputs(q, f)}
+        return {**x["default"], "lhs2_f32": x["highest"]["lhs2"], "rhs_f32": x["highest"]["rhs"]}
     t = HB.inputs(family, "wn18rr", seed)
     t["lhs_f32"], t["rhs_f32"] = t["lhs"], t["rhs"]
     halves = family == "attrh"
@@ -98,7 +116,25 @@ SUB = {"attrh": ("lhs", "x2r", "x2f", "c", "w0", "w1", "t2", "rhs", "un_rot", "u
 
 
 def _group(family: str) -> str:
-    return "attrh" if family == "attrh" else "hyp"
+    return {"attrh": "attrh", "chyp": "chyp"}.get(family, "hyp")
+
+
+CHYP = ("lhs2", "zn", "t2", "rhs", "wn", "bt")
+
+
+def chyp_calls(t: dict) -> dict:
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
+
+    d = {"precision": "default"}
+    base = [t[k] for k in CHYP]
+    ex = [{**t, "lhs2": t["lhs2_f32"], "rhs": t["rhs_f32"]}[k] for k in CHYP]
+    return {
+        "K1_bf16": lambda: K.chyp_rank_counts(*base, t["mask"], **d),
+        "K2_bf16_sweep": lambda: K.chyp_rank_sweep_nomask(*base, t["gold"], **d),
+        "K2_bf16_sub": lambda: K.chyp_rank_filtered_sub(*base, t["fidx"], t["gold"], **d),
+        "K1_exact": lambda: K.chyp_rank_counts(*ex, t["mask"]),
+        "K2_exact_sweep": lambda: K.chyp_rank_sweep_nomask(*ex, t["gold"]),
+    }
 
 
 def calls(family: str, t: dict) -> dict:
@@ -106,6 +142,8 @@ def calls(family: str, t: dict) -> dict:
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
     g = _group(family)
+    if g == "chyp":
+        return chyp_calls(t)
     d = {"precision": "default"}
     fam = {} if g == "attrh" else {"family": family}
     sw, sb = [t[k] for k in SWEEP[g]], [t[k] for k in SUB[g]]
@@ -129,6 +167,7 @@ def times(family: str, t: dict, reps: int, seed: int) -> dict:
 
     import chip_smoke as S
     import torch_hyp_rank_bench as HB
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
     from complexhyperbolickge_torch.kernels._ranker import (
         TC_REL,
@@ -140,7 +179,9 @@ def times(family: str, t: dict, reps: int, seed: int) -> dict:
     km, kn = NAMES[family]
     fns = calls(family, t)
     masked, sweep, sub = fns[f"{km}_bf16"](), fns[f"{kn}_bf16_sweep"](), fns[f"{kn}_bf16_sub"]()
-    if g == "attrh":
+    if g == "chyp":
+        plain = K.chyp_rank_counts_plain(*[t[k] for k in CHYP], t["mask"], "default")
+    elif g == "attrh":
         plain = H.attrh_rank_counts_plain(*[t[k] for k in SWEEP[g]], t["mask"], "default")
     else:
         plain = H.hyp_rank_counts_plain(*[t[k] for k in SWEEP[g]], t["mask"], family, "default")
@@ -152,12 +193,13 @@ def times(family: str, t: dict, reps: int, seed: int) -> dict:
     for name in (*order, *order[::-1]):
         ms.setdefault(name, []).append(cuda_ms(fns[name], reps))
     dev = torch.device("cuda")
-    width = {"default": int(t["lhs"].shape[1]), "highest": int(t["lhs_f32"].shape[1])}
-    info = {f"{'masked' if m else 'maskless'}_{p}": H.sweep_info(
-        family, dev, width[p], masked=m, precision=p)
-        for m in (True, False) for p in ("default", "highest")}
-    model, q, f = HB.model_and_batch(family, "wn18rr", seed)
-    ranker_cls = H.AttRHRanker if g == "attrh" else H.HypRanker
+    lhs = "lhs2" if g == "chyp" else "lhs"
+    width = {"default": int(t[lhs].shape[1]), "highest": int(t[f"{lhs}_f32"].shape[1])}
+    info_fn = K.sweep_info if g == "chyp" else partial(H.sweep_info, family)
+    info = {f"{'masked' if m else 'maskless'}_{p}": info_fn(dev, width[p], masked=m, precision=p)
+            for m in (True, False) for p in ("default", "highest")}
+    model, q, f = HB.model_and_batch("fft" if g == "chyp" else family, "wn18rr", seed)
+    ranker_cls = {"chyp": K.ChypRanker, "attrh": H.AttRHRanker}.get(g, H.HypRanker)
     busy = {}
     for m in (True, False):
         ranker = ranker_cls(model, masked=m, precision="default")
@@ -165,6 +207,8 @@ def times(family: str, t: dict, reps: int, seed: int) -> dict:
         prof = S.profile_window(lambda: [ranker(q, f) for _ in range(5)])
         busy["masked" if m else "maskless"] = prof["device_busy_ms"] / 5
     return {"family": family, "ms": ms, "sweep_info": info,
+            "count_sums": {"masked": int(masked.sum()), "sweep": int(sweep.sum()),
+                           "sub": int(sub.sum())},
             "masked_equals_sweep_minus_sub": bool(torch.equal(masked, sweep - sub)),
             "max_abs_err_vs_plain": int((masked - plain).abs().max()),
             "within_near_threshold": bool(((masked - plain).abs() <= near).all()),
@@ -196,15 +240,21 @@ def clocks(family: str, t: dict, seconds: float = 3.0) -> dict:
 def proofs(family: str, t: dict) -> dict:
     import torch
 
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
     out = {"fast_arith": H.fast_arith_sweep("cuda")}
     g = _group(family)
-    args = [t[k] for k in SWEEP[g] if k != "t2"]
-    fn = H.attrh_scores_bf16 if g == "attrh" else partial(H.hyp_scores_bf16, family=family)
-    fast, ieee = fn(*args), fn(*args, ieee=True)
+    flagged = None
+    if g == "chyp":
+        args = [t[k] for k in ("lhs2", "zn", "rhs", "wn", "bt")]
+        (fast, flagged), (ieee, _) = K.chyp_scores_bf16(*args), K.chyp_scores_bf16(*args, ieee=True)
+    else:
+        args = [t[k] for k in SWEEP[g] if k != "t2"]
+        fn = H.attrh_scores_bf16 if g == "attrh" else partial(H.hyp_scores_bf16, family=family)
+        fast, ieee = fn(*args), fn(*args, ieee=True)
     torch.cuda.synchronize()
-    out["scores"] = {"pairs": fast.numel(),
+    out["scores"] = {"pairs": fast.numel(), "flagged": flagged,
                      "mismatches": int((fast.view(torch.int32) != ieee.view(torch.int32)).sum())}
     out["ok"] = (out["fast_arith"]["sqrt_mismatches"] == 0
                  and out["fast_arith"]["quot_mismatches"] == 0
@@ -213,8 +263,11 @@ def proofs(family: str, t: dict) -> dict:
 
 
 def has_proofs(family: str) -> bool:
+    from complexhyperbolickge_torch.kernels import chyp_rank as K
     from complexhyperbolickge_torch.kernels import hyp_rank as H
 
+    if family == "chyp":
+        return hasattr(K, "chyp_scores_bf16")
     return hasattr(H, "attrh_scores_bf16" if family == "attrh" else "hyp_scores_bf16")
 
 
@@ -274,8 +327,8 @@ def demangle(names):
 
 
 def sass(tree: Path, lib: Path) -> dict:
-    """The bf16 sweeps' instructions, and the one-pair probes' of each
-    family the tree's probe holds."""
+    """The bf16 sweeps' instructions of `lib`, and the one-pair probes' of
+    each family the tree's probe holds."""
     from complexhyperbolickge_torch.kernels import _build
 
     out = {"kernels": {}}
@@ -294,11 +347,11 @@ def sass(tree: Path, lib: Path) -> dict:
         out["kernels"][pretty] = {
             "instructions": len(ops), "between_barriers": [len(s) for s in segs],
             "epilogue_segment": len(epi), "epilogue_histogram": histogram(epi)}
-    probe = tree / "build" / "attrh_probe" / "attrh_epilogue_probe.cubin"
+    src = tree / "scripts" / "bf16_epilogue_probe.cu"
+    probe = tree / "build" / "bf16_probe" / "bf16_epilogue_probe.cubin"
     probe.parent.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(probe),
-                    str(tree / "scripts" / "attrh_epilogue_probe.cu")], check=True,
+    subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(probe), str(src)], check=True,
                    capture_output=True)
     pf = sass_functions(probe)
     out["probes"] = {}
@@ -335,10 +388,10 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("torch_attrh_bf16_bench: needs a CUDA card")
+        raise SystemExit("torch_bf16_sweep_bench: needs a CUDA card")
     from complexhyperbolickge_torch.kernels import _build
 
-    _build.build_all(["hyp_rank"])
+    _build.build_all(["chyp_rank", "hyp_rank"])
     t = bf16_inputs(a.family, a.seed)
     ok = True
     row = {"tree": a.tree, **times(a.family, t, a.reps, a.seed)}
@@ -352,7 +405,7 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": a.tree, "family": a.family, "clocks": clocks(a.family, t)}),
               flush=True)
     if a.sass:
-        lib = Path(_build.BUILD_DIR) / "libhyp_rank.so"
+        lib = Path(_build.BUILD_DIR) / f"lib{'chyp_rank' if a.family == 'chyp' else 'hyp_rank'}.so"
         print(json.dumps({"tree": a.tree, "sass": sass(tree, lib)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())

@@ -65,14 +65,40 @@ def test_k5_k6_bf16_bounds_at_wn18rr(kname, family, want_ms, want_term):
 @pytest.mark.parametrize("kname,family", BF16_ROWS)
 def test_bf16_bound_not_below_exact_epilogue(kname, family):
     """No bf16 row's bound lies below its exact row's epilogue term (the
-    same pairs' EPILOGUE_OPS over the fp32 rate)."""
+    same pairs' EPILOGUE_OPS over the fp32 rate), which every family's
+    rows count (the FFT family's chyp_score: 16 operations a pair)."""
     kept = 2_000
     tc, f32, nbytes = _work(kname, family, kept)
     ms, by, term = S.bound_ms(H100, nbytes, f32, tc_ops=tc)
     pairs = B * N if "_sweep_" in kname else kept
-    epilogue = pairs * S.EPILOGUE_OPS.get(family, 0) / H100[0] * 1e3
+    epilogue = pairs * S.EPILOGUE_OPS[family] / H100[0] * 1e3
+    assert epilogue > 0 and f32 == pairs * S.EPILOGUE_OPS[family]
     assert ms >= epilogue
     assert by in ("operations", "bytes") and term in ("cores", "tensor_cores", "bytes")
+
+
+@pytest.mark.parametrize("kname,want_ms,want_term", [
+    ("chyp_rank_sweep_masked", 0.0855, "cores"),
+    ("chyp_rank_sweep_nomask", 0.0855, "cores"),
+    ("chyp_rank_sweep_masked_bf16", 0.0079, "bytes"),
+    ("chyp_rank_sweep_nomask_bf16", 0.0055, "tensor_cores")])
+def test_k1_k2_bounds_at_wn18rr(kname, want_ms, want_term):
+    """K1 / K2's sweeps at B 500, N 40,943, D 66: exact, per pair the
+    contraction's 2 (2 D) fp32 operations and chyp_score's 16 over 67
+    TFLOP/s, 0.0855 ms (the contraction alone: 0.0807); bf16, the masked
+    sweep's bytes (the int8 mask, 0.0079 ms) and the maskless sweep's
+    2 (2B) N D tensor-core operations (0.0055) stay above the epilogue's
+    fp32 term (0.0049)."""
+    if kname.endswith("_bf16"):
+        tc, f32, nbytes = _work(kname, "chyp")
+        assert f32 == B * N * 16
+    else:
+        tc, (f32, nbytes) = 0, S.chyp_row_work(kname, B, N, 66)
+        assert f32 == B * N * (4 * 66 + 16)
+    ms, _, term = S.bound_ms(H100, nbytes, f32, tc_ops=tc)
+    assert ms == pytest.approx(want_ms, rel=0.02)
+    assert term == want_term
+    assert f32 / H100[0] * 1e3 == pytest.approx(0.0049 if tc else 0.0855, rel=0.02)
 
 
 def test_bound_ms_picks_the_largest_term():

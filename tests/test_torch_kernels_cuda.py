@@ -657,9 +657,13 @@ def test_chyp_bf16_wrappers_refuse_other_operands():
 
 @pytest.mark.parametrize("masked", [True, False])
 def test_chyp_bf16_sweep_info(masked):
+    """K1/K2 bf16's sweep at the main path's 80 bf16 features: compiled for
+    3 resident blocks an SM (256 threads, up to 80 registers) with no
+    spill, and the shared memory lets all three reside."""
     dev = _cuda_or_skip()
     info = K.sweep_info(dev, 80, masked=masked, precision=DEFAULT)
-    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= 3 and info["local_bytes"] == 0
+    assert info["regs_per_thread"] <= 80
 
 
 def hyp_bf16_args(kind, args):
@@ -737,18 +741,44 @@ def test_hyp_bf16_sweep_info(kind):
 # ------------- the bf16 sweeps' epilogue: its bits against IEEE's -------------
 
 
+def chyp_scores_bitwise(shape, dev):
+    """K1/K2 bf16's scores through the batched epilogue against
+    chyp_score()'s, with queries 0 and 1 scaled by 1e9 and 1e12 so that
+    their pairs leave the fast path's range (x >= 2^50; 2 a2 >= 2^60 and
+    x^2 overflowing) and are scored again through IEEE."""
+    b, n, d, l, np_ = shape
+    t, _ = make_inputs(b, n, d, l, np_=np_)
+    t["lhs2"][[0, b]] *= 1e9
+    t["lhs2"][[1, b + 1]] *= 1e12
+    lhs2, rhs = bf16_rows(t["lhs2"]).to(dev), bf16_rows(t["rhs"]).to(dev)
+    args = (lhs2, t["zn"].to(dev), rhs, t["wn"].to(dev), t["bt"].to(dev))
+    (fast, flagged), (ieee, none) = K.chyp_scores_bf16(*args), K.chyp_scores_bf16(*args, ieee=True)
+    torch.cuda.synchronize()
+    assert fast.shape == (b, rhs.shape[0]) and none == 0
+    assert torch.equal(fast.view(torch.int32), ieee.view(torch.int32))
+    assert flagged >= n // 2  # most of the planted queries' real rows
+    assert torch.isfinite(fast[2:, :n]).all()
+
+
+# (B, N, D, L, Np); the FFT family's D is the bf16 rows' width: 32, 64,
+# 280 (three staged chunks), 80 (the main path's 66) and 208 (200: two)
 @pytest.mark.parametrize("shape", [(37, 1000, 32, 9, 1005), (500, 4000, 32, 5, None),
-                                   (45, 600, 64, 5, 601), (21, 517, 280, 4, 530)])
-@pytest.mark.parametrize("kind", HYP_KINDS)
+                                   (45, 600, 64, 5, 601), (21, 517, 280, 4, 530),
+                                   (37, 1000, 66, 9, 1005), (21, 517, 200, 4, 530)])
+@pytest.mark.parametrize("kind", [*HYP_KINDS, "chyp"])
 def test_bf16_scores_bitwise(kind, shape):
-    """K5/K6 (poincare, lorentz) and K7/K8 (attrh) bf16's scores through
-    the batched epilogue (FastArith, the flagged pairs again through IEEE)
-    equal score_from_radii's for every pair, pad rows, ragged tiles and
-    queries past B included, at D 32, 64 (AttRH: two k-steps a half) and
-    280 (three staged chunks); the real rows' scores are finite.  (Their
-    counts against the plain default version:
-    test_hyp_bf16_matches_plain_and_maskless.)"""
+    """K5/K6 (poincare, lorentz), K7/K8 (attrh) and K1/K2 (chyp) bf16's
+    scores through the batched epilogue (FastArith, the flagged pairs again
+    through IEEE) equal score_from_radii's / chyp_score()'s for every pair,
+    pad rows, ragged tiles and queries past B included, at D 32, 64
+    (AttRH: two k-steps a half), 66, 200 and 280 (two and three staged
+    chunks); the real rows' scores are finite.  (Their counts against the
+    plain default version: test_hyp_bf16_matches_plain_and_maskless,
+    test_chyp_bf16_matches_plain_and_maskless.)"""
     dev = _cuda_or_skip()
+    if kind == "chyp":
+        chyp_scores_bitwise(shape, dev)
+        return
     b, n, d, l, np_ = shape
     rng = np.random.default_rng(3)
     cvals = torch.as_tensor(rng.uniform(0.5, 1.5, 7), dtype=torch.float32)
