@@ -38,9 +38,12 @@ validation stay on the full graph.  It composes with --mesh and
 --distributed below: every rank samples each step's subgraph, each data
 row trains on its slice of the seed queries, and the entity tables stay
 row-sharded, a step gathering only its subgraph's rows.  --profile_dir
-writes a torch.profiler trace of the second epoch (the first when it is
-the only one); --debug_nans checks every training step and raises
-FloatingPointError at the first non-finite loss or NaN gradient
+writes a torch.profiler trace of the second epoch's training (the first's
+when it is the only one); without --subgraph it holds a range
+kge.train.step for every step, with its phases kge.train.loss,
+kge.train.backward and kge.train.optimizer inside
+(utils/profiling.py::span).  --debug_nans checks every training step and
+raises FloatingPointError at the first non-finite loss or NaN gradient
 (utils/profiling.py).  Runs on the card unless --device cpu.
 
 --mesh DxM trains on D x M ranks, one process each (parallel/mesh.py):
@@ -257,8 +260,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
-    for flag in ("mesh", "coordinator", "profile_dir"):
+    for flag in ("mesh", "coordinator"):
         p.add_argument(f"--{flag}", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of epoch 2 (or 1 when it is the "
+                        "only one) into this directory; each training step is a range "
+                        "kge.train.step holding kge.train.loss, kge.train.backward and "
+                        "kge.train.optimizer")
     p.add_argument("--num_processes", default=None, type=int)
     p.add_argument("--process_id", default=None, type=int)
     for flag in ("distributed", "debug_nans", "subgraph"):

@@ -9,6 +9,14 @@ first) and its per-batch query inputs (QUERIES, from `_queries_core(q)`,
 the threshold t2 last), and counts with `_counts(x, masked)` on the dict
 that `kernel_inputs` returns.
 
+Under a torch.profiler each call is a range kge.rank.call
+(utils/profiling.py::span) holding, in order, kge.rank.queries (the query
+inputs and threshold, and at "default" the query rows' rounding),
+kge.rank.filter (the filter ids' clamp and the int8 mask, or the maskless
+form's int32 ids) and kge.rank.sweep (the sweep kernel and, maskless, the
+filtered subtraction); the table check and the count epilogue are the
+call's own.
+
 precision "default" (--eval_precision default) is JAX's single-pass bf16
 contraction with f32 accumulation: both operands of the score contraction
 are rounded to bfloat16 (round-to-nearest-even), their products summed in
@@ -27,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from complexhyperbolickge_torch.ops.math import check_precision, round_up
+from complexhyperbolickge_torch.utils.profiling import span
 
 # entity rows per tile of the sweep kernels; tables are padded to a
 # multiple of it (the kernels also take a ragged last tile)
@@ -213,35 +222,41 @@ class FusedRanker:
         masked = self.masked if masked is None else masked
         tables = self._get_tables()
         out = dict(zip(self.TABLES, tables))
-        out.update(zip(self.QUERIES, self._queries_core(q)))
         rhs = tables[0]
-        if self.precision == "default":  # the contraction's bf16 operands
-            out[self.TABLES[0]] = tables[-1]
-            out[self.QUERIES[0]] = bf16_rows(out[self.QUERIES[0]], self.BF16_HALVES)
+        with span("rank.queries"):
+            out.update(zip(self.QUERIES, self._queries_core(q)))
+            if self.precision == "default":  # the contraction's bf16 operands
+                out[self.TABLES[0]] = tables[-1]
+                out[self.QUERIES[0]] = bf16_rows(out[self.QUERIES[0]], self.BF16_HALVES)
         n = self.model.cfg.n_entities
         np_ = rhs.shape[0]
-        fidx = torch.where((fidx >= 0) & (fidx < np_), fidx, torch.full_like(fidx, n))
-        if masked:
-            mask = torch.zeros((q.shape[0], np_), dtype=torch.int8, device=rhs.device)
-            mask[:, n:] = 1
-            mask.scatter_(1, fidx.long(), 1)
-            out["mask"] = mask
-        else:
-            out["fidx"] = fidx.to(torch.int32).contiguous()
-            out["gold"] = q[:, 2].to(torch.int32).contiguous()
+        with span("rank.filter"):
+            fidx = torch.where((fidx >= 0) & (fidx < np_), fidx, torch.full_like(fidx, n))
+            if masked:
+                mask = torch.zeros((q.shape[0], np_), dtype=torch.int8, device=rhs.device)
+                mask[:, n:] = 1
+                mask.scatter_(1, fidx.long(), 1)
+                out["mask"] = mask
+            else:
+                out["fidx"] = fidx.to(torch.int32).contiguous()
+                out["gold"] = q[:, 2].to(torch.int32).contiguous()
         return out
 
     @torch.no_grad()
     def __call__(self, q, fidx):
-        x = self.kernel_inputs(q, fidx)
-        counts = self._counts(x, self.masked)
-        if not self.masked:
-            # the gold was excluded from both the sweep and the subtraction;
-            # the dense path's contribution is 0 when it is filtered (always,
-            # under the reference protocol) and +1 otherwise
-            gold_filtered = (x["fidx"] == x["gold"][:, None]).any(dim=1)
-            counts = counts + (~gold_filtered).to(torch.int32)
-        # NaN discipline: counts are finite by construction, so NaN params
-        # would silently rank everything 1; t2 * 0 is NaN exactly when the
-        # gold-target score is, and get_ranking's host check then fires
-        return 1.0 + counts.to(torch.float32) + x["t2"] * 0.0
+        with span("rank.call"):
+            x = self.kernel_inputs(q, fidx)
+            with span("rank.sweep"):
+                counts = self._counts(x, self.masked)
+            if not self.masked:
+                # the gold was excluded from both the sweep and the
+                # subtraction; the dense path's contribution is 0 when it is
+                # filtered (always, under the reference protocol) and +1
+                # otherwise
+                gold_filtered = (x["fidx"] == x["gold"][:, None]).any(dim=1)
+                counts = counts + (~gold_filtered).to(torch.int32)
+            # NaN discipline: counts are finite by construction, so NaN
+            # params would silently rank everything 1; t2 * 0 is NaN exactly
+            # when the gold-target score is, and get_ranking's host check
+            # then fires
+            return 1.0 + counts.to(torch.float32) + x["t2"] * 0.0

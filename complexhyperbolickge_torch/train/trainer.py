@@ -38,6 +38,14 @@ utils/profiling.py's NanCheck: each step's loss is checked before its
 backward, which runs in anomaly mode, and the first non-finite value raises
 FloatingPointError naming the epoch and the step.
 
+Under a torch.profiler (--profile_dir, or one a caller runs) each
+train_step is a range kge.train.step in the trace, holding kge.train.loss
+(the negative draws, get_queries, the scores, the loss and the
+regularizer), kge.train.backward (autograd; on the card its kernels are
+launched from the autograd engine's thread while the range is open on the
+calling thread) and kge.train.optimizer (the mesh's gradient sum, the
+update and the cleared gradients; only on the steps that apply them).
+
 On a mesh (parallel/mesh.py, `mesh` of D x M ranks) the steps are data
 parallel: run_epoch and valid_loss take the full epoch arrays, which every
 rank builds from the epoch seed, and each data row trains on its slice of
@@ -76,7 +84,7 @@ from complexhyperbolickge_torch.parallel.mesh import (
 from complexhyperbolickge_torch.train import losses as L
 from complexhyperbolickge_torch.train.regularizers import get_regularizer
 from complexhyperbolickge_torch.train.sparse_adam import SparseAdam
-from complexhyperbolickge_torch.utils.profiling import nan_check
+from complexhyperbolickge_torch.utils.profiling import nan_check, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,17 +341,24 @@ class Trainer:
         accumulated); with apply, one optimizer step and cleared gradients.
         labels: the batch's label rows (B, L) for BCE, else None; check: a
         NanCheck, whose backward then runs in place of loss.backward().
-        Returns the loss as a device scalar."""
-        loss = self._loss(batch, weights, generator, labels=labels)
-        if check is None:
-            loss.backward()
-        else:
-            check.backward(loss)
-        if apply:
-            sum_grads(self.model, self.mesh, self.sharded)
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-        return loss.detach()
+        Returns the loss as a device scalar.  Under a torch.profiler the
+        step is a range kge.train.step holding kge.train.loss,
+        kge.train.backward and (with apply) kge.train.optimizer
+        (utils/profiling.py::span)."""
+        with span("train.step"):
+            with span("train.loss"):
+                loss = self._loss(batch, weights, generator, labels=labels)
+            with span("train.backward"):
+                if check is None:
+                    loss.backward()
+                else:
+                    check.backward(loss)
+            if apply:
+                with span("train.optimizer"):
+                    sum_grads(self.model, self.mesh, self.sharded)
+                    self.optimizer.step()
+                    self.optimizer.zero_grad(set_to_none=True)
+            return loss.detach()
 
     def _mean(self, losses) -> float:
         """The mean of the batches' losses; on a mesh each rank's losses

@@ -1,14 +1,32 @@
-"""Observability: a throughput meter, a torch.profiler trace, and the
---debug_nans check.
+"""Observability: phase ranges in a torch.profiler trace, a torch.profiler
+trace of a block, and the --debug_nans check.
 
-Port of complexhyperbolickge_tpu/utils/profiling.py.  StepTimer is the JAX
-package's; trace() writes a torch.profiler trace (CPU and, on a machine
-with a card, CUDA activity) where JAX writes a jax.profiler one.  NanCheck
-is the port's form of JAX's jax_debug_nans: JAX fails fast with
-FloatingPointError on the first NaN of any computation; here the training
-loop runs under torch.autograd.detect_anomaly() and each step's loss is
-checked on the host before its backward, so the error names the epoch and
-the step.
+Port of complexhyperbolickge_tpu/utils/profiling.py.  trace() writes a
+torch.profiler trace (CPU and, on a machine with a card, CUDA activity)
+where JAX writes a jax.profiler one.  NanCheck is the port's form of JAX's
+jax_debug_nans: JAX fails fast with FloatingPointError on the first NaN of
+any computation; here the training loop runs under
+torch.autograd.detect_anomaly() and each step's loss is checked on the host
+before its backward, so the error names the epoch and the step.
+
+span(name) marks a phase of the program (a training step's loss, backward
+and optimizer; a fused ranker call's query prep, filter and sweep) as a
+range `kge.<name>` in whatever torch.profiler is recording: trace()'s
+--profile_dir trace, or a profiler a caller runs.  The ranges are recorded
+into the profiler itself, so they share the trace's clock with its host
+operators, its runtime calls and, through those calls' correlation ids, the
+device operations each phase launched; the profiler keeps them in memory
+and writes them with the trace.  They are operator-scope ranges (category
+`cpu_op` in the Chrome trace), not user annotations, so a reader that
+keeps a trace's host operators finds them nested with the aten operators
+they enclose.  A phase's range and the step's or call's range that
+holds it are told apart by containment and order in the trace, so the
+names are fixed strings and a trace aggregates by name.
+
+With no profiler recording, span() reads one flag and returns a shared
+no-op context: about 0.3 us an enter and exit on a CPU core, where a
+torch.profiler.record_function costs ~11 us even with no profiler running.
+With a profiler recording, a range costs ~1.3 us (record_function: ~14).
 """
 
 from __future__ import annotations
@@ -21,36 +39,25 @@ import time
 import torch
 
 
-class StepTimer:
-    """Wall-clock throughput meter with warmup-discarding averages."""
+PREFIX = "kge."
+_OFF = contextlib.nullcontext()
 
-    def __init__(self, warmup: int = 1):
-        self.warmup = warmup
-        self.times: list[float] = []
-        self._t0 = None
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    def rate(self, units_per_step: float) -> float:
-        steady = self.times[self.warmup:] or self.times
-        return units_per_step * len(steady) / sum(steady)
-
-    @property
-    def mean_ms(self) -> float:
-        steady = self.times[self.warmup:] or self.times
-        return 1000.0 * sum(steady) / len(steady)
+def span(name: str):
+    """A profiler range `kge.<name>` while a torch.profiler records, else
+    the one shared no-op context.  The flag is read through its module on
+    every call (a name imported from it would stay False)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(PREFIX + name)
+    return _OFF
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None):
     """torch.profiler over the block, written on exit as a Chrome trace
     (<host>_<pid>.<ns>.pt.trace.json, the name TensorBoard's profiler plugin
-    reads) into log_dir; a no-op for None."""
+    reads) into log_dir; a no-op for None.  The trace holds the span()
+    ranges of every step and ranker call the block runs."""
     if log_dir is None:
         yield
         return

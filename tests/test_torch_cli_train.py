@@ -120,7 +120,8 @@ def test_only_the_multi_device_flags_are_unported():
 @pytest.mark.parametrize("epochs", [1, 2])
 def test_profile_dir_traces_one_epoch(tmp_path, epochs):
     """--profile_dir writes one torch.profiler trace: of epoch 2, or of
-    epoch 1 when it is the only one."""
+    epoch 1 when it is the only one, with a kge.train.step range for each
+    of that epoch's batches."""
     import json
 
     out = run(tmp_path / "run", "--max_epochs", str(epochs), "--profile_dir",
@@ -130,6 +131,8 @@ def test_profile_dir_traces_one_epoch(tmp_path, epochs):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    steps = [e for e in events if e.get("name") == "kge.train.step" and e.get("ph") == "X"]
+    assert len(steps) == out["history"][-1]["steps"] > 0
 
 
 @pytest.mark.parametrize("mode", ["full", "subgraph"])
@@ -153,17 +156,6 @@ def test_debug_nans_raises_at_the_first_nan_step(tmp_path, monkeypatch, mode):
         R.train(R.build_parser().parse_args(argv + ["--save_dir", str(tmp_path),
                                                     "--max_epochs", "1", "--debug_nans"]))
     assert len(calls) == 3
-
-
-def test_step_timer_discards_warmup():
-    from complexhyperbolickge_torch.utils.profiling import StepTimer
-
-    t = StepTimer(warmup=1)
-    with t:
-        pass
-    assert len(t.times) == 1 and t.times[0] >= 0.0
-    t.times = [1.0, 0.25, 0.25]  # the first (warm-up) step is left out
-    assert t.rate(100) == pytest.approx(400.0) and t.mean_ms == pytest.approx(250.0)
 
 
 def test_nan_check_turns_a_nan_gradient_into_floating_point_error():
