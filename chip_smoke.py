@@ -45,7 +45,9 @@ line:
               count must equal the masked), the train distance K3/K4 in
               the clamped-at-init and 0.4 regimes: the gathered (identity)
               form at (500, 100, 66), and the id form of the training step,
-              500 x (1 + 100) sampler-drawn ids over a 40,943 x 66 table
+              500 x (1 + 100) sampler-drawn ids over a 40,943 x 66 table;
+              FFTRotH's fused query chain (forward, and the backward's two
+              launches) on 500 queries at the init, 0.1 and 0.5 scales
   4 train-step parity  3 Adam steps through K3/K4 (one launch of each a
               step) and through the plain version from the same params and
               negatives: params agree
@@ -229,6 +231,9 @@ KERNEL_META = {
     "chyp_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/chyp_rank.py:230",
     "chyp_train_fwd": "complexhyperbolickge_tpu/kernels/chyp_train.py:89",
     "chyp_train_bwd": "complexhyperbolickge_tpu/kernels/chyp_train.py:117",
+    # no pallas_call: the JAX model runs the chain in XLA
+    "fftroth_queries_fwd": "complexhyperbolickge_tpu/models/chyperbolic.py FFTRotH.get_queries",
+    "fftroth_queries_bwd": "its autograd backward",
     "hyp_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/hyp_rank.py:502",
     "hyp_rank_sweep_nomask": "complexhyperbolickge_tpu/kernels/hyp_rank.py:545",
     "hyp_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/hyp_rank.py:563",
@@ -240,12 +245,18 @@ KERNEL_META = {
 }
 SOURCES = {"chyp_rank": "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu",
            "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu",
+           "chyp_queries": "complexhyperbolickge_torch/kernels/csrc/chyp_queries.cu",
            "hyp_rank": "complexhyperbolickge_torch/kernels/csrc/hyp_rank.cu",
            "sorted_segment_sum": "complexhyperbolickge_torch/kernels/csrc/segsum.cu",
            "row_gather": "complexhyperbolickge_torch/kernels/csrc/gather.cu"}
 RANK_KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask",
                 "chyp_rank_filtered_sub")
 TRAIN_KERNELS = ("chyp_train_fwd", "chyp_train_bwd")
+CHAIN_KERNELS = ("fftroth_queries_fwd", "fftroth_queries_bwd")
+# the fused chain against its plain version on the card: the forward
+# within 4 float32 ulps of the output's largest entry, the gradients 1e-5
+# of each table's (tests/test_torch_chyp_queries.py)
+CHAIN_FWD_ULPS, CHAIN_GRAD_REL = 4, 1e-5
 
 # the real-hyperbolic path (KGEmb's RotH WN18RR 32-dim example, see above)
 HYP_RANK, HYP_NEG = 32, 50
@@ -855,6 +866,86 @@ def phase_train_kernels(seed: int):
     return errors
 
 
+def chain_inputs(scale: float, seed: int):
+    """FFTRotH's tables at the smoke's width (the published init, or rows
+    drawn at `scale`, where 0.5 clips in project) and BATCH queries [h, r]
+    with repeated ids: (tables, queries, g_res, g_bias)."""
+    import torch
+
+    model = wn18rr_model(seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        if scale:
+            for k in ("entity", "rel", "bh"):
+                p = getattr(model, k)
+                p.copy_(torch.randn(p.shape, generator=g) * scale)
+            model.c.copy_(1.0 + 0.05 * torch.randn(model.c.shape, generator=g))
+    n, nr = model.entity.shape[0], model.rel.shape[0]
+    q = torch.stack([torch.randint(0, n, (BATCH,), generator=g),
+                     torch.randint(0, nr, (BATCH,), generator=g)], 1)
+    q[7], q[9, 0] = q[3], q[3, 0]
+    tables = [getattr(model, k).detach() for k in ("entity", "rel", "rel_diag", "c", "bh")]
+    g_res = torch.randn((BATCH, 2 * RANK), generator=g)
+    g_bias = torch.randn((BATCH, 1), generator=g)
+    return tables, q.to(DEVICE), g_res.to(DEVICE), g_bias.to(DEVICE)
+
+
+def chain_work(kname: str, b: int, n_rows: int, d: int, n_rel: int):
+    """(fp32 operations, fp64 operations, bytes) of FFTRotH's fused chain
+    for b queries: fp64, the DFTs' 2 D n FMA operations each (the forward
+    two, the backward three: the recomputed irfft and the two transposed
+    products) and the row sums' 2 n a sum (13 forward, 16 more backward);
+    fp32, ~25 a coordinate forward and ~60 more backward (n = D - 2).
+    Bytes: each query's rows of the five tables, its ids and its outputs;
+    the backward also g_res, its scratch written and read, the row slots
+    (N) and the dense gradients (N x (D + 1), the relation tables)."""
+    n = d - 2
+    dft, sums = 2 * d * n, 2 * n
+    row_in = 4 * (d + 2 * n + n + 2) + 16
+    if kname == "fftroth_queries_fwd":
+        return b * 25 * n, b * (2 * dft + 13 * sums), b * (row_in + 4 * (d + 1)) + 16 * d * n
+    scratch = 4 * (d + 3 * n + 1)
+    return (b * 85 * n, b * (3 * dft + 29 * sums),
+            b * (row_in + 4 * d + 2 * scratch) + 4 * (n_rows * (d + 2) + n_rel * 3 * n)
+            + 24 * d * n)
+
+
+def phase_chain_kernels(seed: int):
+    """FFTRotH's fused query chain against its plain version on the card:
+    the forward and the backward (both launches), at the published init
+    and at row scales 0.1 and 0.5, with and without multi_c."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import chyp_queries as CQ
+
+    out = {"phase": "chain-kernels", "B": BATCH, "D": 2 * RANK, "regimes": {}}
+    errors = dict.fromkeys(CHAIN_KERNELS, 0.0)
+    for scale in (0.0, 0.1, 0.5):
+        tables, q, g_res, g_bias = chain_inputs(scale, seed)
+        res, bias = CQ.fftroth_queries_forward(*tables, q, True)
+        want, want_b = CQ.fftroth_queries_forward_plain(*tables, q, True)
+        grads = CQ.fftroth_queries_backward(g_res, g_bias, *tables[:4], q, True)
+        again = CQ.fftroth_queries_backward(g_res, g_bias, *tables[:4], q, True)
+        want_g = CQ.fftroth_queries_backward_plain(g_res, g_bias, *tables[:4], q, True)
+        torch.cuda.synchronize()
+        fwd_err = float((res - want).abs().max())
+        rel = [float((a - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+               for a, e in zip(grads, want_g)]
+        out["regimes"][str(scale)] = {
+            "res_max_abs_err": fwd_err, "bias_equal": bool(torch.equal(bias, want_b)),
+            "grad_rel_err": rel, "same_bits_twice": all(
+                torch.equal(a, b) for a, b in zip(grads, again)),
+            "ok": (fwd_err <= CHAIN_FWD_ULPS * 2**-23 * float(want.abs().max())
+                   and max(rel) <= CHAIN_GRAD_REL and bool(torch.equal(bias, want_b)))}
+        errors["fftroth_queries_fwd"] = max(errors["fftroth_queries_fwd"], fwd_err)
+        errors["fftroth_queries_bwd"] = max(errors["fftroth_queries_bwd"], *[
+            float((a - e).abs().max()) for a, e in zip(grads, want_g)])
+    emit(out)
+    if not all(v["ok"] and v["same_bits_twice"] for v in out["regimes"].values()):
+        raise AssertionError(f"the fused chain disagrees with its plain version: {out}")
+    return errors
+
+
 def wn18rr_model(seed: int, name: str = "FFTRotH"):
     """A fresh `name` at the smoke's width on the card, drawn from `seed`."""
     import torch
@@ -1391,12 +1482,27 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
     identity = {"chyp_train_fwd": lambda: CT.chyp_train_ids_forward(gl, gt, None),
                 "chyp_train_bwd": lambda: CT.chyp_train_ids_backward(gg, gl, gt, None, *gres)}
     lists_ms = cuda_ms(lambda: CT.chyp_train_lists(g, ids.reshape(-1), *res, tn), reps=50)
+    # FFTRotH's fused query chain at BATCH queries: the forward, and the
+    # backward's two launches (bwd, then sum), counted as one row
+    from complexhyperbolickge_torch.kernels import chyp_queries as CQ
+
+    tables, cq, g_res, g_bias = chain_inputs(0.1, seed)
+    for kname, (kernel, plain, args) in {
+            "fftroth_queries_fwd": (CQ.fftroth_queries_forward, CQ.fftroth_queries_forward_plain,
+                                    [*tables, cq, True]),
+            "fftroth_queries_bwd": (CQ.fftroth_queries_backward,
+                                    CQ.fftroth_queries_backward_plain,
+                                    [g_res, g_bias, *tables[:4], cq, True])}.items():
+        f32_ops, f64_ops, nbytes = chain_work(kname, BATCH, tables[0].shape[0], 2 * RANK,
+                                              tables[1].shape[0])
+        work[kname] = (kernel, plain, args, f32_ops, f64_ops, nbytes)
     rows = []
     for kname, (kernel, plain, args, f32_ops, f64_ops, nbytes) in work.items():
         bound, bound_by, _ = bound_ms(peak_rates(name), nbytes, f32_ops, f64_ops)
+        lib = ("chyp_train" if kname in TRAIN_KERNELS else
+               "chyp_queries" if kname in CHAIN_KERNELS else "chyp_rank")
         row = {
-            "name": kname, "route": "cuda",
-            "source": SOURCES["chyp_train" if kname in TRAIN_KERNELS else "chyp_rank"],
+            "name": kname, "route": "cuda", "source": SOURCES[lib],
             "replaces": KERNEL_META[kname], "launches": launches[kname],
             "max_abs_err": errors[kname],
             "ms": cuda_ms(lambda: kernel(*args), reps=50),
@@ -1410,6 +1516,11 @@ def phase_kernel_line(model, batch, launches, errors, smi, name, seed, step_ms):
                        identity_shape={"B": BATCH, "K": NEG, "D": td})
             if kname == "chyp_train_bwd":
                 row.update(lists_ms=lists_ms, lists_launches=launches["chyp_train_lists"])
+        elif kname in CHAIN_KERNELS:
+            row.update(step_ms=step_ms, shape={"B": BATCH, "N": tables[0].shape[0],
+                                               "D": 2 * RANK, "nR": tables[1].shape[0]})
+            if kname == "fftroth_queries_bwd":
+                row["sum_launches"] = launches["fftroth_queries_sum"]
         else:
             row.update(dense_ms=dense_ms, ranker_ms=ranker_ms[kname == "chyp_rank_sweep_masked"],
                        shape={"B": b, "Np": np_, "D": d, "ld": ld, "L": l})
@@ -2949,6 +3060,7 @@ def main(argv=None) -> int:
         model, dataset = load_serving_state(model_dir, "cuda")
         batch, errors = phase_kernels(model, dataset)
         errors.update(phase_train_kernels(a.seed))
+        errors.update(phase_chain_kernels(a.seed))
         phase_train_step_parity(a.seed)
 
         hyp_dirs, not_inverted = {}, {}
@@ -2991,10 +3103,12 @@ def main(argv=None) -> int:
         if not all(serve_launches[k] for k in RANK_KERNELS):
             raise AssertionError(f"a ranking kernel never launched: {serve_launches}")
         steps = sum(h["steps"] for h in history)
-        if (min(train_launches[k] for k in (*TRAIN_KERNELS, "chyp_train_lists")) < steps
+        if (min(train_launches[k] for k in (*TRAIN_KERNELS, "chyp_train_lists",
+                                            *CHAIN_KERNELS, "fftroth_queries_sum")) < steps
                 or not train_launches["chyp_rank_sweep_masked"]):
-            raise AssertionError(f"K3/K4 (or K4's lists) launched fewer times than the "
-                                 f"{steps} training steps, or K1 never: {train_launches}")
+            raise AssertionError(f"K3/K4 (or K4's lists, or the fused chain) launched fewer "
+                                 f"times than the {steps} training steps, or K1 never: "
+                                 f"{train_launches}")
         want = {"RotH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
                 "RotLH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
                 "AttRH": (*ATTRH_KERNELS, "hyp_rank_radii"),
@@ -3003,7 +3117,8 @@ def main(argv=None) -> int:
         if any(missing.values()):
             raise AssertionError(f"real-hyperbolic kernels that never launched: {missing}")
         launches = {**{k: serve_launches[k] for k in RANK_KERNELS},
-                    **{k: train_launches[k] for k in (*TRAIN_KERNELS, "chyp_train_lists")}}
+                    **{k: train_launches[k] for k in (*TRAIN_KERNELS, "chyp_train_lists",
+                                                      *CHAIN_KERNELS, "fftroth_queries_sum")}}
 
         # the GNN path: kernels and parity first, at full width
         gnn_models = {m: gnn_model(a.seed, m, dataset) for m in GNN_MODELS}

@@ -4,13 +4,21 @@ chyp_rank.py ports complexhyperbolickge_tpu/kernels/chyp_rank.py (K1, K2);
 chyp_train.py ports complexhyperbolickge_tpu/kernels/chyp_train.py (K3,
 K4); hyp_rank.py ports complexhyperbolickge_tpu/kernels/hyp_rank.py (K5-K8);
 segsum.py and gather.py port the GNN's kernels/segsum.py (K9) and
-kernels/gather.py (K10).  Sources live in csrc/ and are compiled at first
+kernels/gather.py (K10); chyp_queries.py fuses FFTRotH's query chain,
+which the JAX package runs eagerly.  Sources live in csrc/ and are compiled at first
 use (_build.py); importing this package builds nothing.
 """
 
-from complexhyperbolickge_torch.kernels import chyp_rank, chyp_train, gather, hyp_rank, segsum
+from complexhyperbolickge_torch.kernels import (
+    chyp_queries,
+    chyp_rank,
+    chyp_train,
+    gather,
+    hyp_rank,
+    segsum,
+)
 
-_MODULES = (chyp_rank, chyp_train, hyp_rank, segsum, gather)
+_MODULES = (chyp_rank, chyp_train, chyp_queries, hyp_rank, segsum, gather)
 
 
 def reset_launches():

@@ -30,7 +30,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chyp_rank", "chyp_train", "hyp_rank", "segsum", "gather")
+SOURCES = ("chyp_rank", "chyp_train", "chyp_queries", "hyp_rank", "segsum", "gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -62,6 +62,10 @@ SIGNATURES = {
         "chyp_train_bwd": [_P] * 13 + [_I] * 4 + [_F, _P],
         "chyp_train_lists": [_P] * 12 + [_I] * 4 + [_F, _P],
         "chyp_train_lists_blocks": [_IP],
+    },
+    "chyp_queries": {
+        "fftroth_queries_fwd": [_P] * 6 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+        "fftroth_queries_bwd": [_P] * 5 + [_I] + [_P] * 13 + [_I] * 5 + [_P],
     },
     "hyp_rank": {
         **_with_bf16({

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.kernels import chyp_queries as CQ
 from complexhyperbolickge_torch.kernels import chyp_train as CT
 from complexhyperbolickge_torch.models.base import KGModel
 from complexhyperbolickge_torch.ops import chyperbolic as CH
@@ -69,9 +70,15 @@ class FFTUnitBall(KGModel):
 
 
 class FFTRotH(FFTUnitBall):
-    """Givens rotations in coordinate space."""
+    """Givens rotations in coordinate space.  On float32 tables on the card
+    (kernels/chyp_queries.py::use_kernel) the chain is one CUDA forward
+    and one backward; any other tables (CPU, float64, bfloat16) run it
+    eagerly."""
 
     def get_queries(self, queries):
+        tables = (self.entity, self.rel, self.rel_diag, self.c, self.bh)
+        if queries.dim() == 2 and CQ.use_kernel(*tables):
+            return CQ.fftroth_queries(*tables, queries, self.cfg.multi_c)
         h, r = queries[..., 0], queries[..., 1]
         c = self.curvature(r)
         head = irfft_packed(self.entity[h])  # (B, dim) real

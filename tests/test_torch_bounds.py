@@ -108,3 +108,18 @@ def test_bound_ms_picks_the_largest_term():
     assert (ms, by, term) == (pytest.approx(2.0), "operations", "cores")
     ms, by, term = S.bound_ms(H100, 10.0, f32_ops=1.0, tc_ops=bf16_peak * 3e-3)
     assert (ms, by, term) == (pytest.approx(3.0), "operations", "tensor_cores")
+
+
+@pytest.mark.parametrize("kname, want_ms, want_term", [
+    ("fftroth_queries_fwd", 0.000285, "cores"),
+    ("fftroth_queries_bwd", 0.00387, "bytes"),
+])
+def test_fused_chain_bounds_at_wn18rr(kname, want_ms, want_term):
+    """FFTRotH's fused query chain for B 500 queries over the WN18RR tables
+    (N 40,943, D 66, 22 relations): the forward is its two fp64 DFTs a row
+    (0.28 us on the cores); the backward is the dense (N, D + 1) gradients
+    it writes (~11 MB, 3.9 us)."""
+    f32, f64, nbytes = S.chain_work(kname, B, N, 66, 22)
+    ms, _, term = S.bound_ms(H100, nbytes, f32, f64)
+    assert term == want_term
+    assert ms == pytest.approx(want_ms, rel=0.01)
