@@ -103,7 +103,7 @@ line:
               launch its family's three kernels and the radius launcher
  12 gnn-kernels  K9 against index_add_ (rtol 1e-5, atol 1e-6) and K10 against
               x[ids] (bitwise) on one sorted half of the graph (E 86,835, N
-              40,943) at H = 1, 32, 200, forward and backward, in float32
+              40,943) at H = 1, 32, 100, 200, forward and backward, in float32
               and in bfloat16 (K9 within one bfloat16 ulp, K10 bitwise)
  13 gnn-encode parity  each GNN model's encode through K9/K10 and through
               their plain versions (rtol 1e-4, atol 1e-5)
@@ -333,7 +333,7 @@ GNN_TRAIN_FLAGS = ["--model", "CompGCN", "--regularizer", "N3", "--reg", "0.0",
                    *[str(x) for k, v in GNN_ARGS.items() for x in (f"--{k}", v)]]
 GNN_TRAIN_CONFIG = dict(optimizer="Adam", learning_rate=1e-3, neg_sample_size=GNN_NEG)
 GNN_KERNELS = ("sorted_segment_sum", "row_gather")
-GNN_WIDTHS = (1, 32, 200)  # K9 / K10 widths on the encoder: edge weights, rank, hidden
+GNN_WIDTHS = (1, 32, 100, 200)  # K9 / K10: edge weights, rank 32, rank 100, hidden
 GNN_KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # K9 against index_add_: another order
 # a whole 2-layer encode, kernels vs plain: float32 (the hyperbolic maps
 # amplify summation-order noise near the ball's edge) and float64
@@ -1956,7 +1956,7 @@ def gnn_kernel_inputs(model, h: int, seed: int):
 
 def phase_gnn_kernels(model, seed: int):
     """K9 against index_add_ and K10 against x[ids] on one sorted half of
-    the WN18RR-shape graph (E = 86,835 into N = 40,943) at H = 1, 32, 200,
+    the WN18RR-shape graph (E = 86,835 into N = 40,943) at H = 1, 32, 100, 200,
     forward and backward (against autograd of the plain versions), in
     float32 and in bfloat16 (gnn_bf16_checks); then the times of kernel,
     plain version and library call.  Returns the rows' measurements by

@@ -16,7 +16,10 @@ forwards:
     message.segment_sum (index_add_), as JAX's masked forms use
     jax.ops.segment_sum.
 The message and mixing math is shared; only the index forms handed to the
-sums differ.
+sums differ.  The per-edge lookups of a relation table (rel[etype], and
+the curvature's and attention's) go through message.relation_rows, whose
+backward is the range kge.train.rel_grad; CompGCN's forward_masked keeps
+plain indexing.
 
 The JAX code's documented quirks are kept:
   * PoincareConv uses the softplused curvature for both b_rel Mobius adds.
@@ -138,7 +141,8 @@ class CompGCNConv(_Conv):
 
         def direction(i, w):
             sl = graph.half_slice(i)
-            comp = self._compose(graph.tail_gathers[i](x), rel[graph.etype[sl]])
+            rel_e = M.relation_rows(rel, graph.etype[sl])
+            comp = self._compose(graph.tail_gathers[i](x), rel_e)
             return self._direction(comp, graph.heads.halves[i], edge_w[sl], w, n_ent)
 
         return self._finish(direction(0, self.w_in), direction(1, self.w_out), x, rel,
@@ -212,7 +216,8 @@ class PoincareConv(_Conv):
         bias = H.expmap0(getattr(self, "b_" + mode), lc)
         xj = H.logmap0(H.project(H.mobius_add(xj, bias, lc), lc), lc)
         if mode != "loop":
-            xj = self._rel_transform(xj, rel[etype], curv[etype])
+            xj = self._rel_transform(xj, M.relation_rows(rel, etype),
+                                     M.relation_rows(curv, etype))
         return xj
 
     def _update_rel(self, rel, curv_raw):
@@ -388,7 +393,8 @@ class LorentzConv(PoincareConv):
         xj = H.expmap0_lorentz(torch.matmul(x_j, getattr(self, "w_" + mode)), lc)
         xj = H.logmap0_lorentz(H.lorentz_boost(xj, getattr(self, "b_" + mode), lc), lc)
         if mode != "loop":
-            xj = self._rel_transform(xj, rel[etype], curv[etype])
+            xj = self._rel_transform(xj, M.relation_rows(rel, etype),
+                                     M.relation_rows(curv, etype))
         return xj
 
     def _update_rel(self, rel, curv_raw):
@@ -469,7 +475,8 @@ class PoincareGATConv(PoincareConv):
         bias = H.expmap0(getattr(self, "b_" + mode), lc)
         xj = H.logmap0(H.project(H.mobius_add(xj, bias, lc), lc), lc)
         if mode != "loop":
-            xj = self._rel_transform(xj, relh[etype], curv[etype][:, None, :])
+            xj = self._rel_transform(xj, M.relation_rows(relh, etype),
+                                     M.relation_rows(curv, etype)[:, None, :])
         return xj
 
     def _propagate(self, x, graph, rel, curv, edge_w):
@@ -501,7 +508,7 @@ class PoincareGATConv(PoincareConv):
         r_self = torch.einsum("e,keo->ko", self.loop_rel[0], self.W_r)  # (K, oa)
         a_head = torch.sum(self.a_h * msg_loop, dim=-1, keepdim=True)  # (N, K, 1)
         a = a_head[idx] + torch.sum(self.a_t * h_all, dim=-1, keepdim=True)
-        r_edge = torch.sum(self.a_r * r_proj, dim=-1, keepdim=True)[etype]
+        r_edge = M.relation_rows(torch.sum(self.a_r * r_proj, dim=-1, keepdim=True), etype)
         r_loop = torch.sum(self.a_r[0] * r_self, dim=-1, keepdim=True)[None].expand(
             n_ent, self.heads, 1)
         a = torch.nn.functional.leaky_relu(a + torch.cat([r_edge, r_loop], dim=0), 0.2)

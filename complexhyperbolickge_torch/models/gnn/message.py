@@ -19,8 +19,12 @@ one of
     segment_sum / compute_norm over it.
 `FullGraph` builds the encoder's static layout once: the K9 closures of its
 receiving-node halves and the K10 closures (kernels/gather.py) of its
-tail gathers.  Randomness (edge and feature dropout) comes from the
-torch.Generator the caller passes; None means no dropout.
+tail gathers.  `relation_rows(table, etype)` is every conv's per-edge
+lookup of its relation table: table[etype], whose backward (autograd's
+own accumulate into the table's rows) is a profiler range
+kge.train.rel_grad (utils/profiling.py::span).  Randomness (edge and
+feature dropout) comes from the torch.Generator the caller passes; None
+means no dropout.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from complexhyperbolickge_torch.kernels.gather import make_row_gather
 from complexhyperbolickge_torch.kernels.segsum import SortedSegmentSum, make_sorted_segment_sum
+from complexhyperbolickge_torch.utils.profiling import span
 
 
 class SortedHalves:
@@ -54,6 +59,33 @@ def _ids(index):
     if isinstance(index, SortedSegmentSum):
         return index.dst
     return index
+
+
+class _RelationRows(torch.autograd.Function):
+    """table[ids], whose backward is the accumulate that autograd's
+    IndexBackward0 runs (_index_put_impl_ with accumulate and unsafe, in
+    place on zeros of the table's shape: no clone and no bounds check),
+    inside the range kge.train.rel_grad: the same bits and launches as
+    plain indexing, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        with span("train.rel_grad"):
+            return torch.ops.aten._index_put_impl_(g.new_zeros(ctx.shape), [ids], g, True,
+                                                   True), None
+
+
+def relation_rows(table, etype):
+    """The rows of a relation table (Nr, ...) at each edge's type (E,) ->
+    (E, ...): plain indexing with its backward marked as a phase."""
+    return _RelationRows.apply(table, etype)
 
 
 def segment_sum(src, index, num_segments: int):

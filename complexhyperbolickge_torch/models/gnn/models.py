@@ -45,6 +45,7 @@ from complexhyperbolickge_torch.models.gnn.convs import (
 from complexhyperbolickge_torch.ops import hyperbolic as H
 from complexhyperbolickge_torch.ops.euclidean import givens_rotations
 from complexhyperbolickge_torch.ops.math import tanh as _tanh
+from complexhyperbolickge_torch.utils.profiling import span
 
 GNN_MODELS = ["CompGCN", "PoincareGCN", "PoincareGAT", "LorentzGCN"]
 
@@ -120,9 +121,15 @@ class GNNModel(KGModel):
     def encode(self, generator: torch.Generator | None = None, training: bool = False):
         """The full-graph encoder: edge dropout as a weight mask (one draw
         per forward edge, shared by its inverse), then the layer stack with
-        its dropouts.  Dropout draws from `generator` in training only."""
+        its dropouts.  Dropout draws from `generator` in training only.  A
+        training encode is the profiler range kge.train.encode (inside the
+        step's kge.train.loss)."""
         if not training:
-            generator = None
+            return self._encode(None)
+        with span("train.encode"):
+            return self._encode(generator)
+
+    def _encode(self, generator):
         x = self.entity
         rel_pack = self.get_r()
         pf, pi = self._perm

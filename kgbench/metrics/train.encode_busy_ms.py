@@ -1,0 +1,12 @@
+"""train.encode_busy_ms: the card's busy milliseconds a training step in the
+program's kge.train.encode phase (a GNN's full-graph encoder forward,
+inside kge.train.loss): the union of the device operations launched
+inside the phase's ranges, over the kge.train.step ranges of the profiled
+sub-window (kgbench/phases.py).  None where the program has no such range.
+Moves train_triples_per_s."""
+
+from kgbench.phases import busy_ms
+
+
+def read(r):
+    return busy_ms(r, "train.encode")

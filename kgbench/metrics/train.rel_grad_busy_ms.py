@@ -1,0 +1,13 @@
+"""train.rel_grad_busy_ms: the card's busy milliseconds a training step in
+the program's kge.train.rel_grad phase (the backward of a GNN's per-edge
+relation-row lookups, inside kge.train.backward and launched from
+autograd's engine thread): the union of the device operations launched
+inside the phase's ranges, over the kge.train.step ranges of the profiled
+sub-window (kgbench/phases.py).  None where the program has no such range.
+Moves train_triples_per_s."""
+
+from kgbench.phases import busy_ms
+
+
+def read(r):
+    return busy_ms(r, "train.rel_grad")

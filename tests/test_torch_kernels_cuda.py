@@ -575,6 +575,25 @@ def test_gnn_wrappers_check_inputs_and_count_launches():
     assert S.launches["sorted_segment_sum"] == 2 and G.launches["row_gather"] == 2
 
 
+@pytest.mark.parametrize("width", [100, 200])
+def test_relation_rows_gradient_is_plain_indexing_on_the_card(width):
+    """message.relation_rows at the encoder's shape (86,835 edges into 22
+    relation rows): its gradient is plain indexing's bit for bit, and two
+    backward passes give the same bits."""
+    from complexhyperbolickge_torch.models.gnn.message import relation_rows
+
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(width)
+    table = torch.randn((22, width), generator=gen).to(dev)
+    ids = torch.randint(0, 22, (86835,), generator=gen).to(dev)
+    g = torch.randn((86835, width), generator=gen).to(dev)
+    a, b = table.clone().requires_grad_(), table.clone().requires_grad_()
+    got = torch.autograd.grad(relation_rows(a, ids), a, g)[0]
+    want = torch.autograd.grad(b[ids], b, g)[0]
+    assert torch.equal(got, want)
+    assert torch.equal(torch.autograd.grad(relation_rows(a, ids), a, g)[0], got)
+
+
 # ------------- the bf16 tensor-core instances (precision "default") -------------
 #
 # Each bf16 instance against its plain default version on the same bf16
