@@ -242,13 +242,16 @@ KERNEL_META = {
     "attrh_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/hyp_rank.py:312",
     "sorted_segment_sum": "complexhyperbolickge_tpu/kernels/segsum.py:98",
     "row_gather": "complexhyperbolickge_tpu/kernels/gather.py:94",
+    # no pallas_call: XLA's scatter-add, the backward of rel[etype]
+    "relation_grad": "complexhyperbolickge_tpu/models/gnn/convs.py:119 rel[etype]'s backward",
 }
 SOURCES = {"chyp_rank": "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu",
            "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu",
            "chyp_queries": "complexhyperbolickge_torch/kernels/csrc/chyp_queries.cu",
            "hyp_rank": "complexhyperbolickge_torch/kernels/csrc/hyp_rank.cu",
            "sorted_segment_sum": "complexhyperbolickge_torch/kernels/csrc/segsum.cu",
-           "row_gather": "complexhyperbolickge_torch/kernels/csrc/gather.cu"}
+           "row_gather": "complexhyperbolickge_torch/kernels/csrc/gather.cu",
+           "relation_grad": "complexhyperbolickge_torch/kernels/csrc/relgrad.cu"}
 RANK_KERNELS = ("chyp_rank_sweep_masked", "chyp_rank_sweep_nomask",
                 "chyp_rank_filtered_sub")
 TRAIN_KERNELS = ("chyp_train_fwd", "chyp_train_bwd")
@@ -335,6 +338,9 @@ GNN_TRAIN_CONFIG = dict(optimizer="Adam", learning_rate=1e-3, neg_sample_size=GN
 GNN_KERNELS = ("sorted_segment_sum", "row_gather")
 GNN_WIDTHS = (1, 32, 100, 200)  # K9 / K10: edge weights, rank 32, rank 100, hidden
 GNN_KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # K9 against index_add_: another order
+# the relation table's gradient (kernels/relgrad.py): CompGCN's rank at
+# WN18RR's published widths, and the hidden width
+RELGRAD_WIDTHS = (100, 200)
 # a whole 2-layer encode, kernels vs plain: float32 (the hyperbolic maps
 # amplify summation-order noise near the ball's edge) and float64
 GNN_ENCODE_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1959,8 +1965,9 @@ def phase_gnn_kernels(model, seed: int):
     the WN18RR-shape graph (E = 86,835 into N = 40,943) at H = 1, 32, 100, 200,
     forward and backward (against autograd of the plain versions), in
     float32 and in bfloat16 (gnn_bf16_checks); then the times of kernel,
-    plain version and library call.  Returns the rows' measurements by
-    (kernel, H) and (kernel, H, "bfloat16")."""
+    plain version and library call; then the relation table's gradient
+    (relgrad_checks).  Returns the rows' measurements by (kernel, H) and
+    (kernel, H, "bfloat16")."""
     import torch
 
     from complexhyperbolickge_torch.kernels import gather as G
@@ -2037,10 +2044,58 @@ def phase_gnn_kernels(model, seed: int):
             library_ms=cuda_ms(lambda: torch.index_select(x, 0, ids64)),
             nbytes=4 * (n_read * h + seg.num_edges + seg.num_edges * h), ops=0,
             shape={"E": seg.num_edges, "N": seg.num_segments, "H": h, "rows_read": n_read})
+    out["relation_grad"] = relgrad_checks(model, seed, meas, failed)
     emit(out)
     if failed:
-        raise AssertionError("K9/K10 disagree with their plain versions: " + "; ".join(failed))
+        raise AssertionError("K9/K10 or the relation gradient disagree with their plain "
+                             "versions: " + "; ".join(failed))
     return meas
+
+
+def relgrad_checks(model, seed: int, meas: dict, failed: list) -> dict:
+    """The relation table's gradient (kernels/relgrad.py) over the first
+    sorted half's etype (E = 86,835 into the 22 relation rows, the half's
+    11 ids) at RELGRAD_WIDTHS in float32: against a float64 index_add_
+    within the sum's rounding (each chunk's at most C rows in float32, at
+    most C 2^-24 of their magnitudes' sum; one rounding, 2^-23 of the value
+    taken), two calls bit for bit, the rows without ids 0; then the times of
+    the kernels, the plain version and autograd's accumulate at the same
+    shape (the library row).  Adds the measurements by ("relation_grad",
+    W) to `meas` and what failed to `failed`; returns the checks."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import relgrad as R
+
+    g = model.graph
+    lay, ids, n_rel = g.rel_layouts[0], g.etype[:g.half], model.cfg.n_relations
+    n_chunks = lay.chunks.shape[0]
+    out = {"E": lay.num_rows, "rows": n_rel, "chunks": n_chunks, "chunk_rows": lay.chunk_rows,
+           "widths": {}}
+    for w in RELGRAD_WIDTHS:
+        gr = torch.randn((lay.num_rows, w), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(seed + w))
+        got, again = R.relation_grad(gr, lay, n_rel), R.relation_grad(gr, lay, n_rel)
+        want = torch.zeros((n_rel, w), dtype=torch.float64, device=DEVICE).index_add_(
+            0, ids, gr.double())
+        mags = torch.zeros_like(want).index_add_(0, ids, gr.double().abs())
+        err = (got.double() - want).abs()
+        res = {"max_abs_err_vs_float64": float(err.max()),
+               "within_rounding": bool((err <= lay.chunk_rows * 2.0**-24 * mags
+                                        + 2.0**-23 * want.abs()).all()),
+               "bitwise_repeatable": bool(torch.equal(got, again)),
+               "rows_without_ids_zero": not bool(got[lay.num_ids:].any())}
+        out["widths"][w] = res
+        if not all(v for v in res.values() if isinstance(v, bool)):
+            failed.append(f"relation_grad W={w}: {res}")
+        meas[("relation_grad", w)] = dict(
+            max_abs_err=res["max_abs_err_vs_float64"],
+            ms=cuda_ms(lambda: R.relation_grad(gr, lay, n_rel), reps=50),
+            plain_ms=cuda_ms(lambda: R.relation_grad_plain(gr, lay, n_rel)),
+            library_ms=cuda_ms(lambda: R.relation_grad_accumulate(gr, ids, (n_rel, w))),
+            nbytes=4 * (lay.num_rows * (w + 1) + 3 * n_chunks + lay.num_ids + 1 + n_rel * w),
+            ops=lay.num_rows * w,
+            shape={"E": lay.num_rows, "rows": n_rel, "W": w, "chunks": n_chunks})
+    return out
 
 
 def gnn_bf16_checks(seg, gth, msgs, x, gm, gx) -> dict:
@@ -2134,16 +2189,19 @@ def tensor_leaves(tree) -> list:
 
 
 def swap_plain_gnn():
-    """Swap K9's and K10's plain versions in for the kernels; returns the
-    function that swaps the kernels back."""
+    """Swap K9's and K10's plain versions in for the kernels, and autograd's
+    accumulate in for the relation gradient's kernels; returns the function
+    that swaps the kernels back."""
     from complexhyperbolickge_torch.kernels import gather as G
+    from complexhyperbolickge_torch.kernels import relgrad as R
     from complexhyperbolickge_torch.kernels import segsum as S
 
-    real = (S.sorted_segment_sum, G.row_gather)
+    real = (S.sorted_segment_sum, G.row_gather, R.use_kernel)
     S.sorted_segment_sum, G.row_gather = S.sorted_segment_sum_plain, G.row_gather_plain
+    R.use_kernel = lambda table, layout: False
 
     def restore():
-        S.sorted_segment_sum, G.row_gather = real
+        S.sorted_segment_sum, G.row_gather, R.use_kernel = real
 
     return restore
 
@@ -2216,7 +2274,8 @@ def phase_gnn_encode_parity(models: dict, dataset, seed: int):
 
 def phase_gnn_train_step_parity(dataset, seed: int):
     """3 Adam steps of CompGCN (edge dropout 0) from the same params with the
-    same negatives, once through K9/K10 and once with the plain versions.
+    same negatives, once through K9/K10 and the relation gradient's kernels
+    and once with the plain versions and autograd's accumulate.
     Held to PARITY_TOL in float64 (both kernels have a float64 instance).
     In float32 the step reorders f32 sums (K9's edge order against
     index_add_'s atomics), and Adam turns that noise in near-zero gradient
@@ -2258,7 +2317,7 @@ def phase_gnn_train_step_parity(dataset, seed: int):
                 torch.cuda.synchronize()
             finally:
                 restore()
-            counts = {k: KS.launches()[k] for k in GNN_KERNELS}
+            counts = {k: KS.launches()[k] for k in (*GNN_KERNELS, "relation_grad")}
             return {k: v.detach().clone() for k, v in model.state_dict().items()}, counts
 
         kernel, kernel_launches = three_steps(False)
@@ -2571,10 +2630,12 @@ def phase_export_import(model_dir: str, dataset):
 
 def gnn_kernel_rows(meas, launches, smi, name):
     """The kernels line's K9 and K10 rows at the encoder's hidden width (H =
-    200), with the H = 1 and H = 32 measurements beside them.  Bound: bytes,
-    each input read once (msgs, row_ptr; the table, ids) and the output
-    written once, K10's table as the distinct rows its ids fetch; K9's E H
-    fp32 additions as operations."""
+    200), with the H = 1 and H = 32 measurements beside them, and the
+    relation gradient's row at W = 100 with W = 200 beside it.  Bound:
+    bytes, each input read once (msgs, row_ptr; the table, ids; g, perm, the
+    chunk table and chunk_ptr) and the output written once, K10's table as
+    the distinct rows its ids fetch; K9's E H and the relation gradient's E
+    W fp32 additions as operations."""
     def bounded(m):
         m = dict(m)
         bound, bound_by, _ = bound_ms(peak_rates(name), m.pop("nbytes"), m.pop("ops"))
@@ -2591,6 +2652,12 @@ def gnn_kernel_rows(meas, launches, smi, name):
                                  else "torch.index_select"),
                      "card": smi, "other_widths": {h: by_h[h] for h in GNN_WIDTHS[:-1]},
                      "bfloat16": bf16})
+    by_w = {w: bounded(meas[("relation_grad", w)]) for w in RELGRAD_WIDTHS}
+    rows.append({"name": "relation_grad", "route": "cuda", "source": SOURCES["relation_grad"],
+                 "replaces": KERNEL_META["relation_grad"], "launches": launches["relation_grad"],
+                 **by_w[RELGRAD_WIDTHS[0]],
+                 "library": "autograd's accumulate (_index_put_impl_)",
+                 "card": smi, "other_widths": {w: by_w[w] for w in RELGRAD_WIDTHS[1:]}})
     return rows
 
 
@@ -3136,12 +3203,18 @@ def main(argv=None) -> int:
         phase_serve(gnn_dirs["CompGCN"], label="gnn-serve")
         gnn_launches = KS.launches()  # ... and ends here
         gnn_steps = sum(h["steps"] for h in gnn_history)
-        emit({"phase": "gnn-launches", "train": {k: gnn_train_launches[k] for k in GNN_KERNELS},
+        relgrad_keys = ("relation_grad", "relation_grad_accumulate")
+        emit({"phase": "gnn-launches",
+              "train": {k: gnn_train_launches[k] for k in (*GNN_KERNELS, *relgrad_keys)},
               "train_steps": gnn_steps, "kge_test_by_model": gnn_by_model,
               "path": {k: gnn_launches[k] for k in GNN_KERNELS}})
         if min(gnn_train_launches[k] for k in GNN_KERNELS) < gnn_steps:
             raise AssertionError(f"K9/K10 launched fewer times than the {gnn_steps} CompGCN "
                                  f"training steps: {gnn_train_launches}")
+        if (gnn_train_launches["relation_grad"] < 2 * gnn_steps
+                or gnn_train_launches["relation_grad_accumulate"]):
+            raise AssertionError(f"CompGCN's full-graph steps did not take the relation "
+                                 f"gradient's kernels in both directions: {gnn_train_launches}")
 
         # --eval_precision default: kge-test through the bf16 instances
         # (phase_default_kge_test resets and reads the counts itself)

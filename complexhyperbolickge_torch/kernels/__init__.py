@@ -5,7 +5,8 @@ chyp_train.py ports complexhyperbolickge_tpu/kernels/chyp_train.py (K3,
 K4); hyp_rank.py ports complexhyperbolickge_tpu/kernels/hyp_rank.py (K5-K8);
 segsum.py and gather.py port the GNN's kernels/segsum.py (K9) and
 kernels/gather.py (K10); chyp_queries.py fuses FFTRotH's query chain,
-which the JAX package runs eagerly.  Sources live in csrc/ and are compiled at first
+which the JAX package runs eagerly; relgrad.py sums the GNN relation
+tables' gradient, which JAX leaves to XLA's scatter.  Sources live in csrc/ and are compiled at first
 use (_build.py); importing this package builds nothing.
 """
 
@@ -15,10 +16,11 @@ from complexhyperbolickge_torch.kernels import (
     chyp_train,
     gather,
     hyp_rank,
+    relgrad,
     segsum,
 )
 
-_MODULES = (chyp_rank, chyp_train, chyp_queries, hyp_rank, segsum, gather)
+_MODULES = (chyp_rank, chyp_train, chyp_queries, hyp_rank, segsum, gather, relgrad)
 
 
 def reset_launches():

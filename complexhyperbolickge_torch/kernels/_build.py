@@ -30,7 +30,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chyp_rank", "chyp_train", "chyp_queries", "hyp_rank", "segsum", "gather")
+SOURCES = ("chyp_rank", "chyp_train", "chyp_queries", "hyp_rank", "segsum", "gather",
+           "relgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -86,6 +87,7 @@ SIGNATURES = {
     },
     "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
     "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
+    "relgrad": {f"relgrad_{t}": [_P] * 6 + [_I] * 5 + [_P] for t in ("f32", "f64")},
 }
 
 _lock = threading.Lock()

@@ -18,8 +18,11 @@ forwards:
 The message and mixing math is shared; only the index forms handed to the
 sums differ.  The per-edge lookups of a relation table (rel[etype], and
 the curvature's and attention's) go through message.relation_rows, whose
-backward is the range kge.train.rel_grad; CompGCN's forward_masked keeps
-plain indexing.
+backward is the range kge.train.rel_grad; forward passes each half's
+relation-sorted layout (graph.rel_layouts, shifted for the swapped types),
+so on the card that backward is the split-segment kernels.  The masked
+forms and PoincareGATConv's attention term (over both halves at once)
+pass none; CompGCN's forward_masked keeps plain indexing.
 
 The JAX code's documented quirks are kept:
   * PoincareConv uses the softplused curvature for both b_rel Mobius adds.
@@ -141,7 +144,7 @@ class CompGCNConv(_Conv):
 
         def direction(i, w):
             sl = graph.half_slice(i)
-            rel_e = M.relation_rows(rel, graph.etype[sl])
+            rel_e = M.relation_rows(rel, graph.etype[sl], graph.rel_layouts[i])
             comp = self._compose(graph.tail_gathers[i](x), rel_e)
             return self._direction(comp, graph.heads.halves[i], edge_w[sl], w, n_ent)
 
@@ -210,14 +213,14 @@ class PoincareConv(_Conv):
         lhs = H.mobius_add(-rel1, lhs, c)
         return H.logmap0(lhs, c)
 
-    def _message(self, x_j, etype, rel, curv, mode):
+    def _message(self, x_j, etype, rel, curv, mode, layout=None):
         lc = _softplus(self.loop_curvature)
         xj = H.expmap0(torch.matmul(x_j, getattr(self, "w_" + mode)), lc)
         bias = H.expmap0(getattr(self, "b_" + mode), lc)
         xj = H.logmap0(H.project(H.mobius_add(xj, bias, lc), lc), lc)
         if mode != "loop":
-            xj = self._rel_transform(xj, M.relation_rows(rel, etype),
-                                     M.relation_rows(curv, etype))
+            xj = self._rel_transform(xj, M.relation_rows(rel, etype, layout),
+                                     M.relation_rows(curv, etype, layout))
         return xj
 
     def _update_rel(self, rel, curv_raw):
@@ -273,8 +276,10 @@ class PoincareConv(_Conv):
 
     def _propagate(self, x, graph, rel, curv, edge_w):
         h = graph.half
-        msg_in = self._message(graph.tail_gathers[0](x), graph.etype[:h], rel, curv, "in")
-        msg_out = self._message(graph.tail_gathers[1](x), graph.etype[h:], rel, curv, "out")
+        msg_in = self._message(graph.tail_gathers[0](x), graph.etype[:h], rel, curv, "in",
+                               graph.rel_layouts[0])
+        msg_out = self._message(graph.tail_gathers[1](x), graph.etype[h:], rel, curv, "out",
+                                graph.rel_layouts[1])
         msg_loop = self._message(x, None, None, None, "loop")
         msgs = torch.cat([msg_in, msg_out], dim=0)
         lc = _softplus(self.loop_curvature)
@@ -388,13 +393,13 @@ class LorentzConv(PoincareConv):
         lhs = H.lorentz_boost(givens_rotations(rot, lhs), rel2, c)
         return H.logmap0_lorentz(lhs, c)
 
-    def _message(self, x_j, etype, rel, curv, mode):
+    def _message(self, x_j, etype, rel, curv, mode, layout=None):
         lc = _softplus(self.loop_curvature)
         xj = H.expmap0_lorentz(torch.matmul(x_j, getattr(self, "w_" + mode)), lc)
         xj = H.logmap0_lorentz(H.lorentz_boost(xj, getattr(self, "b_" + mode), lc), lc)
         if mode != "loop":
-            xj = self._rel_transform(xj, M.relation_rows(rel, etype),
-                                     M.relation_rows(curv, etype))
+            xj = self._rel_transform(xj, M.relation_rows(rel, etype, layout),
+                                     M.relation_rows(curv, etype, layout))
         return xj
 
     def _update_rel(self, rel, curv_raw):
@@ -407,9 +412,9 @@ class LorentzConv(PoincareConv):
         """Messages with the swapped relation type per edge (type +- n_rel/2)."""
         h, half_rel = graph.half, rel.shape[0] // 2
         msg_in = self._message(graph.tail_gathers[0](x), graph.etype[:h] + half_rel,
-                               rel, curv, "in")
+                               rel, curv, "in", graph.rel_layouts[0].shifted(half_rel))
         msg_out = self._message(graph.tail_gathers[1](x), graph.etype[h:] - half_rel,
-                                rel, curv, "out")
+                                rel, curv, "out", graph.rel_layouts[1].shifted(-half_rel))
         msg_loop = self._message(x, None, None, None, "loop")
         msgs = torch.cat([msg_in, msg_out], dim=0)
         return self._aggregate_and_mix(msgs, msg_loop, graph.heads, graph.tail, edge_w,
@@ -467,25 +472,25 @@ class PoincareGATConv(PoincareConv):
             "a_r": ((1, k, oa), "xavier_torch"), "a_t": ((1, k, oa), "xavier_torch")})
         return specs
 
-    def _message(self, x_j, etype, relh, curv, mode):
+    def _message(self, x_j, etype, relh, curv, mode, layout=None):
         """Per-head message; relh is the per-head relation table (Nr, K,
-        3 out_att) and etype arrives already swapped."""
+        3 out_att) and etype arrives already swapped (layout with it)."""
         lc = _softplus(self.loop_curvature)
         xj = H.expmap0(torch.einsum("ed,kdo->eko", x_j, getattr(self, "w_" + mode)), lc)
         bias = H.expmap0(getattr(self, "b_" + mode), lc)
         xj = H.logmap0(H.project(H.mobius_add(xj, bias, lc), lc), lc)
         if mode != "loop":
-            xj = self._rel_transform(xj, M.relation_rows(relh, etype),
-                                     M.relation_rows(curv, etype)[:, None, :])
+            xj = self._rel_transform(xj, M.relation_rows(relh, etype, layout),
+                                     M.relation_rows(curv, etype, layout)[:, None, :])
         return xj
 
     def _propagate(self, x, graph, rel, curv, edge_w):
         h, half_rel = graph.half, rel.shape[0] // 2
         relh = torch.einsum("nd,kde->nke", rel, self.w_k_r)  # (Nr, K, 3 out_att)
         msg_in = self._message(graph.tail_gathers[0](x), graph.etype[:h] + half_rel,
-                               relh, curv, "in")
+                               relh, curv, "in", graph.rel_layouts[0].shifted(half_rel))
         msg_out = self._message(graph.tail_gathers[1](x), graph.etype[h:] - half_rel,
-                                relh, curv, "out")
+                                relh, curv, "out", graph.rel_layouts[1].shifted(-half_rel))
         msg_loop = self._message(x, None, None, None, "loop")
         msgs = torch.cat([msg_in, msg_out], dim=0)  # (E, K, d)
         return self._attend_and_update(msgs, msg_loop, graph.head, graph.etype, relh, edge_w,

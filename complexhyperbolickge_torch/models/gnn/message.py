@@ -18,19 +18,22 @@ one of
     segment_sum_sorted_halves / compute_norm_sorted_halves are
     segment_sum / compute_norm over it.
 `FullGraph` builds the encoder's static layout once: the K9 closures of its
-receiving-node halves and the K10 closures (kernels/gather.py) of its
-tail gathers.  `relation_rows(table, etype)` is every conv's per-edge
-lookup of its relation table: table[etype], whose backward (autograd's
-own accumulate into the table's rows) is a profiler range
-kge.train.rel_grad (utils/profiling.py::span).  Randomness (edge and
-feature dropout) comes from the torch.Generator the caller passes; None
-means no dropout.
+receiving-node halves, the K10 closures (kernels/gather.py) of its
+tail gathers and the relation-sorted layouts (kernels/relgrad.py) of its
+etype halves.  `relation_rows(table, etype, layout)` is every conv's
+per-edge lookup of its relation table: table[etype], whose backward is a
+profiler range kge.train.rel_grad (utils/profiling.py::span): the
+split-segment kernels over the layout (relgrad.use_kernel: a layout and
+a CUDA float32 or float64 table), else autograd's own accumulate into the
+table's rows.  Randomness (edge and feature dropout) comes from the
+torch.Generator the caller passes; None means no dropout.
 """
 
 from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.kernels import relgrad
 from complexhyperbolickge_torch.kernels.gather import make_row_gather
 from complexhyperbolickge_torch.kernels.segsum import SortedSegmentSum, make_sorted_segment_sum
 from complexhyperbolickge_torch.utils.profiling import span
@@ -62,30 +65,38 @@ def _ids(index):
 
 
 class _RelationRows(torch.autograd.Function):
-    """table[ids], whose backward is the accumulate that autograd's
-    IndexBackward0 runs (_index_put_impl_ with accumulate and unsafe, in
-    place on zeros of the table's shape: no clone and no bounds check),
-    inside the range kge.train.rel_grad: the same bits and launches as
-    plain indexing, forward and backward."""
+    """table[ids], whose backward runs inside the range kge.train.rel_grad:
+    relgrad.relation_grad's two launches over the ids' static layout where
+    relgrad.use_kernel says so, else the accumulate that autograd's
+    IndexBackward0 runs (relgrad.relation_grad_accumulate: the same bits
+    and launches as plain indexing)."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, layout):
         ctx.save_for_backward(ids)
         ctx.shape = table.shape
+        ctx.layout = layout if relgrad.use_kernel(table, layout) else None
         return table[ids]
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         with span("train.rel_grad"):
-            return torch.ops.aten._index_put_impl_(g.new_zeros(ctx.shape), [ids], g, True,
-                                                   True), None
+            if ctx.layout is not None:
+                grad = relgrad.relation_grad(g.contiguous(), ctx.layout, ctx.shape[0])
+            else:
+                grad = relgrad.relation_grad_accumulate(g, ids, ctx.shape)
+        return grad, None, None
 
 
-def relation_rows(table, etype):
+def relation_rows(table, etype, layout=None):
     """The rows of a relation table (Nr, ...) at each edge's type (E,) ->
-    (E, ...): plain indexing with its backward marked as a phase."""
-    return _RelationRows.apply(table, etype)
+    (E, ...): plain indexing with its backward marked as a phase.  `layout`
+    is etype's relgrad.RelationLayout (built once, for a static etype), or
+    None."""
+    if layout is not None and etype.shape[0] != layout.num_rows:
+        raise ValueError(f"etype has {etype.shape[0]} rows, its layout {layout.num_rows}")
+    return _RelationRows.apply(table, etype, layout)
 
 
 def segment_sum(src, index, num_segments: int):
@@ -159,8 +170,9 @@ class FullGraph:
     """The encoder's static full-graph layout: head, tail and etype (E,)
     int64 on `device` in [forward; inverse] halves, each half sorted by its
     receiving node (head).  Built once with it: `heads`, the SortedHalves
-    (K9) of head, and `tail_gathers`, the K10 closures of each half's tail
-    gather x[tail[half]]."""
+    (K9) of head, `tail_gathers`, the K10 closures of each half's tail
+    gather x[tail[half]], and `rel_layouts`, the relgrad.RelationLayout of
+    each half's etype."""
 
     def __init__(self, head, tail, etype, num_nodes: int, device):
         def dev(a):
@@ -171,6 +183,8 @@ class FullGraph:
         self.heads = SortedHalves(self.head, num_nodes)
         self.tail_gathers = (make_row_gather(self.tail[:self.half], num_nodes, device),
                              make_row_gather(self.tail[self.half:], num_nodes, device))
+        self.rel_layouts = (relgrad.RelationLayout(self.etype[:self.half], device),
+                            relgrad.RelationLayout(self.etype[self.half:], device))
 
     def half_slice(self, i: int) -> slice:
         return slice(0, self.half) if i == 0 else slice(self.half, None)

@@ -1,5 +1,6 @@
-"""The chyp_rank (K1, K2), hyp_rank (K5-K8), segsum (K9) and gather (K10)
-CUDA kernels against their plain PyTorch versions.
+"""The chyp_rank (K1, K2), hyp_rank (K5-K8), segsum (K9), gather (K10) and
+relgrad (the relation tables' gradient) CUDA kernels against their plain
+PyTorch versions.
 
 Needs a CUDA card, the CUDA toolkit and no JAX; on a machine without a card
 every test skips (they carry the `cuda` marker).  On one with a card:
@@ -578,20 +579,102 @@ def test_gnn_wrappers_check_inputs_and_count_launches():
 @pytest.mark.parametrize("width", [100, 200])
 def test_relation_rows_gradient_is_plain_indexing_on_the_card(width):
     """message.relation_rows at the encoder's shape (86,835 edges into 22
-    relation rows): its gradient is plain indexing's bit for bit, and two
-    backward passes give the same bits."""
+    relation rows, two of them with no edges) with its static layout: the
+    forward is plain indexing's bits; the gradient, through the
+    split-segment kernels (kernels/relgrad.py), is a float64 index_add_'s
+    within the sum's rounding: each chunk's at most C rows summed in
+    float32 (at most C 2^-24 of the sum of their magnitudes), the partials
+    in float64, one rounding (2^-24 of the value; 2^-23 taken).  float64
+    tables to 1e-12 of the largest entry.  Two backward passes give the same
+    bits, and a card bfloat16 table keeps autograd's accumulate."""
+    from complexhyperbolickge_torch.kernels import relgrad as R
     from complexhyperbolickge_torch.models.gnn.message import relation_rows
 
     dev = _cuda_or_skip()
     gen = torch.Generator().manual_seed(width)
-    table = torch.randn((22, width), generator=gen).to(dev)
-    ids = torch.randint(0, 22, (86835,), generator=gen).to(dev)
-    g = torch.randn((86835, width), generator=gen).to(dev)
-    a, b = table.clone().requires_grad_(), table.clone().requires_grad_()
-    got = torch.autograd.grad(relation_rows(a, ids), a, g)[0]
-    want = torch.autograd.grad(b[ids], b, g)[0]
-    assert torch.equal(got, want)
-    assert torch.equal(torch.autograd.grad(relation_rows(a, ids), a, g)[0], got)
+    ids = torch.randint(0, 20, (86835,), generator=gen)
+    ids = ids + (ids >= 7)  # rows 7 and 21 get no edges
+    lay = R.RelationLayout(ids, dev)
+    ids = ids.to(dev)
+    for dtype in (torch.float32, torch.float64):
+        table = torch.randn((22, width), generator=gen, dtype=dtype).to(dev)
+        g = torch.randn((86835, width), generator=gen, dtype=dtype).to(dev)
+        a = table.clone().requires_grad_()
+        R.reset_launches()
+        out = relation_rows(a, ids, lay)
+        assert torch.equal(out, table[ids])
+        got = torch.autograd.grad(out, a, g)[0]
+        assert R.launches == {"relation_grad": 1, "relation_grad_accumulate": 0}
+        assert torch.equal(torch.autograd.grad(relation_rows(a, ids, lay), a, g)[0], got)
+        want = torch.zeros((22, width), dtype=torch.float64, device=dev).index_add_(
+            0, ids, g.double())
+        assert not got[7].any() and not got[21].any()
+        if dtype == torch.float32:
+            mags = torch.zeros_like(want).index_add_(0, ids, g.double().abs())
+            tol = lay.chunk_rows * 2.0**-24 * mags + 2.0**-23 * want.abs()
+            assert bool(((got.double() - want).abs() <= tol).all())
+        else:
+            assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    b = table.to(torch.bfloat16).requires_grad_()
+    R.reset_launches()
+    torch.autograd.grad(relation_rows(b, ids, lay), b, g.to(torch.bfloat16))
+    assert R.launches == {"relation_grad": 0, "relation_grad_accumulate": 1}
+
+
+def test_relation_grad_refuses_misuse_on_the_card():
+    from complexhyperbolickge_torch.kernels import relgrad as R
+
+    dev = _cuda_or_skip()
+    ids = torch.tensor([0, 3, 3, 1])
+    lay = R.RelationLayout(ids, dev)
+    g = torch.randn((4, 8), device=dev)
+    with pytest.raises(TypeError, match="float32 and float64"):
+        R.relation_grad(g.half(), lay, 4)
+    with pytest.raises(ValueError, match="the layout on"):
+        R.relation_grad(g.cpu(), lay, 4)  # a CPU g against the card's layout
+    with pytest.raises(ValueError, match="shape"):
+        R.relation_grad(g[:3], lay, 4)
+    with pytest.raises(ValueError, match="outside"):
+        R.relation_grad(g, lay, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        R.relation_grad(torch.randn((8, 4), device=dev).t(), lay, 4)
+    # the card's kernels equal the plain version's split within the rounding
+    # of their float32 chunk sums (summed in another order by index_add_)
+    torch.testing.assert_close(R.relation_grad(g, lay, 4), R.relation_grad_plain(g, lay, 4))
+
+
+def test_a_compgcn_full_graph_step_takes_the_relation_gradient_kernel():
+    """One CompGCN training step on the card (full graph, one layer, BCE):
+    both directions' relation gradients run the split-segment kernels and
+    none falls back to the accumulate."""
+    import argparse
+
+    from complexhyperbolickge_torch.data.dataset import epoch_batches, synthetic_kg
+    from complexhyperbolickge_torch.kernels import relgrad as R
+    from complexhyperbolickge_torch.models import ModelConfig, get_model
+    from complexhyperbolickge_torch.train.trainer import TrainConfig, Trainer
+
+    dev = _cuda_or_skip()
+    kg = synthetic_kg(n_entities=500, n_relations=11, n_train=3000, n_valid=20, n_test=20,
+                      seed=7)
+    n_ent, n_rel, _ = kg.get_shape()
+    cfg = ModelConfig(n_entities=n_ent, n_relations=n_rel, rank=100, bias="learn",
+                      multi_c=True, dtype="float32")
+    args = argparse.Namespace(hidden_dim=200, layers=1, edge_dropout=0.0, dropout=0.0,
+                              opn="mult", interaction="distmult", basis=0, gnn_agg_method=1)
+    model = get_model("CompGCN")(cfg, args, kg, device=dev,
+                                 generator=torch.Generator().manual_seed(3))
+    trainer = Trainer(model, TrainConfig(optimizer="Adam", batch_size=128, neg_sample_size=0,
+                                         loss="binarycrossentropy", smoothing=0.1), n_ent, n_rel)
+    _, labels = kg.label_pack("train")
+    b, w, lab = epoch_batches(kg.get_examples("train"), 128, None, labels)
+    R.reset_launches()
+    loss = trainer.train_step(torch.as_tensor(b[0], dtype=torch.int64, device=dev),
+                              torch.as_tensor(w[0], device=dev), None,
+                              labels=torch.as_tensor(lab[0], dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert R.launches == {"relation_grad": 2, "relation_grad_accumulate": 0}
 
 
 # ------------- the bf16 tensor-core instances (precision "default") -------------
