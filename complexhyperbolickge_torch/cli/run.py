@@ -95,6 +95,7 @@ import torch
 import torch.distributed as dist
 
 from complexhyperbolickge_torch.data.dataset import KGData, epoch_batches, synthetic_kg
+from complexhyperbolickge_torch.kernels._ranker import BACKENDS
 from complexhyperbolickge_torch.models import GNN_MODELS, ModelConfig, get_model
 from complexhyperbolickge_torch.parallel.mesh import (
     gather_entity_tree,
@@ -250,7 +251,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from save_dir's checkpoint")
     p.add_argument("--eval_backend", default="auto",
-                   choices=["auto", "dense", "pallas", "pallas_maskless"],
+                   choices=BACKENDS,
                    help="auto/pallas = masked fused CUDA ranker (K1 FFT, K5 "
                         "Poincare and Lorentz, K7 AttRH), pallas_maskless = "
                         "maskless fused rankers (K2, K6, K8), dense = "

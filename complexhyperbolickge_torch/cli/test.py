@@ -18,6 +18,7 @@ from complexhyperbolickge_torch.cli.run import (
     load_dataset,
     setup_logging,
 )
+from complexhyperbolickge_torch.kernels._ranker import BACKENDS
 from complexhyperbolickge_torch.train.checkpoint import load_config, load_into
 from complexhyperbolickge_torch.train.evaluate import (
     avg_both,
@@ -67,7 +68,7 @@ def main():
                         "rankers' bf16 tensor-core kernels, the dense "
                         "rankers' operands rounded to bf16)")
     p.add_argument("--eval_backend", default=None,
-                   choices=["auto", "dense", "pallas", "pallas_maskless"],
+                   choices=BACKENDS,
                    help="override the run config's ranker: auto/pallas = "
                         "masked fused CUDA kernel, pallas_maskless = "
                         "maskless fused CUDA kernels, dense = materialized "

@@ -1,13 +1,18 @@
 """What the fused filtered rankers share (ChypRanker, HypRanker,
-AttRHRanker): the per-params table cache, the filter inputs of the masked
-and the maskless kernels, the gold add-back and the NaN discipline.
+AttRHRanker), on one device or on one shard of a mesh: the per-params
+table cache, the pad-row bias, the filter inputs of the masked and the
+maskless kernels, the gold add-back, the NaN discipline, and the table of
+which family a fused ranker serves (fused_ranker_class).
 
 A ranker is called as ranker(q (B, 3), fidx (B, L)) -> ranks (B,) float32,
 with q and fidx int64 tensors on the model's device.  A subclass names its
 tables (TABLES, built by `_prepare_tables()`, the padded entity table
-first) and its per-batch query inputs (QUERIES, from `_queries_core(q)`,
-the threshold t2 last), and counts with `_counts(x, masked)` on the dict
-that `kernel_inputs` returns.
+first) and its per-batch query inputs (QUERIES, from `_queries_core(q,
+tables)`, the threshold t2 last), and counts with `_counts(x, masked)` on
+the dict that `kernel_inputs` returns.  The tables hold the global rows lo
+.. lo + real: all N on one device, a slice on a shard
+(parallel/ranking.py), which runs the same query, filter and count code
+on its rows.
 
 Under a torch.profiler each call is a range kge.rank.call
 (utils/profiling.py::span) holding, in order, kge.rank.queries (the query
@@ -36,6 +41,7 @@ import torch
 
 from complexhyperbolickge_torch.ops.math import check_precision, round_up
 from complexhyperbolickge_torch.utils.profiling import span
+from complexhyperbolickge_torch.utils.versions import is_current, params_key
 
 # entity rows per tile of the sweep kernels; tables are padded to a
 # multiple of it (the kernels also take a ragged last tile)
@@ -149,6 +155,34 @@ def near_threshold(lo, hi, t2):
     return ((lo - e <= t2[:, None]) & (t2[:, None] <= hi + e)).sum(1)
 
 
+BACKENDS = ("auto", "dense", "pallas", "pallas_maskless")
+
+
+def fused_ranker_class(model, backend: str):
+    """The fused ranker class for `backend` (--eval_backend) and the model's
+    family, None for the dense ranker: ChypRanker for the FFTUnitBall
+    family, AttRHRanker for AttRH (before BaseH, which it subclasses),
+    HypRanker for the rest of BaseH and BaseLorentz.  make_best_ranker and
+    make_best_sharded_ranker both select by it."""
+    from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
+    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
+    from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
+    from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
+
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown eval backend {backend!r}")
+    if backend != "dense":
+        for family, ranker in ((FFTUnitBall, ChypRanker), (AttRH, AttRHRanker),
+                               ((BaseH, BaseLorentz), HypRanker)):
+            if isinstance(model, family):
+                return ranker
+    if backend in ("pallas", "pallas_maskless"):
+        raise NotImplementedError(
+            f"no fused CUDA ranker exists for {type(model).__name__}; rank it "
+            "with --eval_backend dense (or auto)")
+    return None
+
+
 class FusedRanker:
     TABLES: tuple = ()
     QUERIES: tuple = ()
@@ -163,26 +197,30 @@ class FusedRanker:
         self.model = model
         self.masked = masked
         self.precision = check_precision(precision)
+        # the global rows held, lo .. lo + real: all of them on a device; a
+        # shard sets its slice (parallel/ranking.py)
+        self.lo, self.real = 0, model.cfg.n_entities
         self._tables_key = None
         self._tables = None
 
     def _prepare_tables(self) -> tuple:
         raise NotImplementedError
 
-    def _queries_core(self, q) -> tuple:
+    def _queries_core(self, q, tables) -> tuple:
         raise NotImplementedError
 
     def _counts(self, x: dict, masked: bool):
         raise NotImplementedError
 
     def _padded_bias(self, np_: int, device):
-        """Tail biases over the padded table: bt with bias=learn, else 0, and
-        -1e30 on the pad rows, which puts them below every threshold in the
+        """Tail biases over the padded table: the held rows' bt with
+        bias=learn, else 0, and -1e30 on the pad rows (past N or past a
+        shard's slice), which puts them below every threshold in the
         maskless sweeps (their finite distance could otherwise count)."""
         m = self.model
         bt = torch.full((np_,), -1e30, dtype=torch.float32, device=device)
-        n = m.cfg.n_entities
-        bt[:n] = m.bt.detach()[:, 0].to(torch.float32) if m.cfg.bias == "learn" else 0.0
+        bt[: self.real] = (m.bt.detach()[: self.real, 0].to(torch.float32)
+                           if m.cfg.bias == "learn" else 0.0)
         return bt
 
     def _gold_threshold(self, sim_gold, gold):
@@ -200,63 +238,77 @@ class FusedRanker:
         of the first, last), rebuilt when a TABLE_PARAMS parameter object or
         its `_version` counter changed, so an in-place update
         (load_state_dict, an optimizer step) is never served stale."""
-        params = [getattr(self.model, name) for name in self.TABLE_PARAMS]
-        key = [(p, p._version) for p in params]
-        old = self._tables_key
-        if old is None or any(o[0] is not k[0] or o[1] != k[1] for o, k in zip(old, key)):
+        key = params_key(getattr(self.model, name) for name in self.TABLE_PARAMS)
+        if not is_current(self._tables_key, key):
             tables = self._prepare_tables()
             if self.precision == "default":
                 d = self.model.entity.shape[1]
                 tables = (*tables, bf16_rows(tables[0][:, :d], self.BF16_HALVES))
-            self._tables = tables
-            self._tables_key = key
+            self._tables, self._tables_key = tables, key
         return self._tables
+
+    def _local(self, ids, fill: int):
+        """Global ids -> the held ones' local rows, `fill` for the others."""
+        loc = ids - self.lo if self.lo else ids
+        return torch.where((loc >= 0) & (loc < self.real), loc, torch.full_like(loc, fill))
+
+    def _filter(self, q, fidx, np_: int, masked: bool) -> dict:
+        """Masked: int8 (B, Np), set on the pad rows (real and up) and on the
+        held filter ids; the other ids (out of range, the pad id N, another
+        shard's) go to pad row `real`, which every table has (torch's
+        scatter has no "drop" mode).  Maskless: local int32 rows, -1 (which
+        the subtractions skip) for the ids and the gold not held."""
+        if masked:
+            mask = torch.zeros((q.shape[0], np_), dtype=torch.int8, device=q.device)
+            mask[:, self.real:] = 1
+            mask.scatter_(1, self._local(fidx, self.real).long(), 1)
+            return {"mask": mask}
+        gold = q[:, 2]
+        if self.lo or self.real < self.model.cfg.n_entities:  # a shard: not every gold
+            gold = self._local(gold, -1)
+        return {"fidx": self._local(fidx, -1).to(torch.int32).contiguous(),
+                "gold": gold.to(torch.int32).contiguous()}
+
+    def _inputs(self, q, fidx, masked: bool, tables: tuple, queries) -> dict:
+        """The kernels' inputs of one batch from the tables and `queries()`,
+        the query inputs (precision "default": the table and the query rows
+        as bfloat16), and the filter inputs."""
+        x = dict(zip(self.TABLES, tables))
+        with span("rank.queries"):
+            x.update(zip(self.QUERIES, queries()))
+            if self.precision == "default":  # the contraction's bf16 operands
+                x[self.TABLES[0]] = tables[-1]
+                x[self.QUERIES[0]] = bf16_rows(x[self.QUERIES[0]], self.BF16_HALVES)
+        with span("rank.filter"):
+            x.update(self._filter(q, fidx, tables[0].shape[0], masked))
+        return x
+
+    def _sweep(self, x: dict, q, fidx):
+        """The counts over the held rows.  Maskless, shard 0 adds back the
+        gold that the sweep and the subtraction left out: +1 unless it is
+        filtered (always, under the reference protocol)."""
+        with span("rank.sweep"):
+            counts = self._counts(x, self.masked)
+        if not self.masked and self.lo == 0:
+            counts = counts + (~(fidx == q[:, 2:3]).any(dim=1)).to(torch.int32)
+        return counts
+
+    @staticmethod
+    def _ranks(counts, t2):
+        """NaN discipline: t2 * 0 is NaN exactly when the gold score is, so
+        NaN params fail get_ranking's host check instead of ranking 1."""
+        return 1.0 + counts.to(torch.float32) + t2 * 0.0
 
     @torch.no_grad()
     def kernel_inputs(self, q, fidx, masked: bool | None = None) -> dict:
-        """The kernels' inputs for one batch: the tables, the query inputs
-        (precision "default": the table and the query rows as bfloat16),
-        and mask (int8 (B, Np), masked form) or fidx and gold (int32,
-        maskless form).  Filter ids outside [0, Np) are sent to pad row
-        n_entities, where torch's scatter has no "drop" mode."""
+        """The kernels' inputs for one batch (`_inputs`): mask (masked) or
+        fidx and gold (maskless) as `_filter` builds them."""
         masked = self.masked if masked is None else masked
         tables = self._get_tables()
-        out = dict(zip(self.TABLES, tables))
-        rhs = tables[0]
-        with span("rank.queries"):
-            out.update(zip(self.QUERIES, self._queries_core(q)))
-            if self.precision == "default":  # the contraction's bf16 operands
-                out[self.TABLES[0]] = tables[-1]
-                out[self.QUERIES[0]] = bf16_rows(out[self.QUERIES[0]], self.BF16_HALVES)
-        n = self.model.cfg.n_entities
-        np_ = rhs.shape[0]
-        with span("rank.filter"):
-            fidx = torch.where((fidx >= 0) & (fidx < np_), fidx, torch.full_like(fidx, n))
-            if masked:
-                mask = torch.zeros((q.shape[0], np_), dtype=torch.int8, device=rhs.device)
-                mask[:, n:] = 1
-                mask.scatter_(1, fidx.long(), 1)
-                out["mask"] = mask
-            else:
-                out["fidx"] = fidx.to(torch.int32).contiguous()
-                out["gold"] = q[:, 2].to(torch.int32).contiguous()
-        return out
+        return self._inputs(q, fidx, masked, tables, lambda: self._queries_core(q, tables))
 
     @torch.no_grad()
     def __call__(self, q, fidx):
         with span("rank.call"):
             x = self.kernel_inputs(q, fidx)
-            with span("rank.sweep"):
-                counts = self._counts(x, self.masked)
-            if not self.masked:
-                # the gold was excluded from both the sweep and the
-                # subtraction; the dense path's contribution is 0 when it is
-                # filtered (always, under the reference protocol) and +1
-                # otherwise
-                gold_filtered = (x["fidx"] == x["gold"][:, None]).any(dim=1)
-                counts = counts + (~gold_filtered).to(torch.int32)
-            # NaN discipline: counts are finite by construction, so NaN
-            # params would silently rank everything 1; t2 * 0 is NaN exactly
-            # when the gold-target score is, and get_ranking's host check
-            # then fires
-            return 1.0 + counts.to(torch.float32) + x["t2"] * 0.0
+            return self._ranks(self._sweep(x, q, fidx), x["t2"])

@@ -282,8 +282,9 @@ class ChypRanker(FusedRanker):
     def _prepare_tables(self):
         ent = self.model.entity.detach().to(torch.float32)
         n, d = ent.shape
-        # n + 1: at least one pad row, where pad filter ids (== n_entities)
-        # land: masked in K1, unreachable (bt = -1e30) in K2
+        # n + 1: at least one pad row, where the masked form's filter ids
+        # outside the held rows land (FusedRanker._filter); bt = -1e30 on
+        # every pad row keeps them below the thresholds in K2
         np_ = round_up(n + 1, ROW_TILE)
         rows = torch.zeros((np_, d), dtype=torch.float32, device=ent.device)
         rows[:n] = ent
@@ -293,7 +294,7 @@ class ChypRanker(FusedRanker):
         rhs = torch.nn.functional.pad(rows, (0, round_up(d, 4) - d))
         return rhs, self._padded_bias(np_, ent.device), wn
 
-    def _queries_core(self, q):
+    def _queries_core(self, q, tables):
         """(lhs2, zn, t2) of a batch: query embeddings, their clamped norm,
         and the gold-target threshold with the lhs bias folded out."""
         m = self.model

@@ -611,8 +611,9 @@ def fast_arith_sweep(device, n_quot: int = 2 ** 32, seed: int = 0) -> dict:
 
 def _padded_table(ent):
     """ent (n, D) -> float32 (Np, D) with Np = round_up(n + 1, ROW_TILE):
-    at least one zero pad row, where pad filter ids (== n_entities) land:
-    masked in K5/K7, unreachable (bt = -1e30) in K6/K8."""
+    at least one zero pad row, where the masked form's filter ids outside
+    the held rows land (FusedRanker._filter); bt = -1e30 on every pad row
+    keeps them below the thresholds in K6/K8."""
     n, d = ent.shape
     rhs = torch.zeros((round_up(n + 1, ROW_TILE), d), dtype=torch.float32,
                       device=ent.device)
@@ -668,10 +669,11 @@ class HypRanker(FusedRanker):
         return (rhs, un, self._padded_bias(rhs.shape[0], rhs.device), cvals,
                 hyp_rank_radii(cvals, un, self.family))
 
-    def _queries_core(self, q):
-        """(lhs, x2, cid, c, t2) of a batch; c = cvals[cid], the curvature
-        get_queries took; t2 as the JAX ranker takes it, the model's own
-        train-shape sim of the gold tail plus bt[gold]."""
+    def _queries_core(self, q, tables):
+        """(lhs, x2, cid, c, t2) of a batch; c = cvals[cid] (cvals from
+        `tables`), the curvature get_queries took; t2 as the JAX ranker
+        takes it, the model's own train-shape sim of the gold tail plus
+        bt[gold]."""
         m = self.model
         b = q.shape[0]
         (lhs, c), _ = m.get_queries(q[:, :2])
@@ -681,7 +683,7 @@ class HypRanker(FusedRanker):
         sim = m.sim((lhs, c), m.entity[gold].to(torch.float32)[:, None, :],
                     all_pairs=False)[:, 0]
         cid = _curvature_ids(m, q[:, 1])
-        return (lhs, torch.sum(lhs * lhs, dim=-1), cid, self._get_tables()[3][cid.long()],
+        return (lhs, torch.sum(lhs * lhs, dim=-1), cid, tables[3][cid.long()],
                 self._gold_threshold(sim, gold))
 
     def _counts(self, x, masked):
@@ -722,7 +724,7 @@ class AttRHRanker(FusedRanker):
         return (rhs, un_rot, un_ref, self._padded_bias(rhs.shape[0], rhs.device), cvals,
                 hyp_rank_radii(cvals, un_rot, "attrh", un_ref))
 
-    def _queries_core(self, q):
+    def _queries_core(self, q, tables):
         m = self.model
         b = q.shape[0]
         (lhs, c, w), _ = m.get_queries(q[:, :2])
@@ -735,7 +737,7 @@ class AttRHRanker(FusedRanker):
         h = lhs.shape[1] // 2
         cid = _curvature_ids(m, q[:, 1])
         return (lhs, torch.sum(lhs[:, :h] ** 2, dim=-1), torch.sum(lhs[:, h:] ** 2, dim=-1),
-                cid, self._get_tables()[4][cid.long()], w[:, 0].contiguous(),
+                cid, tables[4][cid.long()], w[:, 0].contiguous(),
                 w[:, 1].contiguous(), self._gold_threshold(sim, gold))
 
     def _counts(self, x, masked):

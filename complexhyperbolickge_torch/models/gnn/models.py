@@ -46,6 +46,7 @@ from complexhyperbolickge_torch.ops import hyperbolic as H
 from complexhyperbolickge_torch.ops.euclidean import givens_rotations
 from complexhyperbolickge_torch.ops.math import tanh as _tanh
 from complexhyperbolickge_torch.utils.profiling import span
+from complexhyperbolickge_torch.utils.versions import is_current, params_key
 
 GNN_MODELS = ["CompGCN", "PoincareGCN", "PoincareGAT", "LorentzGCN"]
 
@@ -181,14 +182,10 @@ class GNNModel(KGModel):
         the parameter objects and their _version counters, which every
         in-place update bumps).  One slot, written at once, so a reader
         never pairs one version's params with another's encoding."""
-        key = [(p, p._version) for p in self.parameters()]
-        hit = self._encoded
-        if (hit is not None and len(hit[0]) == len(key)
-                and all(a is c and v == w for (a, v), (c, w) in zip(hit[0], key))):
-            return hit[1]
-        cache = self.encode()
-        self._encoded = (key, cache)
-        return cache
+        key = params_key(self.parameters())
+        if self._encoded is None or not is_current(self._encoded[0], key):
+            self._encoded = (key, self.encode())
+        return self._encoded[1]
 
     def _act_r(self, rel_pack):
         if not self.act_r_on_rel:

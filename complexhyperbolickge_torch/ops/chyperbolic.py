@@ -18,9 +18,7 @@ most -eps.  `chyp_distance` dispatches on shape:
     form (kernels/chyp_train.py), any other pair to ChypDistanceCore; both
     carry the analytic backward.  The FFT models' training scores take the
     kernels' id form instead (models/chyperbolic.py, FFTUnitBall.score_ids),
-    with no gathered block.  The JAX package takes its fused Pallas scorer
-    only on a TPU with TrainConfig.fused_scorer set; here the kernel is the
-    CUDA path whatever that field says (it stays in the config for parity).
+    with no gathered block.
   * any other broadcast shape: autograd with straight-through clamps.
 `chyp_distance_all` (B, D) x (N, D) carries the same backward in matmul form.
 """

@@ -18,10 +18,5 @@ from complexhyperbolickge_torch.parallel.mesh import (  # noqa: F401
 )
 from complexhyperbolickge_torch.parallel.ranking import (  # noqa: F401
     make_best_sharded_ranker,
-    make_sharded_attrh_ranker,
-    make_sharded_gnn_ranker,
-    make_sharded_hyp_ranker,
-    make_sharded_pallas_ranker,
-    make_sharded_ranker,
     run_shards,
 )

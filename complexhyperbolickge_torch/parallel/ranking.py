@@ -17,25 +17,18 @@ all_reduce over its model group; `run_shards` drives the M shards of one
 process in lockstep (tests).  Each shard adds exact zeros for what it does
 not own, so the sums are bit for bit what one process computes.
 
-The fused rankers are the single-device ones (kernels/chyp_rank.py,
-kernels/hyp_rank.py) on the rank's slice: K1 / K2 for the FFT family, K5 /
-K6 for BaseH (not AttRH) and BaseLorentz, K7 / K8 for AttRH, and with
-precision "default" their bf16 instances.  The local tables are built from
-the rank's rows with the same code (pad rows, past N or past the slice,
-carry bt = -1e30 and the mask bit), and the query inputs by the same
-_queries_core on a mini-table of the gathered head and gold rows, so every
-per-pair score is the one-process score.  The masked form scatters the
-owned filter ids into local_np + 1 columns and drops the last (torch's
-scatter has no drop mode; JAX's _local_pad_filter_mask); the maskless form
-sends ids another rank owns to -1, which the kernels skip, excludes the
-gold on its owner only and adds the gold back on shard 0 only.
+A fused shard is the one-device fused ranker (kernels/_ranker.py) set to
+its rows lo .. lo + real: it builds its tables from its local rows and its
+query inputs by the same _queries_core on a mini-table of the gathered
+head and gold rows, and shares the filter, bias, gold add-back (shard 0
+only), NaN discipline and family table (fused_ranker_class) with it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from complexhyperbolickge_torch.kernels._ranker import bf16_rows
+from complexhyperbolickge_torch.kernels._ranker import fused_ranker_class
 from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
 from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
 from complexhyperbolickge_torch.ops.math import check_precision, eval_matmul_precision
@@ -47,6 +40,12 @@ from complexhyperbolickge_torch.parallel.mesh import (
     padded_rows,
     shard_entity_tree,
 )
+from complexhyperbolickge_torch.train.evaluate import (
+    NONFINITE_PARAMS,
+    filtered_rank_counts,
+    params_finite,
+)
+from complexhyperbolickge_torch.utils.versions import is_current, params_key
 
 
 def run_shards(rankers, q, fidx):
@@ -103,19 +102,6 @@ class _Shard:
         rows = table[loc.clamp(0, max(self.s - 1, 0))]
         return torch.where(own[:, None], rows, torch.zeros_like(rows))
 
-    def local_filter_count(self, s, target, fidx):
-        """The shard's #{score >= target} over its real columns s (B, real),
-        less the filtered entities it owns that counted, plus those the
-        -1e6 overwrite would still count (train/evaluate.py::
-        filtered_rank_counts, local form)."""
-        loc, own = self.owned(fidx)
-        g = torch.gather(s, 1, loc.clamp(0, max(self.real - 1, 0))) if self.real else \
-            torch.zeros(fidx.shape, dtype=s.dtype, device=s.device)
-        total = torch.sum(s >= target, dim=1)
-        sub = torch.sum(own & (g >= target), dim=1)
-        add = torch.sum(own & (target <= -1e6), dim=1)
-        return (total - sub + add).to(torch.int32)
-
     def __call__(self, q, fidx):
         steps = self.steps(q, fidx)
         try:
@@ -128,15 +114,12 @@ class _Shard:
 
     def check_params(self, model=None):
         """FloatingPointError on every rank of the model group when any
-        rank's parameters hold NaN or inf (get_ranking's check; no rank
-        raises alone)."""
-        params = [p for p in self.model.parameters() if p.dtype.is_floating_point]
-        bad = any(not bool(torch.isfinite(p).all()) for p in params)
-        flag = torch.tensor([1.0 if bad else 0.0], device=params[0].device)
+        rank's parameters hold NaN or inf (get_ranking's check, its flag
+        summed over the group, so no rank raises alone)."""
+        bad = 0.0 if params_finite(self.model) else 1.0
+        flag = torch.tensor([bad], device=next(self.model.parameters()).device)
         if float(self.mesh.sum_model(flag)) > 0:
-            raise FloatingPointError(
-                "non-finite model parameters entering evaluation (diverged "
-                "training run?) — ranks would silently read as 1")
+            raise FloatingPointError(NONFINITE_PARAMS)
 
 
 def _head_gold_part(shard, q):
@@ -164,66 +147,28 @@ def _mini_tables(rows, q):
 
 
 class _ShardedFused(_Shard):
-    """A fused ranker (the class it is mixed into) on one shard's rows."""
+    """A fused ranker (the class it is mixed into) on one shard's rows: its
+    lo and real, its tables from the local rows, its query inputs from the
+    gathered head and gold rows; everything else is the fused ranker's."""
 
     def __init__(self, model, mesh: Mesh, n_entities: int, masked: bool = True,
                  precision: str = "highest"):
         super().__init__(model, masked=masked, precision=precision)
         self._init_shard(model, mesh, n_entities)
-        self._pinned = None
-
-    def _get_tables(self):
-        # pinned while _queries_core runs on the mini-tables
-        return self._pinned if self._pinned is not None else super()._get_tables()
 
     def _prepare_tables(self):
         local = {k: self.local(k) for k in ("entity", "bt")}
         return call_with_tables(self.model, local, super()._prepare_tables)
 
-    def _padded_bias(self, np_: int, device):
-        """The local tail biases: the real rows' (bias=learn) or 0, and
-        -1e30 on the rows past N or past the slice."""
-        m = self.model
-        bt = torch.full((np_,), -1e30, dtype=torch.float32, device=device)
-        bt[: self.real] = (m.bt.detach()[: self.real, 0].to(torch.float32)
-                           if m.cfg.bias == "learn" else 0.0)
-        return bt
-
     @torch.no_grad()
     def steps(self, q, fidx):
-        b = q.shape[0]
         tables = self._get_tables()
         rows = yield _head_gold_part(self, q)
         mini, q_mini = _mini_tables(rows, q)
-        self._pinned = tables
-        try:
-            queries = call_with_tables(self.model, mini, self._queries_core, q_mini)
-        finally:
-            self._pinned = None
-        x = dict(zip(self.TABLES, tables))
-        x.update(zip(self.QUERIES, queries))
-        if self.precision == "default":  # the contraction's bf16 operands
-            x[self.TABLES[0]] = tables[-1]
-            x[self.QUERIES[0]] = bf16_rows(x[self.QUERIES[0]], self.BF16_HALVES)
-        np_ = tables[0].shape[0]
-        loc, own = self.owned(fidx)
-        if self.masked:
-            mask = torch.zeros((b, np_ + 1), dtype=torch.int8, device=q.device)
-            mask[:, self.real:np_] = 1  # rows past N or past the slice
-            mask.scatter_(1, torch.where(own, loc, np_), 1)  # others: dropped column
-            x["mask"] = mask[:, :np_].contiguous()
-        else:
-            x["fidx"] = torch.where(own, loc, -1).to(torch.int32).contiguous()
-            g_loc, g_own = self.owned(q[:, 2])
-            x["gold"] = torch.where(g_own, g_loc, -1).to(torch.int32).contiguous()
-        counts = self._counts(x, self.masked)
-        if not self.masked and self.shard_idx == 0:
-            # the gold's dense-path contribution, once: 0 when it is
-            # filtered (always, under the reference protocol), else 1
-            counts = counts + (~(fidx == q[:, 2:3]).any(dim=1)).to(torch.int32)
-        total = yield counts.to(torch.int32)
-        # NaN discipline: t2 * 0 is NaN exactly when the gold score is
-        return 1.0 + total.to(torch.float32) + x["t2"] * 0.0
+        x = self._inputs(q, fidx, self.masked, tables, lambda: call_with_tables(
+            self.model, mini, self._queries_core, q_mini, tables))
+        total = yield self._sweep(x, q, fidx).to(torch.int32)
+        return self._ranks(total, x["t2"])
 
 
 class ShardedChypRanker(_ShardedFused, ChypRanker):
@@ -270,7 +215,7 @@ class ShardedDenseRanker(_Shard):
         tgt = torch.gather(s, 1, loc.clamp(0, max(self.real - 1, 0))[:, None]) if self.real \
             else torch.zeros((q.shape[0], 1), dtype=s.dtype, device=s.device)
         target = yield torch.where(own[:, None], tgt, torch.zeros_like(tgt))
-        total = yield self.local_filter_count(s, target, fidx)
+        total = yield filtered_rank_counts(s, target, fidx, self.real, self.lo).to(torch.int32)
         return 1.0 + total.to(torch.float32) + (target[:, 0] * 0.0).to(torch.float32)
 
     def _query_rows(self, q):
@@ -310,14 +255,11 @@ class ShardedGNNRanker(ShardedDenseRanker):
         return out
 
     def _query_rows(self, q):
-        key = [(p, p._version) for p in self.model.parameters()]
-        hit = self._enc
-        if not (hit is not None and len(hit[0]) == len(key)
-                and all(a is c and v == w for (a, v), (c, w) in zip(hit[0], key))):
+        key = params_key(self.model.parameters())
+        if self._enc is None or not is_current(self._enc[0], key):
             full = yield from self._full_tables()
-            cache = call_with_tables(self.model, full, self.model.encode)
-            self._enc = hit = (key, (full, cache))
-        self._full, self._cache = hit[1]
+            self._enc = (key, (full, call_with_tables(self.model, full, self.model.encode)))
+        self._full, self._cache = self._enc[1]
         return None
 
     def _queries(self, rows, q):
@@ -329,64 +271,23 @@ class ShardedGNNRanker(ShardedDenseRanker):
             self._full["bt"][self.lo: self.lo + self.real]
 
 
-def make_sharded_ranker(model, mesh: Mesh, n_entities: int, precision: str = "highest"):
-    """The dense sharded ranker (JAX make_sharded_ranker)."""
-    return ShardedDenseRanker(model, mesh, n_entities, precision)
-
-
-def make_sharded_gnn_ranker(model, mesh: Mesh, n_entities: int, precision: str = "highest"):
-    """The GNN sharded ranker (JAX make_sharded_gnn_ranker)."""
-    return ShardedGNNRanker(model, mesh, n_entities, precision)
-
-
-def make_sharded_pallas_ranker(model, mesh: Mesh, n_entities: int,
-                               precision: str = "highest", masked: bool = True):
-    """K1 / K2 per shard (JAX make_sharded_pallas_ranker)."""
-    return ShardedChypRanker(model, mesh, n_entities, masked, precision)
-
-
-def make_sharded_hyp_ranker(model, mesh: Mesh, n_entities: int,
-                            precision: str = "highest", masked: bool = True):
-    """K5 / K6 per shard (JAX make_sharded_hyp_ranker)."""
-    return ShardedHypRanker(model, mesh, n_entities, masked, precision)
-
-
-def make_sharded_attrh_ranker(model, mesh: Mesh, n_entities: int,
-                              precision: str = "highest", masked: bool = True):
-    """K7 / K8 per shard (JAX make_sharded_attrh_ranker)."""
-    return ShardedAttRHRanker(model, mesh, n_entities, masked, precision)
+# the sharded twin of each fused ranker
+_SHARDED = {ChypRanker: ShardedChypRanker, HypRanker: ShardedHypRanker,
+            AttRHRanker: ShardedAttRHRanker}
 
 
 def make_best_sharded_ranker(model, mesh: Mesh, n_entities: int, backend: str = "auto",
                              precision: str = "highest"):
     """Sharded counterpart of train/evaluate.py::make_best_ranker, by the
-    port's policy: 'auto' and 'pallas' take the masked fused ranker of the
-    model's family per shard (K1 FFTUnitBall, K7 AttRH, tested before BaseH
-    which it subclasses, K5 BaseH and BaseLorentz), 'pallas_maskless' the
-    maskless one (K2, K8, K6), 'dense' and the families without a fused
-    ranker the dense sharded ranker, and GNN models the sharded GNN ranker.
-    JAX's 'auto means dense' rests on TPU measurements; the single-device
-    port already ranks through the fused kernels."""
-    from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
-    from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
-
-    if backend not in ("auto", "dense", "pallas", "pallas_maskless"):
-        raise ValueError(f"unknown eval backend {backend!r}")
-    check_precision(precision)
+    same table (kernels/_ranker.py::fused_ranker_class): the shard twin of
+    the model family's fused ranker ('pallas_maskless': the maskless form),
+    else the sharded GNN ranker for GNN models and the dense sharded ranker
+    for the rest.  JAX's 'auto means dense' rests on TPU measurements; the
+    single-device port already ranks through the fused kernels."""
+    ranker = fused_ranker_class(model, backend)
+    if ranker is not None:
+        return _SHARDED[ranker](model, mesh, n_entities, backend != "pallas_maskless",
+                                precision)
     if getattr(model, "is_gnn", False):
-        if backend in ("pallas", "pallas_maskless"):
-            raise NotImplementedError("no fused CUDA ranker exists for GNN models; rank "
-                                      "them with --eval_backend dense (or auto)")
-        return make_sharded_gnn_ranker(model, mesh, n_entities, precision)
-    if backend != "dense":
-        masked = backend != "pallas_maskless"
-        for family, make in ((FFTUnitBall, make_sharded_pallas_ranker),
-                             (AttRH, make_sharded_attrh_ranker),
-                             ((BaseH, BaseLorentz), make_sharded_hyp_ranker)):
-            if isinstance(model, family):
-                return make(model, mesh, n_entities, precision, masked)
-    if backend in ("pallas", "pallas_maskless"):
-        raise NotImplementedError(
-            f"no fused CUDA ranker exists for {type(model).__name__}; rank it "
-            "with --eval_backend dense (or auto)")
-    return make_sharded_ranker(model, mesh, n_entities, precision)
+        return ShardedGNNRanker(model, mesh, n_entities, precision)
+    return ShardedDenseRanker(model, mesh, n_entities, precision)

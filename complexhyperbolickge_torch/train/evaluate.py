@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from complexhyperbolickge_torch.ops.math import check_precision, eval_matmul_precision
+from complexhyperbolickge_torch.utils.versions import is_current, params_key
 
 
 def _mask_pad_cols(scores, n_entities: int):
@@ -33,16 +34,21 @@ def _mask_pad_cols(scores, n_entities: int):
     return torch.where(valid, scores, torch.full_like(scores, -torch.inf))
 
 
-def filtered_rank_counts(scores, target, fidx, n_entities: int):
+def filtered_rank_counts(scores, target, fidx, n_entities: int, lo: int = 0):
     """#{score >= target} with the filtered entities excluded, without
     writing into the (B, N) matrix: the filtered entries' scores are gathered
     from the same matrix (bitwise the same values) and those that counted
     are subtracted; entries a -1e6 overwrite would still have counted
     (target <= -1e6) are added back.  Filter rows must be deduplicated and
-    padded with n_entities."""
+    padded with N.  A shard's scores (parallel/ranking.py) hold the
+    n_entities columns of global rows lo .. lo + n_entities; the filter ids
+    outside them are another shard's."""
     total = torch.sum(scores >= target, dim=1)
-    valid = fidx < n_entities
-    g = torch.gather(scores, 1, fidx.clamp_max(scores.shape[-1] - 1))
+    loc = fidx - lo if lo else fidx
+    valid = (loc >= 0) & (loc < n_entities)
+    cols = scores.shape[-1]
+    g = torch.gather(scores, 1, loc.clamp(0, cols - 1)) if cols else \
+        torch.zeros(fidx.shape, dtype=scores.dtype, device=scores.device)
     sub = torch.sum(valid & (g >= target), dim=1)
     # the -1e6 overwrite value, compared in the scores' dtype (a scalar, so
     # no host-to-device copy per batch)
@@ -91,43 +97,22 @@ def make_best_ranker(model, eval_batch_size: int, backend: str = "auto",
     """Ranking-backend selector.
 
     backend='auto' takes the masked fused CUDA ranker of the model's family
-    on any device (the CPU runs its plain version): K1 for the FFTUnitBall
-    family, K7 for AttRH, K5 for the rest of BaseH and for BaseLorentz.
-    AttRH is tested before BaseH: it subclasses BaseH but scores two
-    single-fold half distances.  The JAX rule (dense below 100k entities)
-    rests on TPU measurements; on the H100 the dense path writes and
-    re-reads a (B, N) f32 score matrix per batch (82 MB at WN18RR, B = 500)
-    that the fused kernels never materialize.  The names 'pallas' and
-    'pallas_maskless' are kept because saved config.json files carry them;
-    here they name the masked (K1, K5, K7) and maskless (K2, K6, K8) CUDA
-    rankers.  'dense' is the materializing ranker, and the only one of the
-    families without a fused ranker: the GNN models, whose decoders score
-    against their encoder output, as in JAX.
-
-    precision: 'highest' (exact fp32) or 'default', JAX's single-pass
-    bf16 contraction with f32 accumulation: the fused rankers launch their
-    kernels' bf16 tensor-core instances (the CPU runs their plain default
-    versions), the dense ranker rounds its contractions' operands
-    (make_ranker).  Any other string raises ValueError.
+    (kernels/_ranker.py::fused_ranker_class) on any device (the CPU runs its
+    plain version): JAX's rule (dense below 100k entities) rests on TPU
+    measurements, and on the H100 the dense path writes and re-reads a (B,
+    N) f32 score matrix a batch (82 MB at WN18RR, B = 500).  'pallas' and
+    'pallas_maskless' (names that saved config.json files carry) are the
+    masked (K1, K5, K7) and maskless (K2, K6, K8) CUDA rankers; 'dense', and
+    every family without a fused ranker (the GNN models), the materializing
+    one.  precision: 'highest' (exact fp32) or 'default', JAX's single-pass
+    bf16 contraction with f32 accumulation (the fused rankers' bf16
+    tensor-core instances, the dense ranker's rounded operands).
     """
-    from complexhyperbolickge_torch.kernels.chyp_rank import ChypRanker
-    from complexhyperbolickge_torch.kernels.hyp_rank import AttRHRanker, HypRanker
-    from complexhyperbolickge_torch.models.chyperbolic import FFTUnitBall
-    from complexhyperbolickge_torch.models.hyperbolic import AttRH, BaseH, BaseLorentz
+    from complexhyperbolickge_torch.kernels._ranker import fused_ranker_class
 
-    if backend not in ("auto", "dense", "pallas", "pallas_maskless"):
-        raise ValueError(f"unknown eval backend {backend!r}")
-    check_precision(precision)
-    if backend != "dense":
-        masked = backend != "pallas_maskless"
-        for family, ranker in ((FFTUnitBall, ChypRanker), (AttRH, AttRHRanker),
-                               ((BaseH, BaseLorentz), HypRanker)):
-            if isinstance(model, family):
-                return ranker(model, masked=masked, precision=precision)
-    if backend in ("pallas", "pallas_maskless"):
-        raise NotImplementedError(
-            f"no fused CUDA ranker exists for {type(model).__name__}; rank it "
-            "with --eval_backend dense (or auto)")
+    ranker = fused_ranker_class(model, backend)
+    if ranker is not None:
+        return ranker(model, masked=backend != "pallas_maskless", precision=precision)
     return make_ranker(model, eval_batch_size, precision=precision)
 
 
@@ -167,27 +152,30 @@ def make_predictor(model, k: int = 10):
     return predict
 
 
-def _check_params_finite(model):
-    """Raise FloatingPointError when a parameter holds NaN/inf.  The verdict
-    is cached on the model per params version (parameter objects and their
-    `_version` counters), so serving pays one device sync per checkpoint."""
+NONFINITE_PARAMS = ("non-finite model parameters entering evaluation (diverged "
+                    "training run?) — ranks would silently read as 1")
+
+
+def params_finite(model) -> bool:
+    """Whether every floating parameter is finite.  The verdict is cached
+    on the model per params version (utils/versions.py), so serving pays
+    one device sync per checkpoint."""
     params = list(model.parameters())
-    key = [(p, p._version) for p in params]
+    key = params_key(params)
     hit = getattr(model, "_finite_verdict", None)
-    if (hit is not None and len(hit[0]) == len(key)
-            and all(a is c and v == w for (a, v), (c, w) in zip(hit[0], key))):
-        ok = hit[1]
-    else:
+    if hit is None or not is_current(hit[0], key):
         with torch.no_grad():
             flags = [torch.isfinite(p).all() for p in params
                      if p.dtype.is_floating_point]
-            ok = bool(torch.stack(flags).all()) if flags else True
-        model._finite_verdict = (key, ok)
-    if not ok:
-        raise FloatingPointError(
-            "non-finite model parameters entering evaluation (diverged "
-            "training run?) — ranks would silently read as 1"
-        )
+            hit = model._finite_verdict = (key, bool(torch.stack(flags).all()) if flags
+                                           else True)
+    return hit[1]
+
+
+def _check_params_finite(model):
+    """Raise FloatingPointError when a parameter holds NaN/inf."""
+    if not params_finite(model):
+        raise FloatingPointError(NONFINITE_PARAMS)
 
 
 def get_ranking(model, pack, batch_size: int = 500, rank_fn=None) -> np.ndarray:

@@ -89,10 +89,8 @@ from complexhyperbolickge_torch.utils.profiling import nan_check, span
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The training-relevant run config (the JAX TrainConfig, field for
-    field).  fused_scorer is kept for config parity: the train-shape
-    distance takes the CUDA kernels on a CUDA float32 model whatever it says
-    (ops/chyperbolic.py)."""
+    """The training-relevant run config (the JAX TrainConfig's fields that
+    mean something here)."""
 
     regularizer: str = "N3"
     reg: float = 0.0
@@ -106,8 +104,6 @@ class TrainConfig:
     double_neg: bool = False
     neg_mode: str = "per_query"  # per_query (reference) | shared | pool
     neg_pool_size: int = 512
-    fused_scorer: bool = False
-    scan_unroll: int = 1  # the JAX epoch scan's unroll; no meaning here
 
 
 class F32StateForBF16:

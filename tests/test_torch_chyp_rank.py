@@ -185,8 +185,9 @@ def kg_pair():
 
 
 def _near_ranker(ranker, q, fidx):
-    rhs, bt, wn = ranker._get_tables()
-    lhs2, zn, t2 = ranker._queries_core(q)
+    tables = ranker._get_tables()
+    rhs, bt, wn = tables
+    lhs2, zn, t2 = ranker._queries_core(q, tables)
     return _near(K.chyp_scores_plain(lhs2, zn, rhs, wn, bt), t2)
 
 

@@ -273,8 +273,9 @@ def _model_pair(name, tdata, bias="learn", multi_c=True, seed=5):
 
 def _near_ranker(ranker, q):
     """Near-threshold counts of a batch, from the plain all-entity scores."""
-    x = dict(zip(ranker.TABLES, ranker._get_tables()))
-    x.update(zip(ranker.QUERIES, ranker._queries_core(q)))
+    tables = ranker._get_tables()
+    x = dict(zip(ranker.TABLES, tables))
+    x.update(zip(ranker.QUERIES, ranker._queries_core(q, tables)))
     if isinstance(ranker, K.AttRHRanker):
         s = K.attrh_scores_plain(*(x[k] for k in ("lhs", "x2r", "x2f", "c", "w0", "w1",
                                                   "rhs", "un_rot", "un_ref", "bt")))

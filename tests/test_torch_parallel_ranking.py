@@ -15,7 +15,9 @@ apart.  A query with a near-tie (an entity other than the gold within
 bounds the single-device rankers) may differ from JAX's rank by at most
 its near-tie count; every other rank must be equal.  The single-device
 port ranker shares the shards' arithmetic and is held to equality on
-every query.
+every query; it is the shard that holds every row, so one shard of
+Mesh((1, 1), 0), like two, equals it bit for bit also on filter ids that
+no row owns.
 """
 
 import argparse
@@ -224,3 +226,49 @@ def test_sharded_nan_params_raise_through_get_ranking(data):
     with pytest.raises(FloatingPointError, match="non-finite model parameters"):
         get_ranking(rankers[1].model, tdata.eval_pack("test", "rhs"), 64, rankers[1])
     rankers[0].check_params()  # the clean shard alone passes
+
+
+def bad_filter_ids(f):
+    """The filter rows with a negative id, the pad id N, an id past every
+    padded table (Np = round_up(N + 1, 128) = 128 here) and a duplicate of
+    each row's first id appended: ids the filter must skip or take once."""
+    extra = torch.tensor([-3, N_ENT, 1000], dtype=torch.int64).expand(f.shape[0], 3)
+    return torch.cat([f, extra, f[:, :1]], dim=1)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("backend", ["auto", "pallas_maskless"])
+@pytest.mark.parametrize("name", ["FFTRotH", "RotH", "RotLH", "AttRH"])
+def test_shards_of_one_group_equal_single_device_on_any_filter_ids(data, name, backend,
+                                                                    precision, m):
+    """A device's fused ranker is the shard that holds every row: one shard
+    of Mesh((1, 1), 0) (m = 1) run through run_shards equals
+    make_best_ranker bit for bit, and so do two, on filter rows that hold
+    ids no row owns and a duplicate."""
+    tdata, _ = data
+    tm = build(data, name, dtype="float32" if precision == "default" else "float64")[2]
+    single = make_best_ranker(tm, 64, backend, precision=precision)
+    rankers = shards(tm, m, backend, precision)
+    assert [r.masked for r in rankers] == [backend == "auto"] * m
+    for q, f, _ in packs(tdata):
+        f = bad_filter_ids(f)
+        np.testing.assert_array_equal(run_shards(rankers, q, f).numpy(), single(q, f).numpy())
+
+
+@pytest.mark.parametrize("name", ["FFTRotH", "RotH", "RotLH", "AttRH"])
+def test_kernel_inputs_mask_is_the_clamp_and_scatter_of_all_rows(data, name):
+    """A device's mask over ids in and out of range: the ids outside [0,
+    Np) sent to pad row N, then the pad rows and the scattered ids set."""
+    tdata, _ = data
+    tm = build(data, name)[2]
+    ranker = make_best_ranker(tm, 64, "auto")
+    for q, f, _ in packs(tdata):
+        f = bad_filter_ids(f)
+        mask = ranker.kernel_inputs(q, f)["mask"]
+        np_ = ranker._get_tables()[0].shape[0]
+        ids = torch.where((f >= 0) & (f < np_), f, torch.full_like(f, N_ENT))
+        want = torch.zeros((q.shape[0], np_), dtype=torch.int8)
+        want[:, N_ENT:] = 1
+        want.scatter_(1, ids, 1)
+        assert torch.equal(mask, want)
