@@ -47,7 +47,9 @@ line:
               form at (500, 100, 66), and the id form of the training step,
               500 x (1 + 100) sampler-drawn ids over a 40,943 x 66 table;
               FFTRotH's fused query chain (forward, and the backward's two
-              launches) on 500 queries at the init, 0.1 and 0.5 scales
+              launches) on 500 queries at the init, 0.1 and 0.5 scales;
+              RotH's ranker query prep (one launch) on 500 queries at the
+              init, 0.05 and 3 (project clips) scales
   4 train-step parity  3 Adam steps through K3/K4 (one launch of each a
               step) and through the plain version from the same params and
               negatives: params agree
@@ -234,6 +236,9 @@ KERNEL_META = {
     # no pallas_call: the JAX model runs the chain in XLA
     "fftroth_queries_fwd": "complexhyperbolickge_tpu/models/chyperbolic.py FFTRotH.get_queries",
     "fftroth_queries_bwd": "its autograd backward",
+    # no pallas_call: XLA runs the JAX ranker's query prep
+    "roth_rank_queries": "complexhyperbolickge_tpu/kernels/hyp_rank.py:659 "
+                         "PallasHypRanker._queries_core (RotH)",
     "hyp_rank_sweep_masked": "complexhyperbolickge_tpu/kernels/hyp_rank.py:502",
     "hyp_rank_sweep_nomask": "complexhyperbolickge_tpu/kernels/hyp_rank.py:545",
     "hyp_rank_filtered_sub": "complexhyperbolickge_tpu/kernels/hyp_rank.py:563",
@@ -249,6 +254,7 @@ SOURCES = {"chyp_rank": "complexhyperbolickge_torch/kernels/csrc/chyp_rank.cu",
            "chyp_train": "complexhyperbolickge_torch/kernels/csrc/chyp_train.cu",
            "chyp_queries": "complexhyperbolickge_torch/kernels/csrc/chyp_queries.cu",
            "hyp_rank": "complexhyperbolickge_torch/kernels/csrc/hyp_rank.cu",
+           "hyp_queries": "complexhyperbolickge_torch/kernels/csrc/hyp_queries.cu",
            "sorted_segment_sum": "complexhyperbolickge_torch/kernels/csrc/segsum.cu",
            "row_gather": "complexhyperbolickge_torch/kernels/csrc/gather.cu",
            "relation_grad": "complexhyperbolickge_torch/kernels/csrc/relgrad.cu"}
@@ -260,6 +266,11 @@ CHAIN_KERNELS = ("fftroth_queries_fwd", "fftroth_queries_bwd")
 # within 4 float32 ulps of the output's largest entry, the gradients 1e-5
 # of each table's (tests/test_torch_chyp_queries.py)
 CHAIN_FWD_ULPS, CHAIN_GRAD_REL = 4, 1e-5
+
+# RotH's ranker query prep against its plain version on the card: lhs, x2
+# and t2 within 4 float32 ulps of each output's largest entry, cid and c
+# equal (tests/test_torch_kernels_cuda.py)
+ROTH_QUERIES_ULPS = 4
 
 # the real-hyperbolic path (KGEmb's RotH WN18RR 32-dim example, see above)
 HYP_RANK, HYP_NEG = 32, 50
@@ -950,6 +961,78 @@ def phase_chain_kernels(seed: int):
     if not all(v["ok"] and v["same_bits_twice"] for v in out["regimes"].values()):
         raise AssertionError(f"the fused chain disagrees with its plain version: {out}")
     return errors
+
+
+def roth_queries_inputs(scale: float, seed: int):
+    """RotH at the smoke's width (rank 32, multi_c, bias learn) with entity
+    and relation rows drawn at `scale` (0: the published init; 3: heads and
+    relation halves that project clips), its curvature table cvals as
+    HypRanker builds it, and BATCH queries [h, r, gold]."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels.hyp_rank import _curvatures
+
+    model = wn18rr_model(seed, "RotH")
+    g = torch.Generator().manual_seed(seed + 17)
+    if scale:
+        with torch.no_grad():
+            for k in ("entity", "rel"):
+                p = getattr(model, k)
+                p.copy_(torch.randn(p.shape, generator=g) * scale)
+            model.bt.copy_(torch.randn(model.bt.shape, generator=g) * 0.01)
+            model.c.copy_(1.0 + 0.05 * torch.randn(model.c.shape, generator=g))
+    n, nr = model.cfg.n_entities, model.cfg.n_relations
+    q = torch.stack([torch.randint(0, n, (BATCH,), generator=g),
+                     torch.randint(0, nr, (BATCH,), generator=g),
+                     torch.randint(0, n, (BATCH,), generator=g)], 1)
+    q[7, :2] = q[3, :2]
+    tables = [getattr(model, k).detach() for k in ("entity", "rel", "rel_diag", "bt")]
+    return tables + [_curvatures(model, DEVICE)], q.to(DEVICE)
+
+
+def phase_roth_queries(seed: int, name: str, smi: str):
+    """RotH's ranker query prep (kernels/hyp_queries.py) against its plain
+    version on the card at the published init and at row scales 0.05 (the
+    benchmark's trained spread) and 3 (project clips); then its kernels
+    line row at scale 0.05: the kernel's and the plain version's ms at B
+    500, D 32, and the bound of its work (per row the chain's ~40 fp32
+    operations a coordinate and 18 fp64 sums of 2 D operations; bytes: the
+    head, gold, relation and rel_diag rows, the ids, bt, the curvature and
+    the outputs)."""
+    import torch
+
+    from complexhyperbolickge_torch.kernels import hyp_queries as HQ
+
+    out = {"phase": "roth-queries", "B": BATCH, "D": HYP_RANK, "regimes": {}}
+    err = 0.0
+    for scale in (0.0, 0.05, 3.0):
+        tables, q = roth_queries_inputs(scale, seed)
+        got = HQ.roth_rank_queries(*tables, q, True, True)
+        want = HQ.roth_rank_queries_plain(*tables, q, True, True)
+        torch.cuda.synchronize()
+        errs = {k: float((a - e).abs().max()) for k, a, e in
+                zip(("lhs", "x2", "t2"), (got[0], got[1], got[4]), (want[0], want[1], want[4]))}
+        ok = (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+              and all(errs[k] <= ROTH_QUERIES_ULPS * 2**-23 * float(e.abs().max())
+                      for k, e in zip(errs, (want[0], want[1], want[4])))
+              and all(bool(torch.isfinite(t).all()) for t in got))
+        out["regimes"][str(scale)] = {"max_abs_err": errs, "ok": ok}
+        err = max(err, *errs.values())
+    emit(out)
+    if not all(v["ok"] for v in out["regimes"].values()):
+        raise AssertionError(f"RotH's query kernel disagrees with its plain version: {out}")
+    tables, q = roth_queries_inputs(0.05, seed)
+    d = HYP_RANK
+    f32_ops, f64_ops = BATCH * 40 * d, BATCH * 18 * 2 * d
+    nbytes = BATCH * (4 * (2 * d + 2 * d + d + 1 + 1) + 24 + 4 * (d + 3) + 4)
+    bound, bound_by, _ = bound_ms(peak_rates(name), nbytes, f32_ops, f64_ops)
+    args = [*tables, q, True, True]
+    return {"name": "roth_rank_queries", "route": "cuda", "source": SOURCES["hyp_queries"],
+            "replaces": KERNEL_META["roth_rank_queries"], "max_abs_err": err,
+            "ms": cuda_ms(lambda: HQ.roth_rank_queries(*args), reps=50),
+            "plain_ms": cuda_ms(lambda: HQ.roth_rank_queries_plain(*args)),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "card": smi,
+            "shape": {"B": BATCH, "N": tables[0].shape[0], "D": d, "nR": tables[1].shape[0]}}
 
 
 def wn18rr_model(seed: int, name: str = "FFTRotH"):
@@ -3128,6 +3211,7 @@ def main(argv=None) -> int:
         batch, errors = phase_kernels(model, dataset)
         errors.update(phase_train_kernels(a.seed))
         errors.update(phase_chain_kernels(a.seed))
+        roth_queries_row = phase_roth_queries(a.seed, name, smi)
         phase_train_step_parity(a.seed)
 
         hyp_dirs, not_inverted = {}, {}
@@ -3176,7 +3260,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"K3/K4 (or K4's lists, or the fused chain) launched fewer "
                                  f"times than the {steps} training steps, or K1 never: "
                                  f"{train_launches}")
-        want = {"RotH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
+        want = {"RotH": (*HYP_RANK_KERNELS, "hyp_rank_radii", "roth_rank_queries"),
                 "RotLH": (*HYP_RANK_KERNELS, "hyp_rank_radii"),
                 "AttRH": (*ATTRH_KERNELS, "hyp_rank_radii"),
                 "RotH training": ("hyp_rank_sweep_masked", "hyp_rank_radii")}
@@ -3251,6 +3335,9 @@ def main(argv=None) -> int:
              "bce_train": train_window(dataset, a.seed, config="FFTRotH BCE")})
         rows = phase_kernel_line(model, batch, launches, errors, smi, name, a.seed, step_ms)
         rows += hyp_kernel_rows(hyp, hyp_batches, hyp_launches, hyp_errors, smi, name)
+        rows.append({**roth_queries_row, "launches": hyp_launches["roth_rank_queries"],
+                     "launches_by_model": {m: v.get("roth_rank_queries", 0)
+                                           for m, v in by_model.items()}})
         rows += gnn_kernel_rows(gnn_meas, gnn_launches, smi, name)
         rows += bf16_kernel_rows(bf16_work, default_launches, bf16_errors, smi, name)
         for row in rows:  # each rank's launches on the mesh paths

@@ -30,8 +30,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("chyp_rank", "chyp_train", "chyp_queries", "hyp_rank", "segsum", "gather",
-           "relgrad")
+SOURCES = ("chyp_rank", "chyp_train", "chyp_queries", "hyp_rank", "hyp_queries", "segsum",
+           "gather", "relgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -84,6 +84,9 @@ SIGNATURES = {
         "hyp_rank_scores_bf16": [_P] * 9 + [_I] * 6 + [_P],
         "attrh_rank_scores_bf16": [_P] * 13 + [_I] * 5 + [_P],
         "hyp_rank_fast_arith_sweep": [_U64, _U64, _P, _P],
+    },
+    "hyp_queries": {
+        "roth_rank_queries": [_P] * 6 + [_I] + [_P] * 5 + [_I] * 7 + [_F, _P],
     },
     "segsum": {f"segsum_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},
     "gather": {f"row_gather_{t}": [_P] * 3 + [_I, _I, _P] for t in ("f32", "f64", "bf16")},

@@ -96,10 +96,10 @@ def _exp0(u, s):
     return t * u / a, (sq, nu, a, t)
 
 
-def _project(x, rs):
+def _project(x, rs, margin: float = _MARGIN):
     sx = _sum64(x, x)
     nx = torch.sqrt(sx.clamp_min(MIN_NORM * MIN_NORM))
-    mx = rs * _MARGIN
+    mx = rs * margin
     on = nx > mx
     return torch.where(on, x / nx * mx, x), (sx, nx, mx, on)
 
@@ -274,11 +274,12 @@ def fftroth_queries_backward_plain(g_res, g_bias, entity, rel, rel_diag, c, quer
 # --------------------------------- wrappers -----------------------------------
 
 
-def _ids(queries):
-    """queries (B, >= 2) as the kernels read them: an int64 view whose last
-    axis is contiguous (h, r its first two columns), and its row stride."""
+def _ids(queries, cols: int = 2):
+    """queries (B, >= cols) as the kernels read them: an int64 view whose
+    last axis is contiguous (h, r, and for the ranker's query prep the gold,
+    its first columns), and its row stride."""
     if queries.dtype != torch.int64 or queries.stride(1) != 1:
-        queries = queries[:, :2].to(torch.int64).contiguous()
+        queries = queries[:, :cols].to(torch.int64).contiguous()
     return queries, queries.stride(0)
 
 

@@ -1,5 +1,6 @@
-// The pieces of the FFT models' query chains (models/chyperbolic.py), one
-// warp a query row, and their backward steps: the packed DFTs as products
+// The pieces of the FFT models' query chains (models/chyperbolic.py) and of
+// the Poincare ball's (models/hyperbolic.py), one warp a query row, and
+// their backward steps: the packed DFTs as products
 // with the matrices of ops/fft.py, expmap0, project, real_mobius_add
 // (ops/chyperbolic.py) and the Givens rotation (ops/euclidean.py).
 //
@@ -127,16 +128,18 @@ __device__ __forceinline__ Pair exp0(Pair u, float s, Exp0& e) {
 }
 
 // project: x / n * mx where n = sqrt(max(|x|^2, MIN_NORM^2)) > mx =
-// (1 / s) * (1 - 1e-5), else x (rs = 1 / s).
+// (1 / s) * margin, else x (rs = 1 / s).  The FFT chains' margin is
+// 1 - 1e-5; the Poincare ball's in float32 is 1 - ball_eps (0.996), which
+// its callers pass.
 struct Proj {
   float sx, nx, mx;
   bool on;
 };
 
-__device__ __forceinline__ Pair project(Pair x, float rs, Proj& p) {
+__device__ __forceinline__ Pair project(Pair x, float rs, Proj& p, float margin = kMargin) {
   p.sx = rnd(warp_sum(dot(x, x)));
   p.nx = __fsqrt_rn(clamp_min(p.sx, kMinNorm2));
-  p.mx = mul(rs, kMargin);
+  p.mx = mul(rs, margin);
   p.on = p.nx > p.mx;
   if (!p.on) return x;
   return make_float2(mul(quo(x.x, p.nx), p.mx), mul(quo(x.y, p.nx), p.mx));

@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import torch
 
+from complexhyperbolickge_torch.kernels import hyp_queries
 from complexhyperbolickge_torch.kernels._build import check_aligned
 from complexhyperbolickge_torch.kernels._build import check_tensor as _check
 from complexhyperbolickge_torch.kernels._build import kernel_info, launch
@@ -673,8 +674,13 @@ class HypRanker(FusedRanker):
         """(lhs, x2, cid, c, t2) of a batch; c = cvals[cid] (cvals from
         `tables`), the curvature get_queries took; t2 as the JAX ranker
         takes it, the model's own train-shape sim of the gold tail plus
-        bt[gold]."""
+        bt[gold].  A RotH on float32 tables on the card, at most 64 wide,
+        takes one launch (kernels/hyp_queries.py); every other model and
+        table the eager ops."""
         m = self.model
+        if hyp_queries.use_kernel(m):
+            return hyp_queries.roth_rank_queries(m.entity, m.rel, m.rel_diag, m.bt, tables[3], q,
+                                                 m.cfg.multi_c, m.cfg.bias == "learn")
         b = q.shape[0]
         (lhs, c), _ = m.get_queries(q[:, :2])
         lhs = lhs.to(torch.float32).contiguous()

@@ -916,3 +916,153 @@ def test_fast_arith_matches_ieee_on_edge_sample():
     out = K5.fast_arith_sweep(dev, 10 ** 6, seed=11)
     assert out["sqrt_mismatches"] == 0 and out["quot_mismatches"] == 0
     assert out["sqrt_fast"] > out["sqrt_inputs"] // 2 and out["quot_fast"] > 10 ** 6 // 2
+
+
+# ------------- hyp_queries: RotH's ranker query prep (csrc/hyp_queries.cu) -------------
+
+from complexhyperbolickge_torch.kernels import hyp_queries as HQ  # noqa: E402
+from complexhyperbolickge_torch.kernels.hyp_rank import HypRanker  # noqa: E402
+from complexhyperbolickge_torch.models import ModelConfig, get_model  # noqa: E402
+
+ROTH_N, ROTH_REL, ROTH_B = 40943, 22, 500
+
+
+def roth_model(dev, rank=32, multi_c=True, bias="learn", scale=0.05, name="RotH",
+               dtype="float32", seed=0):
+    """A model at WN18RR's shapes on `dev` with a trained spread of weights
+    drawn on the CPU (scale 3: heads and relation halves that project
+    clips)."""
+    cfg = ModelConfig(n_entities=ROTH_N, n_relations=ROTH_REL, rank=rank, multi_c=multi_c,
+                      bias=bias, gamma=0.7, init_size=1e-3, dtype=dtype)
+    model = get_model(name)(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for k in ("entity", "rel", "bt"):
+            p = getattr(model, k)
+            p.copy_(torch.randn(p.shape, generator=g) * (0.01 if k == "bt" else scale))
+        model.c.copy_(1.0 + 0.05 * torch.randn(model.c.shape, generator=g))
+    return model
+
+
+def roth_batch(dev, l=8, seed=5):
+    """Queries (B, 3) with repeated (h, r), and filter rows (B, l) holding
+    the gold first."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.stack([torch.randint(0, ROTH_N, (ROTH_B,), generator=g),
+                     torch.randint(0, ROTH_REL, (ROTH_B,), generator=g),
+                     torch.randint(0, ROTH_N, (ROTH_B,), generator=g)], 1)
+    q[7, :2] = q[3, :2]
+    fidx = torch.cat([q[:, 2:3], torch.randint(0, ROTH_N, (ROTH_B, l - 1), generator=g)], 1)
+    return q.to(dev), fidx.to(dev)
+
+
+def roth_args(model, cvals):
+    return (model.entity, model.rel, model.rel_diag, model.bt, cvals)
+
+
+@pytest.mark.parametrize("rank,multi_c,bias,scale", [
+    (32, True, "learn", 0.05), (32, False, "constant", 0.05), (8, True, "none", 0.05),
+    (2, True, "learn", 0.05), (64, False, "learn", 0.05), (32, True, "learn", 3.0)])
+@torch.no_grad()
+def test_roth_queries_kernel_matches_plain(rank, multi_c, bias, scale):
+    """The kernel against its plain version on the card, one launch: cid and
+    c equal; lhs, x2 and t2 within 4 float32 ulps of each output's largest
+    entry (fp64 sums in another order may round once the other way)."""
+    dev = _cuda_or_skip()
+    model = roth_model(dev, rank, multi_c, bias, scale)
+    q, _ = roth_batch(dev)
+    cvals = HypRanker(model)._get_tables()[3]
+    HQ.reset_launches()
+    got = HQ.roth_rank_queries(*roth_args(model, cvals), q, multi_c, bias == "learn")
+    want = HQ.roth_rank_queries_plain(*roth_args(model, cvals), q, multi_c, bias == "learn")
+    torch.cuda.synchronize()
+    assert HQ.launches["roth_rank_queries"] == 1
+    for name, a, e in zip(("lhs", "x2", "cid", "c", "t2"), got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype, name
+        if name in ("cid", "c"):
+            assert torch.equal(a, e), name
+            continue
+        assert torch.isfinite(a).all(), name
+        tol = 4 * torch.finfo(torch.float32).eps * float(e.abs().max())
+        assert float((a - e).abs().max()) <= tol, (name, float((a - e).abs().max()), tol)
+
+
+@torch.no_grad()
+def test_roth_queries_route_and_refusals():
+    """The route: RotH at float32 and width <= 64 on the card; RotH at width
+    66, float64 or bfloat16 and every other HypRanker family keep the eager
+    ops.  The wrapper refuses a width above 64 and tables that do not fit."""
+    dev = _cuda_or_skip()
+    assert HQ.use_kernel(roth_model(dev))
+    assert HQ.use_kernel(roth_model(dev, rank=64))
+    assert not HQ.use_kernel(roth_model(dev, rank=66))
+    for dtype in ("float64", "bfloat16"):
+        assert not HQ.use_kernel(roth_model(dev, dtype=dtype))
+    for name in ("RefH", "AttH", "IsoH", "IFFTH", "RotLH", "HyboNet"):
+        assert not HQ.use_kernel(roth_model(dev, rank=6, name=name)), name
+    wide = roth_model(dev, rank=66)
+    q, _ = roth_batch(dev)
+    cvals = HypRanker(wide)._get_tables()[3]
+    with pytest.raises(ValueError):
+        HQ.roth_rank_queries(*roth_args(wide, cvals), q, True, True)
+    model = roth_model(dev)
+    with pytest.raises(ValueError):  # multi_c needs one curvature a relation
+        HQ.roth_rank_queries(*roth_args(model, cvals[:1]), q, True, True)
+    with pytest.raises(TypeError):
+        HQ.roth_rank_queries(*roth_args(model, cvals.double()), q, True, True)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("masked", [True, False])
+def test_roth_ranker_on_the_kernel_ranks_as_the_eager_route(masked, precision, monkeypatch):
+    """A RotH HypRanker's ranks through the kernel against the eager query
+    prep (use_kernel patched off): equal but on the entities that
+    _ranker.near_threshold flags; the kernel launches once a call, and not
+    on the eager route."""
+    dev = _cuda_or_skip()
+    model = roth_model(dev)
+    q, fidx = roth_batch(dev)
+    ranker = HypRanker(model, masked=masked, precision=precision)
+    HQ.reset_launches()
+    got = ranker(q, fidx)
+    got2 = ranker(q, fidx)
+    torch.cuda.synchronize()
+    assert HQ.launches["roth_rank_queries"] == 2
+    assert torch.equal(got, got2)
+    x = ranker.kernel_inputs(q, fidx)
+    monkeypatch.setattr(HQ, "use_kernel", lambda m: False)
+    want = HypRanker(model, masked=masked, precision=precision)(q, fidx)
+    torch.cuda.synchronize()
+    assert HQ.launches["roth_rank_queries"] == 3  # kernel_inputs' launch only
+    # at "default" x holds the bf16 rows the sweep contracts
+    rel, rounded = (TC_REL, True) if precision == "default" else (0.0, False)
+    near = near_threshold(*score_interval("poincare", x, rel, rounded), x["t2"])
+    diff = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((diff <= near.to(diff.dtype)).all()), (float(diff.max()), int(near.max()))
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_roth_two_shard_mesh_ranks_as_one_device(masked):
+    """Two shards of one model group on the card (run_shards), each on the
+    kernel through the mini-tables of the gathered rows: the ranks equal one
+    device's, and each shard launches the kernel once."""
+    import copy
+
+    from complexhyperbolickge_torch.parallel import Mesh, shard_model_
+    from complexhyperbolickge_torch.parallel.ranking import ShardedHypRanker, run_shards
+
+    dev = _cuda_or_skip()
+    model = roth_model(dev)
+    q, fidx = roth_batch(dev)
+    want = HypRanker(model, masked=masked)(q, fidx)
+    shards = []
+    for i in range(2):
+        local = copy.deepcopy(model)
+        shard_model_(local, i, 2)
+        shards.append(ShardedHypRanker(local, Mesh((1, 2), i, dev), ROTH_N, masked=masked))
+    HQ.reset_launches()
+    got = run_shards(shards, q, fidx)
+    torch.cuda.synchronize()
+    assert HQ.launches["roth_rank_queries"] == 2
+    assert torch.equal(got, want)
