@@ -6,7 +6,9 @@ written by either package, as a numpy array keyed by its dotted name
 ("entity", "rel", ..., "gnn.0.w_rel.w" for a GNN), plus `__config__`: the
 run config as UTF-8 JSON bytes, taken from the checkpoint itself (or, for
 a checkpoint without one, from config.json, with a warning).  Reads the
-pickle only: no device, no dataset.
+pickle only: no device, no dataset.  A CompGCN with the corr composition
+or the conve decoder is refused: the JAX package has neither, so nothing
+there could load the arrays.
 
     python -m complexhyperbolickge_torch.cli.export --model_dir runs/fftroth \\
         --out runs/fftroth/embeddings.npz
@@ -37,6 +39,10 @@ def export(model_dir: str, out: str | None = None) -> str:
         cfg = load_config(model_dir)["args"]
         logging.warning("checkpoint carries no embedded config (older format); using "
                         "config.json, which may postdate these weights")
+    if cfg.get("opn") == "corr" or cfg.get("interaction") == "conve":
+        raise ValueError(f"{model_dir}: a CompGCN with --opn {cfg.get('opn')} and "
+                         f"--interaction {cfg.get('interaction')}; the JAX package has no "
+                         "corr composition and no conve decoder, so it cannot load an export")
     out = out or os.path.join(model_dir, "embeddings.npz")
     if not out.endswith(".npz"):
         out += ".npz"  # np.savez would append it silently

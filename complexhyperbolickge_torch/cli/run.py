@@ -30,8 +30,12 @@ loss), which epoch_batches permutes with the triples.
 
 GNN models (CompGCN, PoincareGCN, PoincareGAT, LorentzGCN) train on the
 full graph through the same loop; their flags are --hidden_dim, --layers,
---edge_dropout, --dropout, --opn, --interaction, --basis and
---gnn_agg_method.  With --subgraph a GNN trains on sampled subgraphs
+--edge_dropout, --dropout, --opn (mult, add, corr), --interaction
+(distmult, transe, conve), --basis and --gnn_agg_method, and --k_w, --k_h,
+--num_filt, --ker_sz for CompGCN's conve decoder (a 2 k_w x k_h image of
+the head and relation rows, so --hidden_dim must be k_w * k_h; its batch
+norms' running statistics ride in the checkpoints beside the params).
+With --subgraph a GNN trains on sampled subgraphs
 instead (train/subgraph.py: batches of --batch_size seed edges, CE or BCE
 over each subgraph's nodes, --neg_sample_size 0); the validation loss and
 validation stay on the full graph.  It composes with --mesh and
@@ -106,10 +110,12 @@ from complexhyperbolickge_torch.parallel.mesh import (
 from complexhyperbolickge_torch.parallel.ranking import make_best_sharded_ranker
 from complexhyperbolickge_torch.train.checkpoint import (
     PickledStub,
+    load_buffers,
     load_checkpoint,
     opt_state_from_jax,
     params_from_jax,
     save_checkpoint,
+    state_buffers,
 )
 from complexhyperbolickge_torch.train.evaluate import (
     avg_both,
@@ -123,10 +129,11 @@ from complexhyperbolickge_torch.utils.platform import resolve_device
 from complexhyperbolickge_torch.utils.profiling import trace
 
 DATASETS = ["FB15K", "WN", "WN18RR", "FB237", "YAGO3-10", "synthetic"]
-# the GNN flags and their defaults
+# the GNN flags and their defaults; k_w, k_h, num_filt and ker_sz shape
+# CompGCN's conve decoder (CompGCN's published values)
 _GNN_DEFAULTS = {"hidden_dim": 200, "edge_dropout": 0.3, "layers": 2,
                  "opn": "mult", "interaction": "distmult", "basis": 0,
-                 "gnn_agg_method": 1}
+                 "gnn_agg_method": 1, "k_w": 10, "k_h": 20, "num_filt": 200, "ker_sz": 7}
 
 _DTYPE_ALIASES = {"float": "float32", "single": "float32", "double": "float64"}
 
@@ -316,6 +323,7 @@ def _resume(save_dir, model, trainer, mesh=None):
         return None
     st = max(found, key=lambda s: s["epoch"])
     _load_params(model, trainer, st["params"], mesh)
+    load_buffers(model, st)
     opt_state = st["opt_state"]
     if opt_state is None:
         logging.info("Checkpoint has no optimizer state: warm-starting from "
@@ -523,7 +531,7 @@ def _train(args, mesh, backend: str | None = None) -> dict:
             opt_state = gather_entity_tree(opt_state, sizes[0], mesh)
         if lead:
             save_checkpoint(save_dir, params, opt_state, epoch, best_mrr,
-                            filename=filename, **kw)
+                            filename=filename, buffers=state_buffers(model), **kw)
 
     # SIGTERM: finish the epoch, write latest.pkl, stop (resume with --resume)
     stop_signal = {"flag": False}
@@ -612,6 +620,7 @@ def _train(args, mesh, backend: str | None = None) -> dict:
         st = load_checkpoint(save_dir, expect_params=_canonical(model, trainer),
                              cast_to_expected=True)
         _load_params(model, trainer, st["params"], mesh)
+        load_buffers(model, st)
     else:
         # the last completed epoch, which --resume continues from
         save(config={"args": vars(args)})

@@ -43,7 +43,34 @@ from complexhyperbolickge_torch.models.base import _softplus
 from complexhyperbolickge_torch.models.gnn import message as M
 from complexhyperbolickge_torch.ops import hyperbolic as H
 from complexhyperbolickge_torch.ops.euclidean import givens_rotations
+from complexhyperbolickge_torch.ops.fft import _fft_dtype
 from complexhyperbolickge_torch.utils.nn import MLP, Linear
+from complexhyperbolickge_torch.utils.profiling import span
+
+# since the last reset_counts(): CompGCN compositions that took `corr`, and
+# ConvE decoder calls
+counts = {"corr": 0, "conve": 0}
+
+OPNS = ("mult", "add", "corr")
+
+
+def reset_counts():
+    for k in counts:
+        counts[k] = 0
+
+
+def ccorr(a, b):
+    """Circular correlation over the last axis, CompGCN's `corr`:
+    ccorr(a, b)[k] = sum_i a[i] b[(i + k) mod d], computed as CompGCN
+    computes it, irfft(conj(rfft(a)) * rfft(b)) with torch.fft's default
+    norms (rfft unnormalised, irfft over d), which give the definition
+    exactly; ops/fft.py's norm="ortho" transforms would give it over
+    sqrt(d).  bfloat16 runs its transforms in float32."""
+    d = a.shape[-1]
+    ft = _fft_dtype(a.dtype)
+    fa = torch.fft.rfft(a.to(ft), dim=-1)
+    fb = torch.fft.rfft(b.to(ft), dim=-1)
+    return torch.fft.irfft(torch.conj(fa) * fb, n=d, dim=-1).to(a.dtype)
 
 
 def _draw(kind: str, shape, generator):
@@ -87,11 +114,16 @@ class CompGCNConv(_Conv):
     """Composition GCN layer: message = composition(x_tail, rel) @ W_dir for
     dir in {in, out, loop}; 1/3 each of the degree-normalized in and out
     sums and the self loop; batch norm over nodes with batch statistics;
-    activation; rel' = rel @ W_rel."""
+    activation; rel' = rel @ W_rel.  The composition (opn) is mult (x * r),
+    add (x - r, CompGCN's sub) or corr (ccorr(x, r)); a corr composition's
+    forward is the profiler range kge.train.corr and counts in
+    counts["corr"]."""
 
     def __init__(self, d_in, d_out, d_in_r, d_out_r, act, dropout=0.0, opn="mult",
                  dtype=None, device=None):
         super().__init__()
+        if opn not in OPNS:
+            raise ValueError(f"unknown composition {opn!r} (one of {', '.join(OPNS)})")
         self.d_in, self.d_out, self.d_in_r, self.d_out_r = d_in, d_out, d_in_r, d_out_r
         self.act, self.dropout, self.opn = act, dropout, opn
         self._register(dtype, device)
@@ -105,6 +137,10 @@ class CompGCNConv(_Conv):
                 "bn_bias": ((do,), "zeros")}
 
     def _compose(self, x, r):
+        if self.opn == "corr":
+            counts["corr"] += 1
+            with span("train.corr"):
+                return ccorr(x, r)
         return x - r if self.opn == "add" else x * r
 
     def _bn(self, out, node_w=None):
@@ -161,6 +197,104 @@ class CompGCNConv(_Conv):
 
     def regularizable(self):
         return [self.w_loop, self.w_in, self.w_out, self.w_rel]
+
+
+# ------------------------------ ConvE decoder --------------------------------
+
+
+class ConvE(nn.Module):
+    """CompGCN's ConvE decoder (model/models.py CompGCN_ConvE) over a batch
+    of encoded (head, relation) rows (B, h), h = k_w * k_h:
+      1. interleave [e; r] into a (B, 1, 2 k_w, k_h) image (e0, r0, e1, r1,
+         ... row by row: CompGCN's cat, transpose(2, 1) and reshape);
+      2. batch norm over the one channel;
+      3. a num_filt x ker_sz x ker_sz convolution, no bias;
+      4. batch norm over the filters, ReLU;
+      5. flatten, a linear map (fc, fc_bias) to h;
+      6. batch norm over the h features, ReLU.
+    The caller takes the result's dot with every encoded entity.  Each batch
+    norm takes batch statistics in training and updates its running mean
+    and (unbiased) variance by momentum 0.1, as torch.nn.BatchNorm does;
+    out of training it normalizes by the running ones.  The running
+    statistics are buffers outside state_dict() (persistent=False), so the
+    state_dict holds the parameters alone; checkpoints carry them beside
+    the parameters (train/checkpoint.py::state_buffers).
+
+    Dropout, in training with a generator, at the `dropout` rate: on the
+    head rows before the interleave (CompGCN's hid_drop drops the whole
+    encoded table, the candidates too), after the convolution's ReLU
+    (feat_drop) and after fc (hid_drop2).  Parameters: conv (num_filt, 1,
+    ker_sz, ker_sz) and fc (flat, h) with fc_bias (h,) drawn as torch's
+    Conv2d and Linear draw them (kaiming_uniform_(a=sqrt(5)): U(+-1 /
+    sqrt(fan_in))), each batch norm's scale 1 and shift 0."""
+
+    MOMENTUM, EPS = 0.1, 1e-5
+
+    def __init__(self, h: int, k_w: int, k_h: int, num_filt: int, ker_sz: int,
+                 dropout: float = 0.0, dtype=None, device=None):
+        super().__init__()
+        if h != k_w * k_h:
+            raise ValueError(f"ConvE needs the last layer's width {h} to equal k_w * k_h = "
+                             f"{k_w} * {k_h}")
+        if ker_sz > min(2 * k_w, k_h):
+            raise ValueError(f"ConvE's kernel {ker_sz} exceeds its {2 * k_w} x {k_h} image")
+        self.h, self.k_w, self.k_h, self.num_filt, self.ker_sz = h, k_w, k_h, num_filt, ker_sz
+        self.dropout = dropout
+        self.flat = num_filt * (2 * k_w - ker_sz + 1) * (k_h - ker_sz + 1)
+        for name, (shape, _) in self.param_specs().items():
+            setattr(self, name, nn.Parameter(torch.empty(shape, dtype=dtype, device=device)))
+        for i, n in enumerate((1, num_filt, h)):
+            self.register_buffer(f"bn{i}_mean", torch.zeros(n, dtype=dtype, device=device),
+                                 persistent=False)
+            self.register_buffer(f"bn{i}_var", torch.ones(n, dtype=dtype, device=device),
+                                 persistent=False)
+
+    def param_specs(self):
+        """name -> (shape, fan_in for U(+-1 / sqrt(fan_in)), or "ones" / "zeros")."""
+        f, k, h = self.num_filt, self.ker_sz, self.h
+        return {"bn0_scale": ((1,), "ones"), "bn0_bias": ((1,), "zeros"),
+                "conv": ((f, 1, k, k), k * k),
+                "bn1_scale": ((f,), "ones"), "bn1_bias": ((f,), "zeros"),
+                "fc": ((self.flat, h), self.flat), "fc_bias": ((h,), self.flat),
+                "bn2_scale": ((h,), "ones"), "bn2_bias": ((h,), "zeros")}
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Draws on the CPU from `generator`, in param_specs' order; fresh
+        running statistics (mean 0, variance 1)."""
+        for name, (shape, kind) in self.param_specs().items():
+            if kind == "ones":
+                v = torch.ones(shape)
+            elif kind == "zeros":
+                v = torch.zeros(shape)
+            else:
+                v = (torch.rand(shape, generator=generator) * 2.0 - 1.0) / math.sqrt(kind)
+            getattr(self, name).copy_(v)
+        for name, buf in self.named_buffers():
+            buf.fill_(0.0 if name.endswith("_mean") else 1.0)
+
+    def interleave(self, e, r):
+        """(B, h) head and relation rows -> the (B, 1, 2 k_w, k_h) image."""
+        return torch.stack([e, r], dim=-1).reshape(e.shape[0], 1, 2 * self.k_w, self.k_h)
+
+    def _bn(self, x, i: int, training: bool):
+        return torch.nn.functional.batch_norm(
+            x, getattr(self, f"bn{i}_mean"), getattr(self, f"bn{i}_var"),
+            getattr(self, f"bn{i}_scale"), getattr(self, f"bn{i}_bias"), training,
+            self.MOMENTUM, self.EPS)
+
+    def forward(self, e, r, generator=None, training: bool = False):
+        """The decoder's (B, h) query rows of head rows e and relation rows
+        r; dropout draws from `generator` in training only."""
+        counts["conve"] += 1
+        gen = generator if training else None
+        x = self.interleave(M.dropout(gen, e, self.dropout), r)
+        x = self._bn(x, 0, training)
+        x = torch.nn.functional.conv2d(x, self.conv)
+        x = M.dropout(gen, torch.relu(self._bn(x, 1, training)), self.dropout)
+        x = torch.matmul(x.reshape(x.shape[0], self.flat), self.fc) + self.fc_bias
+        x = M.dropout(gen, x, self.dropout)
+        return torch.relu(self._bn(x, 2, training))
 
 
 # ------------------------------ PoincareConv ---------------------------------

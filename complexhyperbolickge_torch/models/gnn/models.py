@@ -38,6 +38,7 @@ from complexhyperbolickge_torch.models.base import (
 from complexhyperbolickge_torch.models.gnn import message as M
 from complexhyperbolickge_torch.models.gnn.convs import (
     CompGCNConv,
+    ConvE,
     LorentzConv,
     PoincareConv,
     PoincareGATConv,
@@ -49,6 +50,21 @@ from complexhyperbolickge_torch.utils.profiling import span
 from complexhyperbolickge_torch.utils.versions import is_current, params_key
 
 GNN_MODELS = ["CompGCN", "PoincareGCN", "PoincareGAT", "LorentzGCN"]
+
+# ConvE's published shape (CompGCN's run.py defaults): a 2 k_w x k_h image,
+# num_filt filters of ker_sz x ker_sz
+CONVE_DEFAULTS = {"k_w": 10, "k_h": 20, "num_filt": 200, "ker_sz": 7}
+
+
+class TrainingEncoding(tuple):
+    """A training encode's (x, rel_pack) with the step's generator: a
+    decoder with state of its own (ConvE's batch norms and dropouts) runs in
+    training mode on it, and in eval mode on a plain tuple."""
+
+    def __new__(cls, cache, generator):
+        out = super().__new__(cls, cache)
+        out.generator = generator
+        return out
 
 
 class GNNModel(KGModel):
@@ -260,20 +276,38 @@ class BoundGNN:
 
 
 class CompGCN(GNNModel):
-    """CompGCN with optional basis decomposition and a distmult or transe
-    decoder."""
+    """CompGCN with optional basis decomposition and a distmult, transe or
+    conve decoder.  conve (convs.ConvE) reads k_w, k_h, num_filt and ker_sz
+    from the run config (CONVE_DEFAULTS where absent) and its dropouts
+    from `dropout`; its module `conve` holds its parameters (conve.<name>)
+    and its batch norms' running statistics.  A training encode returns a
+    TrainingEncoding, on which get_queries runs the decoder in training
+    mode inside the profiler range kge.train.decode."""
 
     conv_cls = CompGCNConv
     act_r_on_rel = False  # the reference's act_r is the identity
+    INTERACTIONS = ("distmult", "transe", "conve")
 
     def __init__(self, cfg, args, dataset, device=None, generator=None):
         self.basis = getattr(args, "basis", 0) or 0
         self.opn = getattr(args, "opn", "mult") or "mult"
         self.interaction = (getattr(args, "interaction", "distmult") or "distmult").lower()
-        if self.interaction not in ("distmult", "transe"):
+        if self.interaction not in self.INTERACTIONS:
             raise ValueError(f"unknown interaction {self.interaction!r}")
         super().__init__(cfg, args, dataset, device=device, generator=generator)
         self.drop_in_between = True
+        self.conve = None
+        if self.interaction == "conve":
+            shape = {k: getattr(args, k, None) or v for k, v in CONVE_DEFAULTS.items()}
+            self.conve = ConvE(self.hidden_dim, **shape,
+                               dropout=self.feat_dropout, dtype=cfg.torch_dtype, device=device)
+            self.conve.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """The tables' and layers' draws, then the decoder's."""
+        super().reset_parameters(generator)
+        if getattr(self, "conve", None) is not None:
+            self.conve.reset_parameters(generator)
 
     def rel_channels(self, d):
         return d
@@ -296,17 +330,36 @@ class CompGCN(GNNModel):
     def get_r(self):
         return torch.matmul(self.rel, self.rel_basis) if self.basis > 0 else self.rel
 
+    def encode(self, generator: torch.Generator | None = None, training: bool = False):
+        cache = super().encode(generator, training)
+        return TrainingEncoding(cache, generator) if training and self.conve is not None else cache
+
+    def encode_subgraph(self, *args, **kwargs):
+        if self.conve is not None:
+            raise ValueError("CompGCN's conve decoder trains on the full graph only, "
+                             "not with --subgraph")
+        return super().encode_subgraph(*args, **kwargs)
+
     def get_queries(self, queries, cache=None):
         x, r = cache if cache is not None else self.encode()
         head, rel = x[queries[..., 0]], r[queries[..., 1]]
-        lhs = head * rel if self.interaction == "distmult" else head + rel
+        if self.interaction == "conve":
+            if isinstance(cache, TrainingEncoding):
+                with span("train.decode"):
+                    lhs = self.conve(head, rel, cache.generator, training=True)
+            else:
+                lhs = self.conve(head, rel)
+        elif self.interaction == "distmult":
+            lhs = head * rel
+        else:
+            lhs = head + rel
         return (lhs,), self.bh[queries[..., 0]]
 
     def sim(self, lhs_pack, rhs_e, all_pairs: bool):
         (lhs,) = lhs_pack
-        if self.interaction == "distmult":
-            return dot_all(lhs, rhs_e) if all_pairs else dot_train(lhs, rhs_e)
-        return neg_sq_dist(lhs, rhs_e, all_pairs)
+        if self.interaction == "transe":
+            return neg_sq_dist(lhs, rhs_e, all_pairs)
+        return dot_all(lhs, rhs_e) if all_pairs else dot_train(lhs, rhs_e)
 
 
 # ------------------------------- PoincareGCN ---------------------------------

@@ -25,6 +25,12 @@ them, when ml_dtypes imports (JAX depends on it; the port does not).
 Without it they are widened to float32, exactly, and the schema keeps
 "bfloat16": the port's loader reads both forms (JAX's only the first).
 
+A model's state outside its parameters (the running statistics of
+CompGCN's ConvE decoder: buffers that state_dict() leaves out) rides in a
+`buffers` slot (name -> numpy array), written only when the model has
+such state: `state_buffers` reads it from a model and `load_buffers`
+puts it back.
+
 The port's trainer writes its own optimizer state in the opt_state slot as
 {"lr": float, "state": {param name: {torch state key: numpy array}}}
 (train/trainer.py::Trainer.opt_state): numbers and arrays only, so the JAX
@@ -217,12 +223,31 @@ def params_to_jax(params: dict):
     return nest({k: _to_numpy(v) for k, v in params.items()})
 
 
+def state_buffers(model: torch.nn.Module) -> dict:
+    """name -> tensor of the model's buffers that state_dict() leaves out
+    (non-persistent): the state a checkpoint carries beside the params."""
+    keep = model.state_dict().keys()
+    return {k: v for k, v in model.named_buffers() if k not in keep}
+
+
+def load_buffers(model: torch.nn.Module, state: dict):
+    """Copy a checkpoint's `buffers` slot into the model's buffers of those
+    names (a checkpoint without one changes nothing)."""
+    with torch.no_grad():
+        for k, v in (state.get("buffers") or {}).items():
+            buf = model.get_buffer(k)
+            buf.copy_(_to_torch(v).to(device=buf.device, dtype=buf.dtype))
+
+
 def save_checkpoint(path: str, params: dict, opt_state=None, epoch: int = 0,
                     best_mrr: float | None = None, config: dict | None = None,
-                    filename: str = "state.pkl", extra: dict | None = None):
+                    filename: str = "state.pkl", extra: dict | None = None,
+                    buffers: dict | None = None):
     """Write `params` (name -> tensor, e.g. model.state_dict()) in the JAX
     format.  filename='state.pkl' is the best-validation checkpoint;
-    config rides inside the checkpoint and in config.json beside it."""
+    config rides inside the checkpoint and in config.json beside it;
+    buffers (state_buffers(model)), when not empty, in the `buffers`
+    slot."""
     os.makedirs(path, exist_ok=True)
     state = {
         "format_version": FORMAT_VERSION,
@@ -234,6 +259,8 @@ def save_checkpoint(path: str, params: dict, opt_state=None, epoch: int = 0,
         "epoch": epoch,
         "best_mrr": best_mrr,
     }
+    if buffers:
+        state["buffers"] = {k: _to_numpy(v) for k, v in buffers.items()}
     if extra:
         state.update(extra)
     cfg = None
@@ -323,11 +350,13 @@ def _unwiden(got: dict, schema: dict) -> dict:
 def load_into(model: torch.nn.Module, path: str,
               filename: str = "state.pkl") -> dict:
     """Schema-check a checkpoint against `model` (shapes strict, dtypes cast
-    to the model's) and load its params in place; returns the state."""
+    to the model's) and load its params and buffers in place; returns the
+    state."""
     state = load_checkpoint(path, expect_params=model.state_dict(),
                             filename=filename, cast_to_expected=True)
     p = next(model.parameters())
     model.load_state_dict(params_from_jax(state["params"], p.device, p.dtype))
+    load_buffers(model, state)
     return state
 
 

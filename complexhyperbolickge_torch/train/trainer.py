@@ -216,6 +216,10 @@ class Trainer:
         self.draw = draw
         self.reg_fn = get_regularizer(cfg.regularizer)
         self.mesh = mesh if mesh is not None and mesh.collective else None
+        if (self.mesh is not None and self.mesh.n_data > 1
+                and getattr(model, "conve", None) is not None):
+            raise ValueError("CompGCN's conve decoder normalizes by its batch's statistics; "
+                             "a mesh's data axis would split them over the ranks")
         # names of the row-sharded parameters (M > 1)
         self.sharded = ()
         if self.mesh is not None and self.mesh.n_model > 1:

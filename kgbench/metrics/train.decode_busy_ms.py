@@ -1,0 +1,12 @@
+"""train.decode_busy_ms: the card's busy milliseconds a training step in the
+program's kge.train.decode phase (CompGCN's ConvE decoder over the batch's
+queries in a training get_queries, inside kge.train.loss): the union of the
+device operations launched inside the phase's ranges, over the
+kge.train.step ranges of the profiled sub-window (kgbench/phases.py).
+None where the program has no such range.  Moves train_triples_per_s."""
+
+from kgbench.phases import busy_ms
+
+
+def read(r):
+    return busy_ms(r, "train.decode")
